@@ -1,0 +1,367 @@
+"""Exact brute-force k-NN — the flat index's slice of the port.
+
+Counterpart of ``petal_neighbors_tpu/ops/bruteforce.py``, reduced to what
+the exact flat index needs:
+
+* the build: ``center_of``, ``pad_for_pallas``, ``prepare_euclidean_index``;
+* the kernel route ``knn_prepadded`` (``ops/bruteforce.py:577-1009`` at
+  FP32): the bcap, capped or fold kernel over the padded index at
+  ``k_scan = k + RESCORE_SLACK``, a direct-form rescore, and for bcap and
+  capped the per-batch proof with the compacted repair on the fold kernel;
+* the streamed scan ``knn`` / ``_knn_impl``: the JAX package's XLA path,
+  which serves f64 indexes, SqEuclidean and ``k_scan > 1024``.
+
+All distance evaluation is a tiled ``‖q‖² + ‖x‖² − 2 q·xᵀ`` product on
+centered data (or the direct form at d <= 32), streamed over point chunks
+with a running top-k so the (Q, N) distance matrix never materializes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..distance import DIRECT_DIM_MAX, Euclidean, Metric
+from .cuda.knn_kernel import (BCAP_BLOCK, PASSES_MAX, knn_bcap, knn_capped,
+                              knn_fold)
+from .topk import (merge_topk, monotone_distances, nan_to_inf, rescore_exact,
+                   smallest_k)
+
+__all__ = ["knn", "knn_prepadded", "center_of", "pad_for_pallas",
+           "prepare_euclidean_index", "pick_scheme", "capped_passes",
+           "RESCORE_SLACK", "PAD_ROWS"]
+
+RESCORE_SLACK = 8
+
+#: index pad granule: a multiple of the bcap block, so the rescore reads
+#: whole blocks (the kernels themselves take any row count)
+PAD_ROWS = 64
+
+#: corpus size from which the proof-gated schemes serve (the JAX package's
+#: cutover, ops/bruteforce.py:639-654)
+CAPPED_MIN_N = 262144
+
+#: capped tile in rows (the JAX package's tile at d <= 256, pallas_tile_n)
+CAPPED_TILE = 4096
+
+#: bcap tile in blocks: 2048 rows, the JAX package's bcap_tile_n
+BCAP_TILE = 128
+
+#: pointwise |computed u − true u| bound of the FP32 score product
+#: (ops/bruteforce.py:274, "highest"), with the sequential-sum term
+PROOF_EPS = 2.0 ** -23
+
+
+def center_of(points: torch.Tensor) -> torch.Tensor:
+    """Dataset mean for centering (NaN rows ignored; all-NaN columns -> 0).
+
+    Euclidean distances are translation-invariant, but the
+    ‖q‖²+‖x‖²−2qx matmul form is not *numerically*: its absolute error
+    scales with eps*(‖q‖²+‖x‖²), so un-centered data silently destroys the
+    candidate set.  Centering once at index build shrinks the norms to
+    data-variance scale and restores exactness."""
+    return torch.nan_to_num(torch.nanmean(points, dim=0))
+
+
+def pad_for_pallas(points: torch.Tensor, point_norms=None, *,
+                   tn: int | None = None, bad=None):
+    """Sanitize and pad points (and norms) for the kernels, once at index
+    build.
+
+    Rows containing any NaN are zeroed and their norms pinned to +inf,
+    making their u-scores +inf (never selected — the NaN-is-farthest
+    contract); padding rows up to a multiple of ``tn`` (default
+    ``PAD_ROWS``) get the same treatment.  Returns (points, norms)."""
+    n = points.shape[0]
+    if tn is None:
+        tn = PAD_ROWS
+    if bad is None:
+        bad = torch.isnan(points).any(dim=-1)
+    points = torch.where(bad[:, None], 0.0, points)
+    if point_norms is None:
+        point_norms = torch.sum(points * points, dim=-1)
+    point_norms = torch.where(bad, torch.inf, point_norms)
+    npad = (-n) % tn
+    if npad:
+        points = torch.nn.functional.pad(points, (0, 0, 0, npad))
+        point_norms = torch.nn.functional.pad(point_norms, (0, npad),
+                                              value=float("inf"))
+    return points, point_norms
+
+
+def prepare_euclidean_index(points: torch.Tensor, tn: int | None = None):
+    """Every index-resident array of the Euclidean kernel route: the
+    center ``mu``, the kernel-padded centered points ``ppad`` and their
+    norms ``pnorm``, and the NaN-row mask ``bad``.  Only derived arrays
+    are kept: callers slice ``ppad[:n]`` when the scan needs the points."""
+    mu = center_of(points)
+    bad = torch.isnan(points).any(dim=-1)
+    ppad, pnorm = pad_for_pallas(points - mu, tn=tn, bad=bad)
+    return mu, ppad, pnorm, bad
+
+
+def pick_scheme(k_eff: int, n_real: int) -> str:
+    """The kernel route's scheme (ops/bruteforce.py:638-663, reduced to
+    the port's kernels): bcap for ``k_scan <= 32`` and capped for
+    ``k_scan <= 128`` at serving scale (``n >= 262144``), fold otherwise.
+    The thresholds are the JAX package's cutovers; this card's own are not
+    measured yet."""
+    ks = min(k_eff + RESCORE_SLACK, n_real)
+    if ks <= 32 and n_real >= CAPPED_MIN_N:
+        return "bcap"
+    if ks <= 128 and n_real >= CAPPED_MIN_N:
+        return "capped"
+    return "fold"
+
+
+def capped_passes(k_scan: int, tile_rows: int, n_real: int,
+                  scheme: str) -> int:
+    """Extraction passes per tile (ops/bruteforce.py:807-813, :922-928):
+    sized for the per-tile survivor count, a Poisson(lam = k_scan *
+    tile / n) variable, with 3 sqrt(lam) of tail slack; the small-k
+    serving regimes keep the measured 2 and 4.  Capped at ``PASSES_MAX``
+    (a miss costs a repair, never exactness)."""
+    lam = k_scan * tile_rows / n_real
+    if lam <= 0.5 and (scheme == "bcap" or k_scan <= 32):
+        passes = 2
+    elif scheme == "capped" and k_scan <= 128 and lam <= 2.0:
+        passes = 4
+    else:
+        passes = math.ceil(lam + 3.0 * math.sqrt(lam) + 2.0)
+    return min(PASSES_MAX, passes)
+
+
+def _proof_err(dim: int, qn, xn_max):
+    """Pointwise |computed u − true u| bound of the FP32 product
+    (ops/bruteforce.py:277-281 at "highest"): 4x the f32 rounding plus the
+    sequential-sum accumulation term d·2⁻²⁴, times ‖q‖² + max ‖x‖²."""
+    return (4.0 * PROOF_EPS + dim * 2.0 ** -24) * (qn + xn_max)
+
+
+def _rescore(pts_padded, queries, idx, k_eff: int):
+    """``rescore_exact`` over query chunks whose (rows, k_in, d) gather
+    stays near 256 MB of float32."""
+    q, dim = queries.shape
+    rows = max(1, (1 << 26) // (max(idx.shape[1], 1) * dim))
+    parts = [rescore_exact(pts_padded, queries[s:s + rows],
+                           idx[s:s + rows], k_eff)
+             for s in range(0, q, rows)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _bcap_rescore(pts_padded, xn_padded, queries, block_ids, k_eff: int):
+    """Exact direct-form rescore of the bcap kernel's candidate blocks
+    (ops/bruteforce.py:375-415): each id maps to ``BCAP_BLOCK`` contiguous
+    rows, gathered as one slab.  Padding and NaN rows carry +inf norms and
+    are excluded; NaN queries give (+inf, -1).  Returns (rd, ids)
+    ascending, (Q, k_eff)."""
+    b = BCAP_BLOCK
+    q, kb = block_ids.shape
+    n_pad, dim = pts_padded.shape
+    pts3 = pts_padded.reshape(n_pad // b, b, dim)
+    xn3 = xn_padded.reshape(n_pad // b, b)
+    off = torch.arange(b, dtype=torch.int32, device=pts_padded.device)
+    rows_per = max(1, (1 << 26) // (kb * b * dim))
+    out_d, out_i = [], []
+    for s in range(0, q, rows_per):
+        bic = block_ids[s:s + rows_per]
+        qc = queries[s:s + rows_per]
+        safe = torch.where(bic >= 0, bic, 0).long()
+        diff = qc[:, None, None, :] - pts3[safe]        # (qc, kb, b, d)
+        rd = torch.sum(diff * diff, dim=-1)
+        ok = torch.isfinite(xn3[safe]) & (bic >= 0)[:, :, None]
+        rd = torch.where(ok, nan_to_inf(rd), torch.inf)
+        rows = safe.int()[:, :, None] * b + off
+        d_, i_ = smallest_k(rd.reshape(len(qc), -1),
+                            rows.reshape(len(qc), -1), k_eff)
+        out_d.append(d_)
+        out_i.append(torch.where(torch.isfinite(d_), i_, -1))
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
+                  k_eff: int, k_scan: int, n_real: int):
+    """The compacted repair of the proof-gated schemes
+    (ops/bruteforce.py:732-779): the queries the proof could not cover
+    run the fold kernel, which is exact with the rescore slack, and their
+    rows are replaced.  Shapes are dynamic here, so the uncovered queries
+    form one batch of their own size; the JAX package's 256-row cap and
+    whole-batch fallback have no counterpart."""
+    unc = torch.nonzero(~covered).flatten()
+    if unc.numel() == 0:
+        return best_rd, best_i
+    qu = queries[unc]
+    _, idx = knn_fold(pts_padded, qu, xn_padded, k=k_scan)
+    fr, fi = _rescore(pts_padded, qu, torch.where(idx < n_real, idx, -1),
+                      k_eff)
+    best_rd = best_rd.index_copy(0, unc, fr)
+    best_i = best_i.index_copy(0, unc, fi)
+    return best_rd, best_i
+
+
+def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
+                  center=None, *, scheme: str | None = None):
+    """Exact k-NN through the kernels over an index padded by
+    ``pad_for_pallas`` (``knn_pallas_prepadded`` at FP32).
+
+    ``pts_padded``/``xn_padded`` are pre-centered (``center_of``); pass the
+    same ``center`` so the queries are shifted here.  ``scheme`` (default
+    ``pick_scheme``) is "bcap", "capped" or "fold".  Every scheme keeps
+    ``k_scan = min(k_eff +
+    RESCORE_SLACK, n_real)`` candidates (bcap: that many blocks, at least
+    12), re-scores them with the direct form and re-ranks:
+
+    * fold keeps the exact FP32 top k_scan; the slack absorbs the product
+      form's rounding, so it needs no proof;
+    * capped and bcap may skip true members where a tile had more than
+      ``passes`` survivors.  Their threshold ``thr`` lower-bounds every
+      point left out, so a query is covered when its re-scored k-th
+      distance is at most ``thr − err`` (``_proof_err``); uncovered
+      queries are recomputed by the fold kernel (``_prove_repair``).
+
+    Returns (distances, ids), (Q, k_eff), ascending; NaN queries and
+    missing slots are (+inf, -1)."""
+    if center is not None:
+        queries = queries - center
+    scheme = scheme or pick_scheme(k_eff, n_real)
+    k_scan = min(k_eff + RESCORE_SLACK, n_real)
+    if scheme == "fold":
+        _, idx = knn_fold(pts_padded, queries, xn_padded, k=k_scan)
+        # drop any padded-row ids (none can appear: their norms are +inf)
+        best_rd, best_i = _rescore(pts_padded, queries,
+                                   torch.where(idx < n_real, idx, -1), k_eff)
+        return monotone_distances(torch.sqrt(best_rd)), best_i
+    if scheme == "bcap":
+        n_blocks = -(-pts_padded.shape[0] // BCAP_BLOCK)
+        k_cand = min(max(k_eff + RESCORE_SLACK, 12), BCAP_TILE, n_blocks)
+        tile, tile_rows = BCAP_TILE, BCAP_TILE * BCAP_BLOCK
+        covers_all = k_cand * BCAP_BLOCK >= n_real
+    elif scheme == "capped":
+        k_cand = k_scan
+        tile = tile_rows = max(CAPPED_TILE, -(-k_scan // PAD_ROWS) * PAD_ROWS)
+        covers_all = k_scan >= n_real
+    else:
+        raise ValueError(f"unknown scheme {scheme!r}")
+    passes = capped_passes(k_cand, tile_rows, n_real, scheme)
+    run = knn_bcap if scheme == "bcap" else knn_capped
+    rd, idx, thr = run(pts_padded, queries, xn_padded, k=k_cand, tile=tile,
+                       passes=passes)
+    if scheme == "bcap":
+        best_rd, best_i = _bcap_rescore(pts_padded, xn_padded, queries, idx,
+                                        k_eff)
+    else:
+        # a seed slot may hold a NaN or padding row at +inf: the direct
+        # form would score its zeroed copy as finite, so it goes as -1
+        ok = torch.isfinite(rd) & (idx < n_real)
+        best_rd, best_i = _rescore(pts_padded, queries,
+                                   torch.where(ok, idx, -1), k_eff)
+    qn = torch.sum(queries * queries, dim=1)
+    xn_max = torch.max(torch.where(torch.isfinite(xn_padded), xn_padded, 0.0))
+    kth = best_rd[:, -1]
+    covered = covers_all | (kth <= thr - _proof_err(queries.shape[1], qn,
+                                                    xn_max))
+    # a non-finite k-th is covered only when thr is non-finite too (a NaN
+    # query, or nothing finite skipped); a finite thr means finite scores
+    # were skipped while the set still held +inf seeds (:841-849)
+    covered = covered | (~torch.isfinite(kth) & ~torch.isfinite(thr))
+    best_rd, best_i = _prove_repair(covered, best_rd, best_i, pts_padded,
+                                    xn_padded, queries, k_eff, k_scan,
+                                    n_real)
+    return monotone_distances(torch.sqrt(best_rd)), best_i
+
+
+def _pick_chunk(n: int, q: int, dim: int, chunk: int | None) -> int:
+    if chunk is not None:
+        return max(1, min(chunk, n))
+    # Aim for ~64 MB of per-step intermediate, power-of-two sized.  The
+    # direct-difference form (d <= 32) materializes (q, c, dim), not (q, c).
+    per_elem = 4 * (dim if dim <= DIRECT_DIM_MAX else 1)
+    target = max(1, (64 << 20) // max(per_elem * q, 1))
+    c = 1 << min(int(math.log2(target)) if target > 1 else 0, 20)
+    return max(128, min(c, n))
+
+
+def knn(points, queries, k: int, metric: Metric | None = None,
+        *, chunk: int | None = None, point_norms=None, invalid=None):
+    """Exact k nearest neighbors by the streamed scan (the JAX package's
+    XLA path, ``ops/bruteforce.py:144-200``).
+
+    The caller centers high-dim Euclidean data (``center_of``) and passes
+    the matching ``point_norms`` or none.  ``invalid`` (n,) bool marks rows
+    that must never match (an index's zeroed NaN rows).
+    """
+    metric = metric or Euclidean()
+    n = points.shape[0]
+    k_eff = min(int(k), n)
+    if k_eff == 0:
+        return (torch.zeros((queries.shape[0], 0), dtype=points.dtype,
+                            device=points.device),
+                torch.zeros((queries.shape[0], 0), dtype=torch.int32,
+                            device=points.device))
+    c = _pick_chunk(n, queries.shape[0], points.shape[1], chunk)
+    return _knn_impl(points, queries, point_norms, invalid, k_eff, metric, c)
+
+
+def _knn_impl(points, queries, point_norms, invalid, k: int,
+              metric: Metric, chunk: int):
+    """Exact k nearest neighbors of ``queries`` (Q, d) among ``points``
+    (n, d), streamed over point chunks (``ops/bruteforce.py:1064-1160``).
+
+    Returns ``(distances, indices)`` with shape (Q, k), sorted ascending;
+    the caller guarantees ``1 <= k <= n``.  NaN distances sort as +inf.
+
+    For high-dim Euclidean the streaming pass uses the matmul form; the
+    final top-(k + slack) candidates are re-scored with the direct (q-x)^2
+    form and re-ranked.
+    """
+    n, dim = points.shape
+    q = queries.shape[0]
+    dev = points.device
+    do_rescore = isinstance(metric, Euclidean) and dim > DIRECT_DIM_MAX
+    k_scan = min(k + RESCORE_SLACK, n) if do_rescore else k
+
+    use_norms = isinstance(metric, Euclidean)
+    if use_norms:
+        qn = torch.sum(queries * queries, dim=-1)
+        # provided norms are used as they are, never recomputed: an
+        # index's resident copy may hold zeroed NaN rows whose exclusion
+        # lives in the +inf norms
+        xn = (point_norms if point_norms is not None
+              else torch.sum(points * points, dim=-1))
+
+    best_d = torch.full((q, k_scan), torch.inf, dtype=points.dtype,
+                        device=dev)
+    best_i = torch.full((q, k_scan), -1, dtype=torch.int32, device=dev)
+    for base in range(0, n, chunk):
+        pts = points[base:base + chunk]
+        if use_norms:
+            rd = metric.rdist_with_norms(queries, pts, qn,
+                                         xn[base:base + chunk])
+        else:
+            rd = metric.rdist(queries, pts)
+        rd = nan_to_inf(rd)
+        if invalid is not None:
+            rd = torch.where(invalid[base:base + chunk][None, :], torch.inf,
+                             rd)
+        ids = torch.arange(base, base + pts.shape[0], dtype=torch.int32,
+                           device=dev).expand(q, -1)
+        # New candidates go first so a real point at +inf (NaN coords sort
+        # farthest) beats the -1/inf init sentinel on the positional
+        # tie-break.
+        best_d, best_i = merge_topk(rd, ids, best_d, best_i, k_scan)
+
+    if invalid is not None:
+        # invalid rows are selectable only at +inf ties (k ~ finite count);
+        # they must never reach the rescore nor surface as results
+        best_i = torch.where(invalid[best_i.clamp_min(0).long()]
+                             & (best_i >= 0), -1, best_i)
+    if do_rescore:
+        best_d, best_i = rescore_exact(points, queries, best_i, k)
+    # invalid queries (NaN coords): every distance is NaN -> +inf, and the
+    # positional tie-break above would surface arbitrary real ids — align
+    # with the kernel route's (+inf, -1) policy
+    qbad = metric.invalid_queries(queries)[:, None]
+    dists = monotone_distances(metric.rdistance_to_distance(best_d))
+    return (torch.where(qbad, torch.inf, dists),
+            torch.where(qbad, -1, best_i))

@@ -1,0 +1,848 @@
+// knn_fold.cu — the fold family of streaming top-k kernels, FP32 SIMT.
+//
+// Replaces three kernels of petal_neighbors_tpu/ops/pallas/knn_kernel.py,
+// one template instantiated per mode:
+//   MODE_FOLD   _knn_kernel (:186, the "fold" scheme, with _fold_min :97):
+//               the exact k smallest u per query.
+//   MODE_CAPPED _knn_kernel_capped (:429): at most `passes` extractions per
+//               tile of rows, plus a per-query threshold thr below which no
+//               point outside the working set can lie.
+//   MODE_BCAP   _knn_kernel_bcap (:546): the capped scheme over the minima
+//               of blocks of BLOCK = 16 contiguous rows; returns block ids.
+//
+// What they compute: for each query q and every point row x,
+//     u = ||x||^2 - 2 q.x
+// and, per query, a working set of k (u, id) entries; ||q||^2 is added back
+// at the end and the result clamped at 0 (rdist).  Output order inside a
+// row is unspecified (the caller re-ranks).  Rows that pad_for_pallas
+// zeroed carry +inf norms, so their u is +inf.  A NaN query row gives NaN
+// scores, which fail every `<` comparison, so the row keeps (+inf, -1).
+//
+// Capped and bcap semantics (as the TPU kernels, tile by tile in order):
+// the first k candidates of the range (rows, or blocks for bcap) seed the
+// working set and leave the extraction; each tile of `tile_tiles` x 64 rows
+// then folds its `passes` smallest remaining candidates (ties to the
+// smaller id) into the set, each only while it is below the set's maximum;
+// miss = min over tiles of the tile's (passes+1)-th smallest candidate.
+// thr = min(max of the set, miss) + ||q||^2.  Every point outside the set
+// has u >= thr - ||q||^2: the caller's proof certifies the top-k with it.
+//
+// What bounds them on this card: FP32 arithmetic on the SIMT cores,
+// 2*Q*N*d FLOP (one FMA per query, row and feature).  The point set is
+// streamed once per query tile through shared memory: N*d*4 bytes per 64
+// queries, far under the FMA time.  Tensor-core tiers (TF32, split bf16)
+// come in a later change, each with its own proof bound.
+//
+// Design:
+//   * one block = TQ = 64 queries, 256 threads = 8 warps; warp w owns
+//     queries 8w..8w+7.  Each half-warp owns 4 of them, and each of its 16
+//     lanes holds a 4 x 4 register tile of scores (4 queries x 4 points:
+//     rows xg, xg+16, xg+32, xg+48 of the tile), so one half-warp holds all
+//     TN = 64 scores of its 4 queries, and row block i (rows 16i..16i+15)
+//     is slot i of the 16 lanes: a bcap block minimum is a half-warp
+//     shuffle reduction.
+//   * a block streams its rows in tiles of TN = 64, staged in shared
+//     memory with their norms, in chunks of DC = 128 features,
+//     double-buffered with cp.async.  Rows are padded to a stride of
+//     DC + 4 floats so that float4 reads of 8 rows hit distinct banks.
+//   * fold: each query keeps an unsorted working set of k (u, id) entries
+//     and its current maximum tau.  A score enters only if u < tau; then
+//     the half-warp takes the smallest remaining candidate (ties to the
+//     smaller id), replaces the working set's maximum (ties to the smaller
+//     slot), recomputes the maximum, and repeats while the smallest
+//     remaining candidate is below tau.  While the set still has +inf
+//     slots they fill in order, without a scan.
+//   * capped / bcap: each query keeps a sorted list of the passes+1
+//     smallest candidates of the current tile, one entry per lane of its
+//     half-warp (insertion = ballot + shuffle-up); at the tile's end its
+//     first `passes` entries are folded into the set and entry `passes`
+//     lowers miss.
+//   * the TPU runs its grid in order on one core; this card runs blocks in
+//     parallel on 132 SMs, and Q/64 query tiles rarely fill them evenly
+//     (10,240 queries make 160 tiles).  So the host may split the rows into
+//     S ranges of whole tiles (grid = query tiles x S), chosen from the
+//     card's SM count and occupancy.  Each block scans its range into its
+//     own working set and stores it; the last block of a query tile to
+//     finish (an atomic count) folds the other ranges' sets into its own
+//     with the fold step (and takes the least miss) and writes the output.
+//     For capped and bcap each range seeds its own set, as if it were the
+//     whole index.  One launch, no second kernel.
+//   * the working set lives in shared memory when it still lets two blocks
+//     share an SM, and otherwise in the global scratch part_d / part_i.
+//
+// The C entry points return a cudaError_t; the launch returns
+// cudaGetLastError() right after the launch.
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MODE_FOLD = 0;
+constexpr int MODE_CAPPED = 1;
+constexpr int MODE_BCAP = 2;
+
+constexpr int TQ = 64;        // queries per block
+constexpr int TN = 64;        // point rows per tile
+constexpr int BLOCK = 16;     // rows per bcap block
+constexpr int DC = 128;       // features staged per chunk
+constexpr int DS = DC + 4;    // shared-memory row stride in floats
+constexpr int THREADS = 256;  // 8 warps
+constexpr int MAX_SPLITS = 64;  // a batch of one query tile spreads over SMs
+constexpr int MIN_TILES_PER_SPLIT = 64;
+constexpr int MAX_PASSES = 15;  // the list of passes+1 entries spans 16 lanes
+constexpr int MAX_K = 1024;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// (a, ia) before (b, ib) in (value, id) order.
+__device__ __forceinline__ bool lex_less(float a, int ia, float b, int ib) {
+  return a < b || (a == b && ia < ib);
+}
+
+// Stage rows [row0, row0 + rows) x features [c0, c0 + w) of a row-major
+// (total, d) matrix into dst (stride DS), zero-filling rows past `total`
+// and the columns [w, wpad).
+template <bool VEC>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long total, long long row0,
+                                           int rows, int d, int c0, int w,
+                                           int wpad) {
+  if (VEC) {
+    const int per_row = wpad >> 2;
+    for (int idx = threadIdx.x; idx < rows * per_row; idx += THREADS) {
+      const int r = idx / per_row;
+      const int c = (idx - r * per_row) << 2;
+      const long long g = row0 + r;
+      const bool ok = g < total;
+      cp_async16(dst + r * DS + c, ok ? src + g * d + c0 + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * wpad; idx += THREADS) {
+      const int r = idx / wpad;
+      const int c = idx - r * wpad;
+      const long long g = row0 + r;
+      const bool ok = g < total && c < w;
+      cp_async4(dst + r * DS + c, ok ? src + g * d + c0 + c : src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// The smallest of the half-warp's candidates (v, cid), ties to the smaller
+// id (jnp.argmin's first index: ids grow with the column).
+__device__ __forceinline__ void half_warp_argmin(const float (&v)[4],
+                                                 const int (&cid)[4],
+                                                 float& m, int& id) {
+  m = v[0];
+  id = cid[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i)
+    if (lex_less(v[i], cid[i], m, id)) {
+      m = v[i];
+      id = cid[i];
+    }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(FULL, m, off);
+    const int oid = __shfl_xor_sync(FULL, id, off);
+    if (lex_less(om, oid, m, id)) {
+      m = om;
+      id = oid;
+    }
+  }
+}
+
+// This lane's share of the maximum of a full working set of k slots.
+// `live` is false for query rows past q, whose slots must not be read.
+__device__ __forceinline__ void lane_max(const float* wd, int k, bool live,
+                                         int xg, float& mx, int& mp) {
+  mx = -INFINITY;
+  mp = k;
+  for (int e = xg; live && e < k; e += 16) {
+    const float wv = wd[e];
+    if (wv > mx) {
+      mx = wv;
+      mp = e;
+    }
+  }
+}
+
+// The half-warp's maximum from the lanes' shares, ties to the smaller slot
+// (jnp.argmax's first index).  Every lane of the warp calls this.
+__device__ __forceinline__ void reduce_max(float& mx, int& mp) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    const float omx = __shfl_xor_sync(FULL, mx, off);
+    const int omp = __shfl_xor_sync(FULL, mp, off);
+    if (omx > mx || (omx == mx && omp < mp)) {
+      mx = omx;
+      mp = omp;
+    }
+  }
+}
+
+// The fold step for one query per half-warp: lane xg holds 4 candidates
+// (v[i], cid[i]); the half-warp's 64 candidates enter the working set
+// (wd, wi) of k slots in ascending order while they beat its maximum tau.
+// Every lane of the warp calls this (shuffles span the warp); the two
+// half-warps fold their own queries.  A candidate with NaN score must be
+// passed as +inf.
+__device__ __forceinline__ void fold_query(float (&v)[4], const int (&cid)[4],
+                                           float& tau, int& amax, int& fill,
+                                           float* wd, int* wi, int k,
+                                           int xg) {
+  bool hit = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hit |= v[i] < tau;
+  if (!__any_sync(FULL, hit)) return;
+  while (true) {
+    float m;
+    int id;
+    half_warp_argmin(v, cid, m, id);
+    const bool take = m < tau;
+    if (!__any_sync(FULL, take)) return;
+    if (take) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (cid[i] == id) v[i] = INFINITY;   // consumed
+      if (xg == 0) {
+        wd[amax] = m;
+        wi[amax] = id;
+      }
+      fill += fill < k;
+    }
+    __syncwarp();
+    // new maximum of the working set; unfilled +inf slots come in order
+    float mx;
+    int mp;
+    if (fill < k) {
+      mx = INFINITY;
+      mp = fill;
+    } else {
+      lane_max(wd, k, true, xg, mx, mp);
+    }
+    reduce_max(mx, mp);
+    if (take) {
+      tau = mx;
+      amax = mp;
+    }
+    __syncwarp();
+  }
+}
+
+// Insert (m, id) into the half-warp's sorted list (lane e holds entry e,
+// entry 15 falls off) where `ins`; every lane of the warp calls this.
+__device__ __forceinline__ void list_insert(float& lv, int& li, float m,
+                                            int id, bool ins, int xg,
+                                            int qg) {
+  const bool before = lex_less(lv, li, m, id);
+  const unsigned bal = __ballot_sync(FULL, before);
+  const int pos = __popc((bal >> (qg * 16)) & 0xffffu);
+  const float pv = __shfl_up_sync(FULL, lv, 1, 16);
+  const int pi = __shfl_up_sync(FULL, li, 1, 16);
+  if (ins) {
+    if (xg == pos) {
+      lv = m;
+      li = id;
+    } else if (xg > pos) {
+      lv = pv;
+      li = pi;
+    }
+  }
+}
+
+// Capped: the half-warp's 64 candidates of one query enter the list of
+// the tile's passes+1 smallest, smallest first, while they come before
+// its last entry.  +inf never enters.
+__device__ __forceinline__ void capped_insert(float (&v)[4],
+                                              const int (&cid)[4], float& lv,
+                                              int& li, int passes, int xg,
+                                              int qg) {
+  float thv = __shfl_sync(FULL, lv, passes, 16);
+  int thi = __shfl_sync(FULL, li, passes, 16);
+  bool hit = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    hit |= v[i] < INFINITY && lex_less(v[i], cid[i], thv, thi);
+  if (!__any_sync(FULL, hit)) return;
+  while (true) {
+    float m;
+    int id;
+    half_warp_argmin(v, cid, m, id);
+    const bool ins = m < INFINITY && lex_less(m, id, thv, thi);
+    if (!__any_sync(FULL, ins)) return;
+    if (ins) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (cid[i] == id) v[i] = INFINITY;   // consumed
+    }
+    list_insert(lv, li, m, id, ins, xg, qg);
+    thv = __shfl_sync(FULL, lv, passes, 16);
+    thi = __shfl_sync(FULL, li, passes, 16);
+  }
+}
+
+// Capped / bcap tile end: fold the list's first `passes` entries into the
+// working set (each while it beats tau), lower miss by entry `passes`, and
+// empty the list.  `first` recomputes tau from the seeded set.
+__device__ __forceinline__ void flush_list(float& lv, int& li, float& tau,
+                                           int& amax, float& miss, float* wd,
+                                           int* wi, int k, int passes,
+                                           bool live, bool first, int xg) {
+  __syncwarp();   // seeds written by other lanes
+  if (first) {
+    float mx;
+    int mp;
+    lane_max(wd, k, live, xg, mx, mp);
+    reduce_max(mx, mp);
+    if (live) {
+      tau = mx;
+      amax = mp;
+    }
+  }
+  for (int e = 0; e < passes; ++e) {
+    const float m = __shfl_sync(FULL, lv, e, 16);
+    const int id = __shfl_sync(FULL, li, e, 16);
+    const bool take = m < tau;
+    if (!__any_sync(FULL, take)) break;
+    if (take && xg == 0) {
+      wd[amax] = m;
+      wi[amax] = id;
+    }
+    __syncwarp();
+    float mx;
+    int mp;
+    lane_max(wd, k, live, xg, mx, mp);
+    reduce_max(mx, mp);
+    if (take) {
+      tau = mx;
+      amax = mp;
+    }
+    __syncwarp();
+  }
+  const float last = __shfl_sync(FULL, lv, passes, 16);
+  if (last < miss) miss = last;
+  lv = INFINITY;
+  li = INT_MAX;
+}
+
+// grid = (ceil(q / TQ), splits).  Block (bx, by) scans the rows of range
+// by into the working sets of queries [bx*TQ, bx*TQ + TQ).  part_d/part_i
+// (splits, q, k) hold the working sets when they are not in shared memory
+// and receive each range's set when splits > 1; part_m (splits, q) each
+// range's miss (capped, bcap); counters (ceil(q / TQ),), zeroed, elect the
+// last block of each query tile to merge.  Ranges are whole tiles of
+// tile_tiles x TN rows (1 for fold).
+template <int MODE, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
+           const float* __restrict__ norms, float* __restrict__ out_d,
+           int* __restrict__ out_i, float* __restrict__ out_t,
+           float* __restrict__ part_d, int* __restrict__ part_i,
+           float* __restrict__ part_m, int* __restrict__ counters,
+           long long n, int q, int d, int k, int tile_tiles, int passes,
+           int splits, int ws_in_smem) {
+  extern __shared__ float4 smem4[];
+  __shared__ int is_last;
+  __shared__ float thr_s[TQ];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int nch = (d + DC - 1) / DC;
+  const int qbufs = nch > 1 ? 2 : 1;
+  float* xs = smem;                         // [2][TN][DS]
+  float* qs = xs + 2 * TN * DS;             // [qbufs][TQ][DS]
+  float* xn = qs + qbufs * TQ * DS;         // [2][TN]
+  const int q0 = blockIdx.x * TQ;
+  const int split = blockIdx.y;
+  const long long qk = static_cast<long long>(q) * k;
+  float* ws_d;
+  int* ws_i;
+  if (ws_in_smem) {
+    ws_d = xn + 2 * TN;                     // [TQ][k]
+    ws_i = reinterpret_cast<int*>(ws_d + TQ * k);
+  } else {
+    ws_d = part_d + split * qk + static_cast<long long>(q0) * k;
+    ws_i = part_i + split * qk + static_cast<long long>(q0) * k;
+  }
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int qg = lane >> 4;                 // half-warp
+  const int xg = lane & 15;                 // lane within the half-warp
+  const int rbase = warp * 8 + qg * 4;      // this thread's 4 query rows
+
+  // working-set init: (+inf, -1); rows past q are never touched
+  const int valid_rows = min(TQ, q - q0);
+  for (int e = tid; e < valid_rows * k; e += THREADS) {
+    ws_d[e] = INFINITY;
+    ws_i[e] = -1;
+  }
+
+  float tau[4], miss[4], lv[4];
+  int amax[4], fill[4], li[4];
+  bool live[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    live[j] = q0 + rbase + j < q;
+    // rows past q get tau = -inf: nothing is ever below it
+    tau[j] = live[j] ? INFINITY : -INFINITY;
+    amax[j] = 0;
+    // capped / bcap sets are full from the seed on (+inf slots included)
+    fill[j] = (MODE == MODE_FOLD || !live[j]) ? 0 : k;
+    miss[j] = INFINITY;
+    lv[j] = INFINITY;
+    li[j] = INT_MAX;
+  }
+  bool first_flush = true;
+
+  // this block's tile range, whole tiles of tile_tiles
+  const long long ntiles = (n + TN - 1) / TN;
+  const long long units = (ntiles + tile_tiles - 1) / tile_tiles;
+  const long long per = (units + splits - 1) / splits * tile_tiles;
+  const long long t_begin = min(ntiles, per * split);
+  const long long t_end = min(ntiles, t_begin + per);
+  const long long nst = (t_end - t_begin) * nch;
+
+  auto issue = [&](long long s) {
+    const long long t = t_begin + s / nch;
+    const int c = static_cast<int>(s % nch);
+    const int buf = static_cast<int>(s & 1);
+    const int c0 = c * DC;
+    const int w = min(DC, d - c0);
+    const int wpad = (w + 3) & ~3;
+    stage_rows<VEC>(xs + buf * TN * DS, points, n, t * TN, TN, d, c0, w,
+                    wpad);
+    if (nch > 1 || s == 0)
+      stage_rows<VEC>(qs + (nch > 1 ? buf : 0) * TQ * DS, queries, q, q0, TQ,
+                      d, c0, w, wpad);
+    if (c == nch - 1) {
+      float* dst = xn + buf * TN;
+      for (int i = tid; i < TN; i += THREADS) {
+        const long long g = t * TN + i;
+        if (g < n)
+          cp_async4(dst + i, norms + g, 4);
+        else
+          dst[i] = INFINITY;
+      }
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  if (nst > 0) issue(0);
+  cp_async_commit();
+  for (long long s = 0; s < nst; ++s) {
+    if (s + 1 < nst) issue(s + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+
+    const int c = static_cast<int>(s % nch);
+    const int buf = static_cast<int>(s & 1);
+    const int wpad = (min(DC, d - c * DC) + 3) & ~3;
+    const float* xb = xs + buf * TN * DS;
+    const float* qb = qs + (nch > 1 ? buf : 0) * TQ * DS;
+#pragma unroll 2
+    for (int kk = 0; kk < wpad; kk += 4) {
+      float4 qv[4], xv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        qv[j] = *reinterpret_cast<const float4*>(qb + (rbase + j) * DS + kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xb + (xg + 16 * i) * DS + kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float a = acc[j][i];
+          a = fmaf(qv[j].x, xv[i].x, a);
+          a = fmaf(qv[j].y, xv[i].y, a);
+          a = fmaf(qv[j].z, xv[i].z, a);
+          a = fmaf(qv[j].w, xv[i].w, a);
+          acc[j][i] = a;
+        }
+    }
+
+    if (c == nch - 1) {
+      // ---- the tile's scores into the working sets ----------------------
+      const float* xnb = xn + buf * TN;
+      const long long t = t_begin + s / nch;
+      const int tile0 = static_cast<int>(t * TN);
+      int cid[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cid[i] = tile0 + xg + 16 * i;
+      float v[4][4];
+      bool qnan[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float u = xnb[xg + 16 * i] - 2.f * acc[j][i];
+          v[j][i] = (u < INFINITY) ? u : INFINITY;   // NaN -> +inf
+          acc[j][i] = 0.f;
+          // a NaN query gives NaN at every row, a finite one at none
+          if (i == 0) qnan[j] = u != u;
+        }
+      }
+      if (MODE == MODE_FOLD) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          fold_query(v[j], cid, tau[j], amax[j], fill[j],
+                     ws_d + (rbase + j) * k, ws_i + (rbase + j) * k, k, xg);
+      } else if (MODE == MODE_CAPPED) {
+        const long long rel0 = (t - t_begin) * TN;   // row offset in range
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (rel0 < k) {
+            // seed columns: straight into the working set, out of the list
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const long long rel = rel0 + xg + 16 * i;
+              if (rel < k) {
+                if (live[j] && cid[i] < n && !qnan[j]) {
+                  ws_d[(rbase + j) * k + rel] = v[j][i];
+                  ws_i[(rbase + j) * k + rel] = cid[i];
+                }
+                v[j][i] = INFINITY;
+              }
+            }
+          }
+          capped_insert(v[j], cid, lv[j], li[j], passes, xg, qg);
+        }
+      } else {   // MODE_BCAP
+        const long long relb0 = (t - t_begin) * (TN / BLOCK);
+        const int bid0 = static_cast<int>(t * (TN / BLOCK));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float bm[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float b = v[j][i];
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1) {
+              const float o = __shfl_xor_sync(FULL, b, off);
+              b = o < b ? o : b;
+            }
+            bm[i] = b;
+          }
+          float thv = __shfl_sync(FULL, lv[j], passes, 16);
+          int thi = __shfl_sync(FULL, li[j], passes, 16);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int bid = bid0 + i;
+            if (relb0 + i < k) {
+              if (xg == 0 && live[j] &&
+                  static_cast<long long>(bid) * BLOCK < n) {
+                ws_d[(rbase + j) * k + relb0 + i] =
+                    qnan[j] ? INFINITY : bm[i];
+                ws_i[(rbase + j) * k + relb0 + i] = qnan[j] ? -1 : bid;
+              }
+              continue;
+            }
+            const bool ins = bm[i] < INFINITY && lex_less(bm[i], bid, thv, thi);
+            if (!__any_sync(FULL, ins)) continue;
+            list_insert(lv[j], li[j], bm[i], bid, ins, xg, qg);
+            thv = __shfl_sync(FULL, lv[j], passes, 16);
+            thi = __shfl_sync(FULL, li[j], passes, 16);
+          }
+        }
+      }
+      if (MODE != MODE_FOLD &&
+          ((t - t_begin + 1) % tile_tiles == 0 || t + 1 == t_end)) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          flush_list(lv[j], li[j], tau[j], amax[j], miss[j],
+                     ws_d + (rbase + j) * k, ws_i + (rbase + j) * k, k,
+                     passes, live[j], first_flush, xg);
+        first_flush = false;
+      }
+    }
+    __syncthreads();
+  }
+
+  if (splits > 1) {
+    // ---- publish this range's working sets; the last block merges -------
+    if (ws_in_smem) {
+      float* pd = part_d + split * qk + static_cast<long long>(q0) * k;
+      int* pi = part_i + split * qk + static_cast<long long>(q0) * k;
+      for (int e = tid; e < valid_rows * k; e += THREADS) {
+        pd[e] = ws_d[e];
+        pi[e] = ws_i[e];
+      }
+    }
+    if (MODE != MODE_FOLD && xg == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (live[j])
+          part_m[static_cast<long long>(split) * q + q0 + rbase + j] = miss[j];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      is_last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    for (int other = 0; other < splits; ++other) {
+      if (other == split) continue;
+      if (MODE != MODE_FOLD) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (live[j]) {
+            const float om = __ldcg(
+                part_m + static_cast<long long>(other) * q + q0 + rbase + j);
+            if (om < miss[j]) miss[j] = om;
+          }
+      }
+      for (int e0 = 0; e0 < k; e0 += 64) {
+        int cid[4][4];
+        float v[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gq = q0 + rbase + j;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = e0 + xg + 16 * i;
+            const long long at = other * qk + static_cast<long long>(gq) * k + e;
+            const bool ok = gq < q && e < k;
+            v[j][i] = ok ? __ldcg(part_d + at) : INFINITY;
+            cid[j][i] = ok ? __ldcg(part_i + at) : -1;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          fold_query(v[j], cid[j], tau[j], amax[j], fill[j],
+                     ws_d + (rbase + j) * k, ws_i + (rbase + j) * k, k, xg);
+      }
+    }
+  }
+  if (MODE != MODE_FOLD && xg == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      thr_s[rbase + j] = miss[j] < tau[j] ? miss[j] : tau[j];
+  }
+  __syncthreads();
+
+  // ---- output: rd = max(u + ||q||^2, 0); unfilled slots stay (+inf, -1)
+  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
+    const int gq = q0 + r;
+    if (gq >= q) break;
+    const float* qrow = queries + static_cast<long long>(gq) * d;
+    float qn = 0.f;
+    for (int f = lane; f < d; f += 32) qn = fmaf(qrow[f], qrow[f], qn);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(FULL, qn, off);
+    float* od = out_d + static_cast<long long>(gq) * k;
+    int* oi = out_i + static_cast<long long>(gq) * k;
+    for (int e = lane; e < k; e += 32) {
+      const int id = ws_i[r * k + e];
+      const float rd = ws_d[r * k + e] + qn;
+      od[e] = id < 0 ? INFINITY : (rd < 0.f ? 0.f : rd);
+      oi[e] = id;
+    }
+    if (MODE != MODE_FOLD && lane == 0) out_t[gq] = thr_s[r] + qn;
+  }
+}
+
+size_t tile_smem_bytes(int d) {
+  const int nch = (d + DC - 1) / DC;
+  const int qbufs = nch > 1 ? 2 : 1;
+  return sizeof(float) *
+         static_cast<size_t>(2 * TN * DS + qbufs * TQ * DS + 2 * TN);
+}
+
+template <int MODE>
+cudaError_t set_smem(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_kernel<MODE, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(knn_kernel<MODE, false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Shared memory of one block, and the attribute that allows it.
+cudaError_t prepare(int mode, int d, int k, int ws_in_smem, size_t* smem) {
+  *smem = tile_smem_bytes(d) +
+          (ws_in_smem ? static_cast<size_t>(TQ) * k * 8 : 0);
+  switch (mode) {
+    case MODE_FOLD: return set_smem<MODE_FOLD>(*smem);
+    case MODE_CAPPED: return set_smem<MODE_CAPPED>(*smem);
+    case MODE_BCAP: return set_smem<MODE_BCAP>(*smem);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int MODE>
+cudaError_t occupancy(int* per_sm, size_t smem) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, knn_kernel<MODE, true>, THREADS, smem);
+}
+
+template <int MODE>
+void launch(bool vec, dim3 grid, size_t smem, cudaStream_t stream,
+            const float* points, const float* queries, const float* norms,
+            float* out_d, int* out_i, float* out_t, float* part_d,
+            int* part_i, float* part_m, int* counters, long long n, int q,
+            int d, int k, int tile_tiles, int passes, int splits,
+            int ws_in_smem) {
+  if (vec)
+    knn_kernel<MODE, true><<<grid, THREADS, smem, stream>>>(
+        points, queries, norms, out_d, out_i, out_t, part_d, part_i, part_m,
+        counters, n, q, d, k, tile_tiles, passes, splits, ws_in_smem);
+  else
+    knn_kernel<MODE, false><<<grid, THREADS, smem, stream>>>(
+        points, queries, norms, out_d, out_i, out_t, part_d, part_i, part_m,
+        counters, n, q, d, k, tile_tiles, passes, splits, ws_in_smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The kernels' fixed sizes: queries per block (counters are sized by it),
+// rows per tile (capped tiles are multiples of it), rows per bcap block,
+// and the largest passes and k.
+void knn_constants(int* tq, int* tn, int* block, int* max_passes,
+                   int* max_k) {
+  *tq = TQ;
+  *tn = TN;
+  *block = BLOCK;
+  *max_passes = MAX_PASSES;
+  *max_k = MAX_K;
+}
+
+// The launch plan for a problem: where the working set lives (shared
+// memory when two blocks still fit on an SM) and how many row ranges to
+// split into.  The split minimizes the waves of blocks over the card's
+// resident-block slots per unit of work (within 5% of the best, fewest
+// splits), keeping each range at least MIN_TILES_PER_SPLIT tiles of rows
+// and a whole number of tile_tiles.
+int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
+             int* splits, int* ws_in_smem) {
+  if (mode < MODE_FOLD || mode > MODE_BCAP || tile_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t ws = static_cast<size_t>(TQ) * k * 8;
+  *ws_in_smem = tile_smem_bytes(d) + ws + 1024 <= static_cast<size_t>(optin) / 2;
+  size_t smem = 0;
+  err = prepare(mode, d, k, *ws_in_smem, &smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = mode == MODE_FOLD     ? occupancy<MODE_FOLD>(&per_sm, smem)
+          : mode == MODE_CAPPED ? occupancy<MODE_CAPPED>(&per_sm, smem)
+                                : occupancy<MODE_BCAP>(&per_sm, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  const long long qtiles = (q + TQ - 1) / TQ;
+  const long long ntiles = (n + TN - 1) / TN;
+  const long long units = (ntiles + tile_tiles - 1) / tile_tiles;
+  const long long min_units =
+      (MIN_TILES_PER_SPLIT + tile_tiles - 1) / tile_tiles;
+  long long max_splits = units / min_units;
+  max_splits = max_splits < 1 ? 1 : (max_splits > MAX_SPLITS ? MAX_SPLITS
+                                                              : max_splits);
+  double best = 1e30;
+  double cost[MAX_SPLITS + 1];
+  for (long long s = 1; s <= max_splits; ++s) {
+    const long long waves = (qtiles * s + slots - 1) / slots;
+    cost[s] = static_cast<double>(waves) / s;
+    if (cost[s] < best) best = cost[s];
+  }
+  *splits = 1;
+  for (long long s = 1; s <= max_splits; ++s)
+    if (cost[s] <= 1.05 * best) {
+      *splits = static_cast<int>(s);
+      break;
+    }
+  return 0;
+}
+
+// mode: 0 fold, 1 capped, 2 bcap.  points (n, d), queries (q, d), norms
+// (n,) float32, row-major; outputs out_d (q, k) float32, out_i (q, k)
+// int32 and, for capped and bcap, out_t (q,) float32.  Scratch part_d
+// (splits, q, k) float32 and part_i (splits, q, k) int32 (unused when
+// splits == 1 and ws_in_smem), part_m (splits, q) float32 (capped, bcap)
+// and zeroed counters (ceil(q / TQ),) int32.  1 <= k <= MAX_K, q >= 1,
+// n < 2^31; capped: k <= tile_tiles * TN; bcap: k <= tile_tiles * TN /
+// BLOCK; 0 <= passes <= MAX_PASSES.  splits and ws_in_smem as knn_plan
+// returned them for the same mode, n, q, d, k and tile_tiles.  Returns the
+// launch's cudaError_t (0 on success).
+int knn_launch(int mode, const float* points, const float* queries,
+               const float* norms, float* out_d, int* out_i, float* out_t,
+               float* part_d, int* part_i, float* part_m, int* counters,
+               long long n, int q, int d, int k, int tile_tiles, int passes,
+               int splits, int ws_in_smem, void* stream) {
+  const long long cap = mode == MODE_CAPPED ? static_cast<long long>(tile_tiles) * TN
+                        : mode == MODE_BCAP ? static_cast<long long>(tile_tiles) * (TN / BLOCK)
+                                            : MAX_K;
+  if (mode < MODE_FOLD || mode > MODE_BCAP || k < 1 || k > MAX_K ||
+      k > cap || tile_tiles < 1 || (mode == MODE_FOLD && tile_tiles != 1) ||
+      passes < 0 || passes > MAX_PASSES || splits < 1 || splits > MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  cudaError_t err = prepare(mode, d, k, ws_in_smem, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = d % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(points) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(queries) % 16 == 0;
+  const dim3 grid((q + TQ - 1) / TQ, splits);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case MODE_FOLD:
+      launch<MODE_FOLD>(vec, grid, smem, s, points, queries, norms, out_d,
+                        out_i, out_t, part_d, part_i, part_m, counters, n, q,
+                        d, k, tile_tiles, passes, splits, ws_in_smem);
+      break;
+    case MODE_CAPPED:
+      launch<MODE_CAPPED>(vec, grid, smem, s, points, queries, norms, out_d,
+                          out_i, out_t, part_d, part_i, part_m, counters, n,
+                          q, d, k, tile_tiles, passes, splits, ws_in_smem);
+      break;
+    default:
+      launch<MODE_BCAP>(vec, grid, smem, s, points, queries, norms, out_d,
+                        out_i, out_t, part_d, part_i, part_m, counters, n, q,
+                        d, k, tile_tiles, passes, splits, ws_in_smem);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

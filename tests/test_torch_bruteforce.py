@@ -1,0 +1,346 @@
+"""The port's BruteForce (on the CPU: the fold kernel's plain version or
+the scan) against the JAX BruteForce (its XLA path on the CPU), end to
+end on shared numpy inputs.
+
+Tolerance: distances rtol 1e-4 / atol 1e-4 in float32 — both sides end in
+a direct-form rescore, but on differently centered copies and summed in
+different orders — and rtol 1e-10 in float64.  Ids are compared as sets
+except where the k-th exact distance is tied.  Known difference: at k
+above the finite row count (NaN points) the kernel route returns
+(+inf, -1) where the JAX XLA path returns real ids at +inf; distances
+are compared there, not ids."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import petal_neighbors_tpu as jpn
+import petal_neighbors_tpu_torch as tpn
+from petal_neighbors_tpu.ops import bruteforce as jbf
+from petal_neighbors_tpu_torch.convert import bruteforce_from_jax_arrays
+from petal_neighbors_tpu_torch.ops import bruteforce as tbf
+
+N_Q = 24
+
+
+def _tol(dtype):
+    return dict(rtol=1e-4, atol=1e-4) if dtype == np.float32 else \
+        dict(rtol=1e-10, atol=1e-10)
+
+
+def _data(n, d, dtype, seed=0, nan_rows=(), nan_queries=()):
+    rng = np.random.default_rng(seed + n + d)
+    pts = (rng.normal(size=(n, d)) * 10 + 3).astype(dtype)
+    qs = (rng.normal(size=(N_Q, d)) * 10 + 3).astype(dtype)
+    for r in nan_rows:
+        pts[r, 0] = np.nan
+    for r in nan_queries:
+        qs[r, -1] = np.nan
+    return pts, qs
+
+
+def _tied(pts, q, k):
+    ok = ~np.isnan(pts).any(axis=1)
+    d = np.sort(((pts[ok].astype(np.float64) - q) ** 2).sum(1))
+    return k < len(d) and d[k] - d[k - 1] <= 1e-4 * max(d[k], 1e-12)
+
+
+def _compare(pts, qs, k, jidx, tidx):
+    jd, ji = (np.asarray(a) for a in jidx.query_batch(jnp.asarray(qs), k))
+    td, ti = tidx.query_batch(qs, k)
+    td, ti = td.numpy(), ti.numpy()
+    assert td.shape == jd.shape == (N_Q, min(k, len(pts)))
+    assert td.dtype == pts.dtype and ti.dtype == np.int32
+    np.testing.assert_allclose(td, jd, **_tol(pts.dtype))
+    assert (td[:, 1:] >= td[:, :-1]).all()
+    # NaN points are never selected at a finite distance (the scan may
+    # fill +inf slots with them, as the JAX XLA path does)
+    bad = np.isnan(pts).any(axis=1)
+    assert not bad[ti[(ti >= 0) & np.isfinite(td)]].any()
+    nanq = np.isnan(qs).any(axis=1)
+    assert (ti[nanq] == -1).all() and np.isposinf(td[nanq]).all()
+    if k <= (~bad).sum():          # else: the known difference, no ids
+        for r in np.flatnonzero(~nanq):
+            if k and not _tied(pts, qs[r].astype(np.float64), k):
+                assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+    return td, ti
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("d", [2, 64, 128])
+@pytest.mark.parametrize("n", [100, 5000])
+def test_query_batch_matches_jax(n, d, dtype):
+    pts, qs = _data(n, d, dtype)
+    jidx = jpn.BruteForce.euclidean(pts)
+    tidx = tpn.BruteForce.euclidean(pts, device="cpu")
+    for k in (0, 1, 10, 100, n + 5):
+        _compare(pts, qs, k, jidx, tidx)
+        k_eff = min(k, n)
+        want = ("kernel" if dtype == np.float32 and 1 <= k_eff
+                and min(k_eff + 8, n) <= 1024 else "scan")
+        assert tidx.last_backend == want, (k, tidx.last_backend)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("d", [2, 64])
+@pytest.mark.parametrize("n", [100, 5000])
+def test_nan_points_and_queries(n, d, dtype):
+    pts, qs = _data(n, d, dtype, seed=1, nan_rows=(0, 5, n - 1),
+                    nan_queries=(0, 7))
+    jidx = jpn.BruteForce.euclidean(pts)
+    tidx = tpn.BruteForce.euclidean(pts, device="cpu")
+    for k in (1, 10, 100):
+        _compare(pts, qs, k, jidx, tidx)
+    # k above the finite row count: distances only (see module docstring)
+    td, ti = _compare(pts, qs, n, jidx, tidx)
+    finite = np.isfinite(td)
+    assert (ti[finite] >= 0).all()
+
+
+@pytest.mark.parametrize("n", [100, 5000])
+def test_sqeuclidean_matches_jax(n):
+    pts, qs = _data(n, 64, np.float32, seed=2)
+    jidx = jpn.BruteForce(pts, "sqeuclidean")
+    tidx = tpn.BruteForce(pts, "sqeuclidean", device="cpu")
+    for k in (1, 10):
+        td, _ = _compare(pts, qs, k, jidx, tidx)
+        assert tidx.last_backend == "scan"
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_query_and_query_nearest(dtype):
+    pts, qs = _data(300, 64, dtype, seed=3)
+    jidx = jpn.BruteForce.euclidean(pts)
+    tidx = tpn.BruteForce.euclidean(pts, device="cpu")
+    ji, jd = jidx.query(qs[0], 7)
+    ti, td = tidx.query(qs[0], 7)
+    assert isinstance(ti, np.ndarray) and isinstance(td, np.ndarray)
+    np.testing.assert_allclose(td, jd, **_tol(dtype))
+    assert set(ti.tolist()) == set(np.asarray(ji).tolist())
+    assert tidx.query(qs[0], 0)[0].shape == (0,)
+    assert tidx.query(qs[0], 1000)[0].shape == (300,)
+    i1, d1 = tidx.query_nearest(qs[1])
+    i2, d2 = jidx.query_nearest(qs[1])
+    assert i1 == i2 and isinstance(i1, int)
+    assert d1 == pytest.approx(d2, rel=1e-5)
+    # a point of the index is its own nearest neighbour, at distance 0
+    assert tidx.query_nearest(pts[17]) == (17, 0.0)
+
+
+def test_typed_errors():
+    with pytest.raises(tpn.EmptyArrayError):
+        tpn.BruteForce.euclidean(np.zeros((0, 3), np.float32), device="cpu")
+    with pytest.raises(tpn.EmptyArrayError):
+        tpn.BruteForce.euclidean(np.zeros((4, 0), np.float32), device="cpu")
+    fortran = np.asfortranarray(np.ones((5, 3), np.float32))
+    with pytest.raises(tpn.NotContiguousError):
+        tpn.BruteForce.euclidean(fortran, device="cpu")
+    idx = tpn.BruteForce.euclidean(np.ones((5, 3), np.float32), device="cpu")
+    with pytest.raises(ValueError):
+        idx.query_batch(np.ones((2, 4), np.float32), 1)
+    with pytest.raises(ValueError):
+        idx.query(np.ones(4, np.float32), 1)
+    with pytest.raises(ValueError):
+        tpn.BruteForce.euclidean(np.ones(5, np.float32), device="cpu")
+    assert issubclass(tpn.EmptyArrayError, tpn.ArrayError)
+    with pytest.raises(NotImplementedError):
+        tpn.get_metric("cosine")
+    with pytest.raises(ValueError):
+        tpn.get_metric("nope")
+    with pytest.raises(NotImplementedError):
+        idx.query_radius(np.ones(3, np.float32), 1.0)
+
+
+def test_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpn.BruteForce.euclidean(np.ones((5, 3), np.float32))
+
+
+def test_integer_input_promotes_to_f32():
+    pts = np.arange(40, dtype=np.int64).reshape(10, 4)
+    idx = tpn.BruteForce.euclidean(pts, device="cpu")
+    d, i = idx.query_batch(pts[:2], 2)
+    assert d.dtype == torch.float32
+    assert i[:, 0].tolist() == [0, 1]
+
+
+def test_large_k_takes_the_scan():
+    pts, qs = _data(1100, 64, np.float32, seed=4)
+    jidx = jpn.BruteForce.euclidean(pts)
+    tidx = tpn.BruteForce.euclidean(pts, device="cpu")
+    _compare(pts, qs, 1020, jidx, tidx)
+    assert tidx.last_backend == "scan"
+    _compare(pts, qs, 1016, jidx, tidx)
+    assert tidx.last_backend == "kernel"
+
+
+@pytest.mark.parametrize("n,d", [(700, 64), (300, 8)])
+def test_prepare_euclidean_index_matches_jax(n, d):
+    pts, _ = _data(n, d, np.float32, seed=5, nan_rows=(2, 99))
+    mu, ppad, pnorm, _, bad, _ = jbf.prepare_euclidean_index(
+        jnp.asarray(pts), 512, with_split=False, with_bcap=False)
+    tmu, tppad, tpnorm, tbad = tbf.prepare_euclidean_index(
+        torch.from_numpy(pts), tn=512)
+    np.testing.assert_allclose(tmu.numpy(), np.asarray(mu), rtol=1e-5,
+                               atol=1e-5)
+    assert tppad.shape == ppad.shape
+    np.testing.assert_allclose(tppad.numpy(), np.asarray(ppad), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(tpnorm.numpy(), np.asarray(pnorm), rtol=1e-4)
+    np.testing.assert_array_equal(tbad.numpy(), np.asarray(bad))
+    assert np.isposinf(tpnorm.numpy()[[2, 99]]).all()
+    assert (tppad.numpy()[[2, 99]] == 0).all()
+
+
+def test_bruteforce_from_jax_arrays():
+    pts, qs = _data(3000, 128, np.float32, seed=6, nan_rows=(10,))
+    mu, ppad, pnorm, _, bad, _ = jbf.prepare_euclidean_index(
+        jnp.asarray(pts), jbf.pad_granule(128), with_split=False,
+        with_bcap=False)
+    arrays = dict(points=pts, center=np.asarray(mu), ppad=np.asarray(ppad),
+                  pnorm=np.asarray(pnorm), bad=np.asarray(bad))
+    carried = bruteforce_from_jax_arrays(arrays, device="cpu")
+    built = tpn.BruteForce.euclidean(pts, device="cpu")
+    assert carried.num_points == 3000 and carried.dim == 128
+    for k in (1, 10, 100):
+        cd, ci = carried.query_batch(qs, k)
+        bd, bi = built.query_batch(qs, k)
+        assert carried.last_backend == "kernel"
+        np.testing.assert_allclose(cd.numpy(), bd.numpy(), rtol=1e-5)
+        for r in range(N_Q):
+            if not _tied(pts, qs[r].astype(np.float64), k):
+                assert set(ci[r].tolist()) == set(bi[r].tolist())
+    # a ppad of any row count >= n is taken, padded to whole bcap blocks
+    odd = bruteforce_from_jax_arrays(
+        dict(arrays, ppad=arrays["ppad"][:3001], pnorm=arrays["pnorm"][:3001]),
+        device="cpu")
+    assert odd._pts.shape[0] % tbf.PAD_ROWS == 0
+    assert np.isposinf(odd._norms[3000:].numpy()).all()
+    od, oi = odd.query_batch(qs, 10)
+    np.testing.assert_allclose(od.numpy(), built.query_batch(qs, 10)[0].numpy(),
+                               rtol=1e-5)
+    with pytest.raises(KeyError):
+        bruteforce_from_jax_arrays({"points": pts}, device="cpu")
+    with pytest.raises(ValueError):
+        bruteforce_from_jax_arrays(dict(arrays, center=np.zeros(3)),
+                                   device="cpu")
+
+
+# ---- the proof-gated schemes: bcap and capped with the fold repair --------
+
+def _oracle(pts, qs, k):
+    d2 = np.sqrt(((qs[:, None].astype(np.float64)
+                   - pts[None].astype(np.float64)) ** 2).sum(-1))
+    d2 = np.where(np.isnan(d2), np.inf, d2)
+    oi = np.argsort(d2, 1, kind="stable")[:, :k]
+    return np.take_along_axis(d2, oi, 1), oi
+
+
+@pytest.mark.parametrize("scheme", ["capped", "bcap"])
+@pytest.mark.parametrize("k,passes", [(10, None), (10, 0), (40, 2)])
+def test_proof_gated_route_matches_jax(scheme, k, passes, monkeypatch):
+    """The port's route against the JAX package's on the same padded
+    index, both against the f64 oracle.  ``passes=0`` leaves every tile's
+    smallest candidate out, so the proof fails for most queries and the
+    fold repair answers them."""
+    rng = np.random.default_rng(k)
+    n, d = 8192, 32
+    pts = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((N_Q, d)).astype(np.float32)
+    pts[[7, 4000]] = np.nan
+    qs[3] = np.nan
+    mu = jbf.center_of(jnp.asarray(pts))
+    pp, pn = jbf.pad_for_pallas(jnp.asarray(pts) - mu, tn=2048)
+    jkw = dict(precision="highest", interpret=True, scheme=scheme,
+               capped_passes=passes)
+    if scheme == "bcap":
+        from petal_neighbors_tpu.ops.pallas.knn_kernel import (
+            prepare_bcap_planes)
+        jkw.update(tn=2048, bcap_tn=2048, bcap_planes=prepare_bcap_planes(
+            pp, pn, tn=2048, precision="highest"))
+    else:
+        jkw.update(tn=512)
+    jd, ji = (np.asarray(a) for a in jbf.knn_pallas_prepadded(
+        pp, pn, jnp.asarray(qs), k, n, mu, **jkw))
+    folds = []
+    fold = tbf.knn_fold
+    monkeypatch.setattr(tbf, "knn_fold",
+                        lambda *a, **kw: folds.append(len(a[1])) or
+                        fold(*a, **kw))
+    if passes is not None:
+        monkeypatch.setattr(tbf, "capped_passes", lambda *a: passes)
+    td, ti = tbf.knn_prepadded(
+        torch.from_numpy(np.array(pp)), torch.from_numpy(np.array(pn)),
+        torch.from_numpy(qs), k, n, torch.from_numpy(np.array(mu)),
+        scheme=scheme)
+    td, ti = td.numpy(), ti.numpy()
+    od, oi = _oracle(pts, qs, k)
+    nanq = np.isnan(qs).any(axis=1)
+    assert (ti[nanq] == -1).all() and np.isposinf(td[nanq]).all()
+    np.testing.assert_allclose(td[~nanq], od[~nanq], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(td[~nanq], jd[~nanq], rtol=1e-4, atol=1e-4)
+    for r in np.flatnonzero(~nanq):
+        if not _tied(pts, qs[r].astype(np.float64), k):
+            assert set(ti[r].tolist()) == set(oi[r].tolist()), r
+            assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+    if passes == 0:
+        # the repair ran once, on the uncovered queries only
+        assert len(folds) == 1 and 0 < folds[0] < N_Q
+
+
+def test_proof_gated_route_repairs_identical_points():
+    """All-equal points: every tile overflows its passes, the proof cannot
+    certify, and the fold repair still gives the exact distances."""
+    rng = np.random.default_rng(8)
+    pts = np.ones((4096, 8), np.float32)
+    qs = rng.standard_normal((N_Q, 8)).astype(np.float32)
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    want = np.sqrt(((qs - 1.0) ** 2).sum(-1))
+    for scheme in ("capped", "bcap"):
+        dd, ii = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), 5, 4096, mu,
+                                   scheme=scheme)
+        np.testing.assert_allclose(dd.numpy(), np.repeat(want[:, None], 5, 1),
+                                   rtol=1e-5, atol=1e-5)
+        assert (ii.numpy() >= 0).all()
+        assert all(len(set(r)) == 5 for r in ii.tolist())
+
+
+def test_serving_scale_routes_match_jax():
+    """At n >= 262144 the index serves k=10 by bcap, k=100 by capped and
+    k=200 by fold (the JAX package's cutovers), each exact against the
+    JAX BruteForce."""
+    rng = np.random.default_rng(9)
+    n, d = 262144, 4
+    pts = rng.random((n, d), dtype=np.float32) * 255
+    qs = rng.random((N_Q, d), dtype=np.float32) * 255
+    pts[[5, 1000]] = np.nan
+    qs[2] = np.nan
+    jidx = jpn.BruteForce.euclidean(pts)
+    tidx = tpn.BruteForce.euclidean(pts, device="cpu")
+    for k, scheme in ((10, "bcap"), (100, "capped"), (200, "fold")):
+        _compare(pts, qs, k, jidx, tidx)
+        assert (tidx.last_backend, tidx.last_scheme) == ("kernel", scheme)
+    assert tbf.pick_scheme(10, n - 1) == "fold"
+
+
+def test_capped_route_never_returns_seeded_nan_rows(monkeypatch):
+    """NaN rows among the first k_scan rows seed the capped working set at
+    +inf; with one pass per tile some survive to the rescore, whose direct
+    form would score their zeroed copies at the centroid's distance.  The
+    route drops them (the JAX route returns them here), and stays exact."""
+    rng = np.random.default_rng(10)
+    n, d, k = 4096, 32, 10
+    pts = (rng.standard_normal((n, d)) * 3 + 5).astype(np.float32)
+    qs = (rng.standard_normal((N_Q, d)) * 3 + 5).astype(np.float32)
+    pts[:18] = np.nan
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    monkeypatch.setattr(tbf, "CAPPED_TILE", 512)
+    monkeypatch.setattr(tbf, "capped_passes", lambda *a: 1)
+    td, ti = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), k, n, mu,
+                               scheme="capped")
+    assert (ti.numpy() >= 18).all()
+    od, oi = _oracle(pts, qs, k)
+    np.testing.assert_allclose(td.numpy(), od, rtol=1e-4, atol=1e-4)

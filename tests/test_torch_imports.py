@@ -1,0 +1,56 @@
+"""The port stands alone: no module of petal_neighbors_tpu_torch, nor
+chip_smoke.py, imports jax or the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "petal_neighbors_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "petal_neighbors_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"knn_kernel.py", "bruteforce.py", "topk.py",
+            "chip_smoke.py"} <= names
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, petal_neighbors_tpu_torch, "
+            "petal_neighbors_tpu_torch.ops.cuda._build; "
+            "assert 'jax' not in sys.modules, 'jax loaded'; "
+            "assert not any(m.split('.')[0] == 'petal_neighbors_tpu' "
+            "for m in sys.modules), 'JAX package loaded'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

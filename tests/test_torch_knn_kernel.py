@@ -1,0 +1,304 @@
+"""The port's fold, capped and bcap kernels, as they run on the CPU (their
+plain PyTorch versions), against the JAX kernels in interpret mode, on the
+same padded arrays from the JAX ``pad_for_pallas`` (as in
+tests/test_pallas_kernel.py).
+
+Tolerance: rdist rtol 2e-4 after sorting each row (the two packages sum
+the dot product in different orders; the same tolerance as the JAX
+kernel's own tests), and the capped/bcap threshold within the same rtol.
+Ids are compared as sets wherever the k-th distance is not tied within
+that tolerance; the capped and bcap ids on data without near ties must
+match exactly as sets."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from petal_neighbors_tpu.ops.bruteforce import pad_for_pallas as jax_pad
+from petal_neighbors_tpu.ops.pallas.knn_kernel import (knn_pallas,
+                                                       prepare_bcap_planes)
+from petal_neighbors_tpu_torch.ops.bruteforce import PAD_ROWS, pad_for_pallas
+from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+TQ, TN, D = 128, 512, 64
+
+
+def _inputs(seed, n, nan_rows=(), nan_queries=()):
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, D)).astype(np.float32) * 100
+    qs = rng.random((TQ, D)).astype(np.float32) * 100
+    for r in nan_rows:
+        pts[r, r % D] = np.nan
+    for r in nan_queries:
+        qs[r, 3] = np.nan
+    return pts, qs
+
+
+def _both(pts, qs, k):
+    pp, pn = jax_pad(jnp.asarray(pts), tn=TN)
+    # sort_output=False as the serving route calls it (the JAX sort pass
+    # repeats an id in +inf slots; the working set itself does not)
+    jd, ji = knn_pallas(pp, jnp.asarray(qs), pn, k=k, tq=TQ, tn=TN,
+                        interpret=True, sort_output=False)
+    td, ti = kk.knn_fold(torch.from_numpy(np.array(pp)),
+                         torch.from_numpy(qs),
+                         torch.from_numpy(np.array(pn)), k=k)
+    return (np.asarray(jd), np.asarray(ji)), (td.numpy(), ti.numpy())
+
+
+def _sorted(rd, ids):
+    order = np.argsort(rd, axis=1, kind="stable")
+    return (np.take_along_axis(rd, order, 1),
+            np.take_along_axis(ids, order, 1))
+
+
+def _boundary_tied(pts, q, k):
+    """The k-th and (k+1)-th exact distances of a query lie within the
+    comparison tolerance of each other."""
+    ok = ~np.isnan(pts).any(axis=1)
+    d = np.sort(((pts[ok].astype(np.float64) - q) ** 2).sum(1))
+    return k < len(d) and d[k] - d[k - 1] <= 2e-4 * d[k]
+
+
+def _check(pts, qs, k):
+    (jd, ji), (td, ti) = _both(pts, qs, k)
+    assert td.shape == (TQ, k) and ti.dtype == np.int32
+    n = pts.shape[0]
+    bad = np.isnan(pts).any(axis=1)
+    nanq = np.isnan(qs).any(axis=1)
+    # NaN query rows: (+inf, -1) in the port; the JAX kernel leaves NaN
+    # rdist beside its -1 ids
+    assert (ti[nanq] == -1).all() and np.isposinf(td[nanq]).all()
+    assert (ji[nanq] == -1).all()
+    # NaN point rows and padding rows never appear
+    sel = ti[ti >= 0]
+    assert (sel < n).all() and not bad[sel].any()
+    jd, ji = _sorted(jd[~nanq], ji[~nanq])
+    td, ti = _sorted(td[~nanq], ti[~nanq])
+    np.testing.assert_allclose(td, jd, rtol=2e-4)
+    for r, q in enumerate(qs[~nanq]):
+        if not _boundary_tied(pts, q.astype(np.float64), k):
+            assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+@pytest.mark.parametrize("k", [4, 10, 100])
+def test_fold_matches_jax(n, k):
+    pts, qs = _inputs(n + k, n)
+    _check(pts, qs, k)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_fold_nan_rows_and_queries(k):
+    pts, qs = _inputs(k, 1024, nan_rows=(0, 7, 300, 1023),
+                      nan_queries=(0, 5, 127))
+    _check(pts, qs, k)
+
+
+def test_fold_ragged_tail():
+    """n not a tile multiple: the JAX pad adds +inf-norm zero rows."""
+    pts, qs = _inputs(3, 700, nan_rows=(699,))
+    _check(pts, qs, 10)
+
+
+@pytest.mark.parametrize("k", [500, 512])
+def test_fold_k_close_to_n(k):
+    """k near n with NaN rows: more slots than finite rows, so the tail
+    of every row is (+inf, -1) in both kernels."""
+    pts, qs = _inputs(k, 512, nan_rows=(1, 2, 3, 4, 5, 6, 7, 8))
+    _check(pts, qs, k)
+
+
+def test_fold_k_above_n():
+    """Fewer rows than slots: the real rows, then (+inf, -1)."""
+    pts, qs = _inputs(11, 3)
+    _check(pts, qs, 4)
+
+
+def test_port_pad_matches_jax_pad():
+    pts, _ = _inputs(9, 700, nan_rows=(3, 650))
+    jp, jn = jax_pad(jnp.asarray(pts), tn=TN)
+    tp, tn_ = pad_for_pallas(torch.from_numpy(pts), tn=TN)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(tn_.numpy(), np.asarray(jn), rtol=1e-6)
+    # the port's own granule: whole bcap blocks
+    tp2, tn2 = pad_for_pallas(torch.from_numpy(pts))
+    assert tp2.shape[0] % PAD_ROWS == 0 and tp2.shape[0] >= 700
+    assert PAD_ROWS % kk.BCAP_BLOCK == 0
+    assert np.isposinf(tn2[700:].numpy()).all()
+
+
+def test_cpu_runs_plain_version_and_counts_no_launch():
+    pts, qs = _inputs(4, 256)
+    pp, pn = pad_for_pallas(torch.from_numpy(pts))
+    before = kk.knn_fold.launches
+    a = kk.knn_fold(pp, torch.from_numpy(qs), pn, k=5)
+    b = kk.knn_fold_reference(pp, torch.from_numpy(qs), pn, k=5)
+    assert kk.knn_fold.launches == before
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("k", [0, 1025])
+def test_fold_rejects_k_out_of_range(k):
+    pp, pn = pad_for_pallas(torch.zeros((64, 4)))
+    with pytest.raises(ValueError):
+        kk.knn_fold(pp, torch.zeros((2, 4)), pn, k=k)
+
+
+def test_fold_rejects_f64():
+    pp, pn = pad_for_pallas(torch.zeros((64, 4), dtype=torch.float64))
+    with pytest.raises(TypeError):
+        kk.knn_fold(pp, torch.zeros((2, 4), dtype=torch.float64), pn, k=2)
+
+
+# ---- capped and bcap: the proof-gated schemes -----------------------------
+
+CN, CD, CQ = 8192, 32, 64
+
+
+def _capped_inputs(seed, nan=True):
+    rng = np.random.default_rng(seed)
+    pts = (rng.random((CN, CD)) * 10).astype(np.float32)
+    qs = (rng.random((CQ, CD)) * 10).astype(np.float32)
+    if nan:
+        pts[[3, 900, CN - 1]] = np.nan
+        qs[[5, CQ - 1]] = np.nan
+    pp, pn = jax_pad(jnp.asarray(pts), tn=2048)
+    return pts, qs, pp, pn
+
+
+def _jax_scheme(scheme, pp, pn, qs, k, tile, passes):
+    if scheme == "capped":
+        return knn_pallas(pp, jnp.asarray(qs), pn, k=k, tq=CQ, tn=tile,
+                          interpret=True, precision="highest",
+                          scheme="capped", passes=passes)
+    # the JAX kernel streams block-interleaved planes; a 2048-row granule
+    # gives its blocks the port's 16 contiguous rows
+    p_perm, xn_perm = prepare_bcap_planes(pp, pn, tn=2048,
+                                          precision="highest")
+    return knn_pallas(p_perm, jnp.asarray(qs), xn_perm, k=k, tq=CQ,
+                      tn=tile * kk.BCAP_BLOCK, interpret=True,
+                      precision="highest", scheme="bcap", passes=passes,
+                      granule=2048)
+
+
+def _port_scheme(scheme, pp, pn, qs, k, tile, passes, splits=None):
+    args = (torch.from_numpy(np.array(pp)), torch.from_numpy(qs),
+            torch.from_numpy(np.array(pn)))
+    if splits is not None:
+        ref = (kk.knn_capped_reference if scheme == "capped"
+               else kk.knn_bcap_reference)
+        return [t.numpy() for t in ref(*args, k=k, tile=tile, passes=passes,
+                                       splits=splits)]
+    run = kk.knn_capped if scheme == "capped" else kk.knn_bcap
+    return [t.numpy() for t in run(*args, k=k, tile=tile, passes=passes)]
+
+
+@pytest.mark.parametrize("scheme,tile", [("capped", 512), ("capped", 2048),
+                                         ("bcap", 128)])
+@pytest.mark.parametrize("k,passes", [(10, 1), (18, 2), (40, 4), (108, 0)])
+def test_capped_schemes_match_jax(scheme, tile, k, passes):
+    """Same working set (as a set), same rdist and the same threshold as
+    the JAX kernel at the same tile and passes, NaN rows and queries
+    included."""
+    _, qs, pp, pn = _capped_inputs(k + passes)
+    jd, ji, jt = (np.asarray(a) for a in
+                  _jax_scheme(scheme, pp, pn, qs, k, tile, passes))
+    td, ti, tt = _port_scheme(scheme, pp, pn, qs, k, tile, passes)
+    assert td.shape == ji.shape and ti.dtype == np.int32
+    assert tt.shape == (CQ,)
+    nanq = np.isnan(qs).any(axis=1)
+    assert (ti[nanq] == -1).all() and np.isposinf(td[nanq]).all()
+    assert np.isnan(tt[nanq]).all() and np.isnan(jt[nanq]).all()
+    np.testing.assert_allclose(np.sort(td[~nanq], 1), np.sort(jd[~nanq], 1),
+                               rtol=2e-4)
+    np.testing.assert_allclose(tt[~nanq], jt[~nanq], rtol=2e-4)
+    for r in np.flatnonzero(~nanq):
+        assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+
+
+@pytest.mark.parametrize("scheme,tile", [("capped", 512), ("bcap", 32)])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_capped_threshold_is_sound(scheme, tile, splits):
+    """Every row outside the working set (every block, for bcap) scores at
+    least thr, however few the passes and however the rows split into
+    ranges (the kernel's launch plan)."""
+    pts, qs, pp, pn = _capped_inputs(7 + splits, nan=False)
+    k, passes = 12, 1
+    td, ti, tt = _port_scheme(scheme, pp, pn, qs, k, tile, passes,
+                              splits=splits)
+    d2 = ((qs[:, None].astype(np.float64)
+           - pts[None].astype(np.float64)) ** 2).sum(-1)
+    b = kk.BCAP_BLOCK if scheme == "bcap" else 1
+    for r in range(CQ):
+        inside = np.zeros(CN, bool)
+        for x in ti[r][ti[r] >= 0]:
+            inside[x * b:(x + 1) * b] = True
+        assert d2[r][~inside].min() >= tt[r] - 1e-3 * tt[r], r
+        # the set holds k distinct candidates
+        assert len(set(ti[r].tolist())) == k
+
+
+@pytest.mark.parametrize("scheme,tile", [("capped", 2048), ("bcap", 128)])
+def test_capped_splits_merge_ranges(scheme, tile):
+    """A plan that splits the rows into ranges runs each range as its own
+    index (its own seed) and keeps the k smallest of their sets: the JAX
+    kernel on each range, merged, gives the same rdist and threshold."""
+    _, qs, pp, pn = _capped_inputs(21)
+    k, passes = 10, 2
+    td, ti, tt = _port_scheme(scheme, pp, pn, qs, k, tile, passes, splits=2)
+    half = CN // 2
+    parts = [[np.asarray(a) for a in _jax_scheme(
+        scheme, pp[s:s + half], pn[s:s + half], qs, k, tile, passes)]
+        for s in (0, half)]
+    nanq = np.isnan(qs).any(axis=1)
+    jd = np.sort(np.concatenate([p[0] for p in parts], 1), 1)[:, :k]
+    jt = np.minimum(np.minimum(parts[0][2], parts[1][2]), jd[:, -1])
+    np.testing.assert_allclose(np.sort(td[~nanq], 1), jd[~nanq], rtol=2e-4)
+    np.testing.assert_allclose(tt[~nanq], jt[~nanq], rtol=2e-4)
+
+
+def test_capped_ragged_rows():
+    """Rows past n are not seeded and never appear; a first tile shorter
+    than k seeds every row and leaves (+inf, -1) slots, and with nothing
+    left outside the set the threshold is +inf."""
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy((rng.random((70, 8)) * 10).astype(np.float32))
+    qs = torch.from_numpy((rng.random((9, 8)) * 10).astype(np.float32))
+    pn = torch.sum(pts * pts, 1)
+    for run, tile in ((kk.knn_capped, 128), (kk.knn_bcap, 8)):
+        rd, ids, thr = run(pts, qs, pn, k=8 if run is kk.knn_bcap else 100,
+                           tile=tile, passes=2)
+        limit = 70 if run is kk.knn_capped else -(-70 // kk.BCAP_BLOCK)
+        for row in ids.tolist():
+            assert sorted(x for x in row if x >= 0) == list(range(limit))
+        assert ((ids == -1) == np.isposinf(rd.numpy())).all()
+        assert np.isposinf(thr.numpy()).all()
+
+
+def test_capped_cpu_runs_plain_version_and_counts_no_launch():
+    _, qs, pp, pn = _capped_inputs(3)
+    args = (torch.from_numpy(np.array(pp)), torch.from_numpy(qs),
+            torch.from_numpy(np.array(pn)))
+    before = (kk.knn_capped.launches, kk.knn_bcap.launches)
+    a = kk.knn_capped(*args, k=10, tile=512, passes=2)
+    b = kk.knn_capped_reference(*args, k=10, tile=512, passes=2)
+    c = kk.knn_bcap(*args, k=10, tile=32, passes=2)
+    d = kk.knn_bcap_reference(*args, k=10, tile=32, passes=2)
+    assert (kk.knn_capped.launches, kk.knn_bcap.launches) == before
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y) or torch.allclose(x, y, equal_nan=True,
+                                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("run", [kk.knn_capped, kk.knn_bcap])
+@pytest.mark.parametrize("kw", [dict(k=65, tile=64, passes=2),
+                                dict(k=8, tile=64, passes=16),
+                                dict(k=8, tile=64, passes=-1),
+                                dict(k=1025, tile=2048, passes=2)])
+def test_capped_rejects_bad_arguments(run, kw):
+    pp, pn = pad_for_pallas(torch.zeros((2048, 4)))
+    with pytest.raises(ValueError):
+        run(pp, torch.zeros((2, 4)), pn, **kw)
