@@ -7,22 +7,31 @@ Phases, each printed as one JSON line on stdout:
 1. device   — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    — compiles every kernel source under
               petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc.
-3. kernel   — each kernel (fold, capped, bcap) against its plain PyTorch
-              version on the card, with the same launch plan: small shapes
-              with NaN rows, NaN queries, duplicated rows and ragged tails
-              (at the vectorized and the chunked scalar widths, split into
-              row ranges or not, working set in shared or global memory),
-              k = 1024, and the main path's shapes over 1M x 128.  Sorted
-              rdist and thresholds must agree within the stated tolerance,
-              and an id may differ only against one of near-equal rdist.
+3. kernel   — each kernel (fold, capped, bcap, merge) against its plain
+              PyTorch version on the card, with the same launch plan: small
+              shapes with NaN rows, NaN queries, duplicated rows and ragged
+              tails (at the vectorized and the chunked scalar widths, split
+              into row ranges or not, working set in shared or global
+              memory), k = 1024 (fold) and 1100 to 4096 (merge), and the
+              main paths' shapes over 1M x 128.  Sorted rdist and
+              thresholds must agree within the stated tolerance, and an id
+              may differ only against one of near-equal rdist.  The two row
+              sorts (bitonic, rank) against a stable ``torch.sort`` at the
+              large-k path's widths with duplicate keys and +inf tails:
+              keys equal, payloads equal (rank) or equal as multisets
+              within each run of equal keys (bitonic).
 4. main     — ``BruteForce.euclidean`` over 1M x 128 f32 points (seed 7,
               as bench.py makes them) answering 10,240 queries at k=10
-              (bcap), k=100 (capped) and k=200 (fold); every kernel's
-              launches in that run and the queries each fold repair
-              carried; every query's ids against a chunked
-              f64 oracle on the card, where an id may differ only by a
-              swap that f32 direct-form distances cannot order.
-5. kernels  — one JSON line: every kernel with its launches on the main
+              (bcap), k=100 and k=200 (capped); every kernel's launches in
+              that run and the queries each fold repair carried; every
+              query's ids against a chunked f64 oracle on the card, where
+              an id may differ only by a swap that f32 direct-form
+              distances cannot order.
+5. main_large_k — the same index answering the first 2,048 queries at
+              k=1000 (capped, re-ranked by the bitonic sort), k=2000 and
+              k=3000 (merge; the bitonic and the rank sort), with the same
+              oracle check and the launches of that run.
+6. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick.
 
@@ -46,17 +55,25 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N, DIM, N_Q, SEED = 1_000_000, 128, 10_240, 7
 #: the main path's requests and the scheme each must take
-MAIN_K = {10: "bcap", 100: "capped", 200: "fold"}
+MAIN_K = {10: "bcap", 100: "capped", 200: "capped"}
+#: the large-k path (bench.py:212-221): queries, requests and schemes
+N_Q_LARGE = 2048
+LARGE_K = {1000: "capped", 2000: "merge", 3000: "merge"}
 #: boundary swaps against the f64 oracle allowed per 10^6 returned ids
 SWAPS_PER_MILLION = 5
 #: published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 #: FP32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
-SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_fold.cu"
+KNN_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_fold.cu"
+SORT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/row_sort.cu"
 REPLACES = {"fold": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:186",
             "capped": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:429",
-            "bcap": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:546"}
+            "bcap": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:546",
+            "merge": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:336",
+            "bitonic_sort": "petal_neighbors_tpu/ops/pallas/sort_kernel.py:36",
+            "rank_sort":
+                "petal_neighbors_tpu/ops/pallas/rank_sort_kernel.py:48"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -122,10 +139,12 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
          passes: int, splits: int = 1):
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
-    if scheme == "fold":
-        if plain:
-            return kk.knn_fold_reference(pp, qt, pn, k=k) + (None,)
-        return kk.knn_fold(pp, qt, pn, k=k) + (None,)
+    if scheme in ("fold", "merge"):
+        run = {("fold", True): kk.knn_fold_reference,
+               ("fold", False): kk.knn_fold,
+               ("merge", True): kk.knn_merge_reference,
+               ("merge", False): kk.knn_merge}[scheme, plain]
+        return run(pp, qt, pn, k=k) + (None,)
     if plain:
         ref = (kk.knn_capped_reference if scheme == "capped"
                else kk.knn_bcap_reference)
@@ -153,6 +172,8 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
                        tile)
     rd_k, id_k, t_k = _run(scheme, False, pp, qt, pn, k, tile, passes)
     torch.cuda.synchronize()
+    if scheme == "merge" and not bool((rd_k[:, 1:] >= rd_k[:, :-1]).all()):
+        raise AssertionError(f"merge k={k}: rows not ascending")
     rd_p, id_p, t_p = _run(scheme, True, pp, qt, pn, k, tile, passes,
                            plan[0])
     rd_k, ord_k = torch.sort(rd_k, dim=1)
@@ -246,17 +267,47 @@ SMALL_CASES = (
     ("bcap", 700, 64, 5, 1, 9, 12, 1),
     ("bcap", 70001, 300, 128, 1, 18, 128, 2),
     ("bcap", 70001, 200, 128, 64, 256, 256, 4),
+    ("merge", 1203, 301, 128, 1, 1100, 1, 0),
+    ("merge", 2100, 130, 130, 1, 2048, 1, 0),
+    ("merge", 4200, 70, 64, 64, 4096, 1, 0),
+    ("merge", 70001, 300, 128, 1, 3000, 1, 0),
 )
+
+#: the main paths' kernel calls: (scheme, k requested, queries).  fold at
+#: k=200 is the repair kernel of the main path, timed on the whole batch
+MAIN_CALLS = (("bcap", 10, N_Q), ("capped", 100, N_Q), ("capped", 200, N_Q),
+              ("fold", 200, N_Q), ("capped", 1000, N_Q_LARGE),
+              ("merge", 2000, N_Q_LARGE), ("merge", 3000, N_Q_LARGE))
+#: the row each kernel reports in the kernels line
+MAIN_ROW = {"bcap": 10, "capped": 100, "fold": 200, "merge": 3000}
+#: row sorts: (kind, widths checked, main width)
+SORTS = (("bitonic_sort", (1008, 2048), 2048),
+         ("rank_sort", (2176, 3072, 4096), 3072))
+
+
+def kernel_args(scheme: str, k_req: int, n_real: int):
+    """(k, tile, passes) of a scheme's kernel call, as knn_prepadded makes
+    it."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+
+    k_scan = bf.scan_width(scheme, k_req, n_real)
+    if scheme == "bcap":
+        k, tile = max(k_scan, 12), bf.BCAP_TILE
+        return k, tile, bf.capped_passes(k, tile * 16, n_real, scheme)
+    if scheme == "capped":
+        return (k_scan, bf.CAPPED_TILE,
+                bf.capped_passes(k_scan, bf.CAPPED_TILE, n_real, scheme))
+    return k_scan, 1, 0
 
 
 def phase_kernel(pp, pn, queries_c):
     """Each kernel against its plain version at every listed shape, then at
-    the main path's shapes; returns the main-shape rows per kernel."""
+    the main paths' shapes; returns the main-shape rows by (scheme, k)."""
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
 
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    errs = {s: 0.0 for s in REPLACES}
+    errs = {s: 0.0 for s in ("fold", "capped", "bcap", "merge")}
     for scheme, n, q, d, tn, k, tile, passes in SMALL_CASES:
         pts, qs = small_inputs(rng, n, q, d)
         spp, spn = bf.pad_for_pallas(torch.from_numpy(pts).to(dev), tn=tn)
@@ -268,43 +319,105 @@ def phase_kernel(pp, pn, queries_c):
              passes=passes, max_abs_err=err, tied_rows=tied, plan=plan,
              ok=True)
 
-    # the main path's kernel calls, as knn_prepadded makes them
-    n_real, q = N, queries_c.shape[0]
-    main = {}
-    for k_req, scheme in MAIN_K.items():
-        k_scan = k_req + bf.RESCORE_SLACK
-        if scheme == "bcap":
-            k, tile = max(k_scan, 12), bf.BCAP_TILE
-            passes = bf.capped_passes(k, tile * 16, n_real, scheme)
-        elif scheme == "capped":
-            k, tile = k_scan, bf.CAPPED_TILE
-            passes = bf.capped_passes(k, tile, n_real, scheme)
-        else:
-            k, tile, passes = k_scan, 1, 0
-        err, tied, plan = compare_kernel(scheme, pp, queries_c, pn, k, tile,
-                                         passes)
+    n_real = N
+    rows = {}
+    for scheme, k_req, q in MAIN_CALLS:
+        qt = queries_c[:q]
+        k, tile, passes = kernel_args(scheme, k_req, n_real)
+        err, tied, plan = compare_kernel(scheme, pp, qt, pn, k, tile, passes)
         errs[scheme] = max(errs[scheme], err)
-        ms = cuda_ms(lambda: _run(scheme, False, pp, queries_c, pn, k, tile,
-                                  passes), reps=5)
-        plain = cuda_ms(lambda: _run(scheme, True, pp, queries_c, pn, k,
-                                     tile, passes, plan[0]), reps=1, warm=0)
+        ms = cuda_ms(lambda: _run(scheme, False, pp, qt, pn, k, tile,
+                                  passes), reps=3)
+        plain = cuda_ms(lambda: _run(scheme, True, pp, qt, pn, k, tile,
+                                     passes, plan[0]), reps=1, warm=0)
         lib = cuda_ms(lambda: library_topk(
-            pp, queries_c, pn, k, block=16 if scheme == "bcap" else 1),
-            reps=2)
+            pp, qt, pn, k, block=16 if scheme == "bcap" else 1), reps=2)
         bound, by = bound_ms(pp.shape[0], q, DIM, k)
-        # the fold kernel on the same work, for a comparison in one call
-        fold_same_k = (cuda_ms(lambda: _run("fold", False, pp, queries_c, pn,
-                                            k_scan, 1, 0), reps=3)
-                       if scheme != "fold" else ms)
-        row = dict(k=k, tile=tile, passes=passes, n=pp.shape[0], q=q, d=DIM,
+        extra = {}
+        if scheme == "merge":
+            # the same launch at k=16: the tile product with few merges
+            extra["ms_at_k16"] = cuda_ms(lambda: _run(
+                scheme, False, pp, qt, pn, 16, 1, 0), reps=2)
+        row = dict(k_request=k_req, k=k, tile=tile, passes=passes,
+                   n=pp.shape[0], q=q, d=DIM,
                    peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, H100 "
                         "SXM data sheet",
                    plan=plan, max_abs_err=err, tied_rows=tied, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=bound,
-                   bound_by=by, fold_ms_at_k_scan=fold_same_k)
+                   bound_by=by, **extra)
         emit("kernel", name=f"knn_{scheme}", **row, ok=True)
-        main[scheme] = row
-    return main, errs
+        rows[scheme, k_req] = row
+    return rows, errs
+
+
+def sort_rows(rows: int, width: int, gen) -> tuple:
+    """Rows of keys with many duplicates and a +inf tail, and distinct
+    payloads, on the card."""
+    keys = (torch.randint(0, max(2, width // 3), (rows, width), generator=gen)
+            .float() * 0.25 + 100.0)
+    keys[:, width - width // 7:] = float("inf")
+    keys[: rows // 4, ::5] = float("inf")
+    vals = torch.randperm(rows * width, generator=gen).int().reshape(
+        rows, width)
+    return keys.cuda(), vals.cuda()
+
+
+def phase_sorts():
+    """The bitonic and the rank sort against a stable torch.sort on the
+    card: keys equal; payloads equal (rank: ties by position, as the
+    contract says) or equal as multisets within each run of equal keys
+    (bitonic: the contract leaves tie order free).  Then the time at the
+    large-k path's shapes (2,048 rows).  Returns rows by kind."""
+    from petal_neighbors_tpu_torch.ops.cuda import rank_sort_kernel as rk
+    from petal_neighbors_tpu_torch.ops.cuda import sort_kernel as sk
+
+    fns = {"bitonic_sort": (sk.bitonic_sort_pairs,
+                            sk.bitonic_sort_pairs_reference),
+           "rank_sort": (rk.rank_sort_pairs, rk.rank_sort_pairs_reference)}
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for kind, widths, main_width in SORTS:
+        fn, plain = fns[kind]
+        for width in widths:
+            for nrows in (301, N_Q_LARGE):
+                keys, vals = sort_rows(nrows, width, gen)
+                ok_, ov = fn(keys, vals)
+                torch.cuda.synchronize()
+                rk_, rv = plain(keys, vals)
+                if not torch.equal(ok_, rk_):
+                    raise AssertionError(f"{kind} width {width}: keys differ")
+                exact = torch.equal(ov, rv)
+                if kind == "rank_sort" and not exact:
+                    raise AssertionError(f"{kind} width {width}: payloads "
+                                         "differ from a stable sort")
+                if not exact:
+                    # multisets within each run of equal keys
+                    run = torch.cumsum(torch.cat([torch.ones_like(
+                        ok_[:, :1], dtype=torch.long), (ok_[:, 1:] != ok_[
+                            :, :-1]).long()], 1), 1)
+                    key = run * (2 ** 32) + ov.long()
+                    ref = run * (2 ** 32) + rv.long()
+                    if not torch.equal(torch.sort(key, 1).values,
+                                       torch.sort(ref, 1).values):
+                        raise AssertionError(f"{kind} width {width}: "
+                                             "payloads left their tie run")
+            ms = cuda_ms(lambda: fn(keys, vals), reps=10)
+            plain_ms = cuda_ms(lambda: plain(keys, vals), reps=10)
+
+            def library():
+                sk_, pos = torch.sort(keys, dim=1, stable=True)
+                return sk_, torch.gather(vals, 1, pos)
+            lib = cuda_ms(library, reps=10)
+            # each key and payload read once and written once
+            bound = 2 * keys.numel() * 8 / PEAK_BYTES_S * 1e3
+            row = dict(rows=N_Q_LARGE, width=width, payload_exact=exact,
+                       max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib, bound_ms=bound, bound_by="bytes",
+                       peak="HBM 3.35 TB/s, H100 SXM data sheet")
+            emit("kernel", name=kind, **row, ok=True)
+            if width == main_width:
+                out[kind] = row
+    return out
 
 
 def f64_oracle(points_dev, queries_dev, k: int, chunk: int = 32768):
@@ -412,14 +525,20 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     qdev = torch.from_numpy(queries).cuda()
 
-    # ---- kernel vs plain (launches here are not the main path's) -------
+    # ---- kernel vs plain (launches here are not the main paths') -------
     rows, errs = phase_kernel(index._pts, index._norms, qdev - index._center)
+    sorts = phase_sorts()
 
-    # ---- main path -----------------------------------------------------
+    # ---- the main paths ------------------------------------------------
+    from petal_neighbors_tpu_torch.ops.cuda import rank_sort_kernel as rk
+    from petal_neighbors_tpu_torch.ops.cuda import sort_kernel as sk
+
     wrappers = {"fold": kk.knn_fold, "capped": kk.knn_capped,
-                "bcap": kk.knn_bcap}
-    # the route's fold calls, with their query counts: at k=10 and k=100
-    # they are the repairs of the queries the proof left uncovered
+                "bcap": kk.knn_bcap, "merge": kk.knn_merge,
+                "bitonic_sort": sk.bitonic_sort_pairs,
+                "rank_sort": rk.rank_sort_pairs}
+    # the route's fold calls, with their query counts: under bcap and
+    # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
 
     def counted_fold(points, queries, norms, *, k):
@@ -427,61 +546,92 @@ def main() -> int:
         return kk.knn_fold(points, queries, norms, k=k)
 
     bf.knn_fold = counted_fold
-    for w in wrappers.values():
-        w.launches = 0
-    out, per_k, repaired = {}, {}, {}
-    for k, scheme in MAIN_K.items():
-        before = {s: w.launches for s, w in wrappers.items()}
-        fold_rows.clear()
-        d, i = index.query_batch(qdev, k)          # warm
-        torch.cuda.synchronize()
-        if (index.last_backend, index.last_scheme) != ("kernel", scheme):
-            raise AssertionError(f"k={k} served by {index.last_backend} "
-                                 f"{index.last_scheme}, not {scheme}")
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            d, i = index.query_batch(qdev, k)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        out[k] = (d, i, min(walls))
-        per_k[k] = {s: w.launches - before[s] for s, w in wrappers.items()}
-        repaired[k] = list(fold_rows) if scheme != "fold" else []
-    launches = {s: w.launches for s, w in wrappers.items()}
-    for s, c in launches.items():
-        if c == 0:
-            raise AssertionError(f"the main path launched no knn_{s} kernel")
-
     pdev = torch.from_numpy(points).cuda()
-    _, oi = f64_oracle(pdev, qdev, max(MAIN_K))
-    for k, scheme in MAIN_K.items():
-        d, i, wall = out[k]
-        if d.shape != (N_Q, k) or not bool(torch.isfinite(d).all()):
-            raise AssertionError(f"k={k}: bad output {tuple(d.shape)}")
-        if not bool((d[:, 1:] >= d[:, :-1]).all()):
-            raise AssertionError(f"k={k}: distances not ascending")
-        recall, swaps, worst = check_vs_oracle(index, pdev, qdev, i,
-                                               oi[:, :k])
-        row = rows[scheme]
-        emit("main", k=k, scheme=scheme, qps=N_Q / wall, batch_s=wall,
-             kernel_ms=row["ms"], bound_ms=row["bound_ms"],
-             library_ms=row["library_ms"], launches_in_4_calls=per_k[k],
-             repaired_queries_per_call=repaired[k],
-             recall=recall, oracle_queries=N_Q, boundary_swaps=swaps,
-             worst_swap_gap_over_band=worst, backend=index.last_backend,
-             build_s=build_s)
-    emit("main", launches=launches)
+    launches = {}
+    for phase, ks, qs, reps, need in (
+            ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap")),
+            ("main_large_k", LARGE_K, qdev[:N_Q_LARGE], 2,
+             ("capped", "merge", "bitonic_sort", "rank_sort"))):
+        for w in wrappers.values():
+            w.launches = 0
+        out, per_k, repaired = {}, {}, {}
+        for k, scheme in ks.items():
+            before = {s: w.launches for s, w in wrappers.items()}
+            fold_rows.clear()
+            d, i = index.query_batch(qs, k)          # warm
+            torch.cuda.synchronize()
+            if (index.last_backend, index.last_scheme) != ("kernel", scheme):
+                raise AssertionError(f"k={k} served by {index.last_backend} "
+                                     f"{index.last_scheme}, not {scheme}")
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                d, i = index.query_batch(qs, k)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out[k] = (d, i, min(walls))
+            per_k[k] = {s: w.launches - before[s]
+                        for s, w in wrappers.items()}
+            repaired[k] = list(fold_rows) if scheme != "fold" else []
+        got = {s: w.launches for s, w in wrappers.items()}
+        for s in need:
+            if got[s] == 0:
+                raise AssertionError(f"{phase} launched no {s} kernel")
+            # a kernel's count comes from the path of its kernels-line row
+            launches.setdefault(s, got[s])
+
+        _, oi = f64_oracle(pdev, qs, max(ks))
+        for k, scheme in ks.items():
+            d, i, wall = out[k]
+            if d.shape != (qs.shape[0], k) or not bool(torch.isfinite(d).all()):
+                raise AssertionError(f"k={k}: bad output {tuple(d.shape)}")
+            if not bool((d[:, 1:] >= d[:, :-1]).all()):
+                raise AssertionError(f"k={k}: distances not ascending")
+            recall, swaps, worst = check_vs_oracle(index, pdev, qs, i,
+                                                   oi[:, :k])
+            kernel_ms = {f"knn_{s}": rows[s, k_req]["ms"]
+                         for s, k_req in rows if k_req == k}
+            extra = {}
+            if phase == "main_large_k":
+                kernel_ms.update({kind: row["ms"] for kind, row in
+                                  sorts.items()})
+            if phase == "main_large_k" and repaired[k]:
+                # the repair's kernel on the repaired count of queries,
+                # beside merge on the same work
+                qr = (qs - index._center)[:repaired[k][-1]]
+                k_scan = bf.scan_width(scheme, k, N)
+                extra = {f"repair_{name}_ms": cuda_ms(
+                    lambda: run(index._pts, qr, index._norms, k=k_scan),
+                    reps=2) for name, run in (("fold", kk.knn_fold),
+                                              ("merge", kk.knn_merge))}
+            emit(phase, k=k, scheme=scheme, queries=qs.shape[0],
+                 qps=qs.shape[0] / wall, batch_s=wall, kernel_ms=kernel_ms,
+                 launches_in_calls={s: c for s, c in per_k[k].items() if c},
+                 calls=reps + 1, repaired_queries_per_call=repaired[k],
+                 recall=recall, oracle_queries=qs.shape[0],
+                 boundary_swaps=swaps, worst_swap_gap_over_band=worst,
+                 backend=index.last_backend, build_s=build_s, **extra)
+        emit(phase, launches=got)
 
     kernels = []
-    for scheme, row in rows.items():
+    for scheme, k_req in MAIN_ROW.items():
+        row = rows[scheme, k_req]
         kernels.append({
-            "name": f"knn_{scheme}", "route": "cuda", "source": SOURCE,
+            "name": f"knn_{scheme}", "route": "cuda", "source": KNN_SOURCE,
             "replaces": REPLACES[scheme], "launches": launches[scheme],
             "max_abs_err": errs[scheme], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": {key: row[key] for key in
                       ("n", "q", "d", "k", "tile", "passes", "plan")}})
+    for kind, row in sorts.items():
+        kernels.append({
+            "name": kind, "route": "cuda", "source": SORT_SOURCE,
+            "replaces": REPLACES[kind], "launches": launches[kind],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": {"rows": row["rows"], "width": row["width"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,13 @@ the exact flat index needs:
 
 * the build: ``center_of``, ``pad_for_pallas``, ``prepare_euclidean_index``;
 * the kernel route ``knn_prepadded`` (``ops/bruteforce.py:577-1009`` at
-  FP32): the bcap, capped or fold kernel over the padded index at
-  ``k_scan = k + RESCORE_SLACK``, a direct-form rescore, and for bcap and
-  capped the per-batch proof with the compacted repair on the fold kernel;
+  FP32): the bcap, capped, fold or merge kernel over the padded index at
+  ``k_scan = k + RESCORE_SLACK``, a direct-form rescore (re-ranked by the
+  row-sort kernels from ``k_scan >= 512``, ``_rescore_large``), and for
+  bcap and capped the per-batch proof with the compacted repair on the
+  fold or merge kernel; it serves ``k <= PALLAS_K_MAX = 4088``;
 * the streamed scan ``knn`` / ``_knn_impl``: the JAX package's XLA path,
-  which serves f64 indexes, SqEuclidean and ``k_scan > 1024``.
+  which serves f64 indexes, SqEuclidean and ``k > PALLAS_K_MAX``.
 
 All distance evaluation is a tiled ``‖q‖² + ‖x‖² − 2 q·xᵀ`` product on
 centered data (or the direct form at d <= 32), streamed over point chunks
@@ -23,16 +25,23 @@ import math
 import torch
 
 from ..distance import DIRECT_DIM_MAX, Euclidean, Metric
-from .cuda.knn_kernel import (BCAP_BLOCK, PASSES_MAX, knn_bcap, knn_capped,
-                              knn_fold)
+from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
+                              PASSES_MAX, knn_bcap, knn_capped, knn_fold,
+                              knn_merge)
+from .cuda.rank_sort_kernel import rank_sort_pairs
+from .cuda.sort_kernel import bitonic_sort_pairs
 from .topk import (merge_topk, monotone_distances, nan_to_inf, rescore_exact,
                    smallest_k)
 
 __all__ = ["knn", "knn_prepadded", "center_of", "pad_for_pallas",
            "prepare_euclidean_index", "pick_scheme", "capped_passes",
-           "RESCORE_SLACK", "PAD_ROWS"]
+           "scan_width", "RESCORE_SLACK", "PAD_ROWS", "PALLAS_K_MAX"]
 
 RESCORE_SLACK = 8
+
+#: largest k the kernel route serves (ops/bruteforce.py:517): merge keeps
+#: a working set of up to 4096
+PALLAS_K_MAX = MERGE_K_MAX - RESCORE_SLACK
 
 #: index pad granule: a multiple of the bcap block, so the rescore reads
 #: whole blocks (the kernels themselves take any row count)
@@ -44,6 +53,14 @@ CAPPED_MIN_N = 262144
 
 #: capped tile in rows (the JAX package's tile at d <= 256, pallas_tile_n)
 CAPPED_TILE = 4096
+
+#: capped serves k_scan beyond 128 where n >= CAPPED_N_PER_K * k_scan
+#: (ops/bruteforce.py:655-656)
+CAPPED_N_PER_K = 200
+
+#: widest candidate row the bitonic re-rank takes; wider rows go to the
+#: counting-rank sort (ops/bruteforce.py:568)
+BITONIC_WIDTH_MAX = 2048
 
 #: bcap tile in blocks: 2048 rows, the JAX package's bcap_tile_n
 BCAP_TILE = 128
@@ -102,17 +119,42 @@ def prepare_euclidean_index(points: torch.Tensor, tn: int | None = None):
 
 
 def pick_scheme(k_eff: int, n_real: int) -> str:
-    """The kernel route's scheme (ops/bruteforce.py:638-663, reduced to
-    the port's kernels): bcap for ``k_scan <= 32`` and capped for
-    ``k_scan <= 128`` at serving scale (``n >= 262144``), fold otherwise.
-    The thresholds are the JAX package's cutovers; this card's own are not
-    measured yet."""
+    """The kernel route's scheme (ops/bruteforce.py:638-663, within the
+    port's kernels), with ``ks = min(k_eff + 8, n)``: bcap for ``ks <= 32``
+    and capped for ``ks <= 128`` at serving scale (``n >= 262144``);
+    capped for ``ks <= 1024`` or ``3072 <= ks <= 4088`` where
+    ``n >= 200 ks``; otherwise fold up to ``k_eff + 8 <= 640`` and merge
+    above.
+
+    Deviation 1: the port's capped kernel keeps a tile's ``passes + 1``
+    smallest on one half-warp, so ``passes <= PASSES_MAX = 15``, and a
+    working set of at most ``FOLD_K_MAX = 1024``, where the reference
+    allows 48 passes and 4096.  Wherever the reference's capped route
+    needs more (its passes, or ``ks > 1024``, as at ``3072 <= ks <= 4088``),
+    the port takes fold or merge instead of clamping the passes, which
+    would send most queries to the repair.  The thresholds are the JAX
+    package's cutovers; this card's own are not measured yet."""
     ks = min(k_eff + RESCORE_SLACK, n_real)
     if ks <= 32 and n_real >= CAPPED_MIN_N:
         return "bcap"
     if ks <= 128 and n_real >= CAPPED_MIN_N:
         return "capped"
-    return "fold"
+    if ((ks <= 1024 or 3072 <= ks <= PALLAS_K_MAX)
+            and n_real >= CAPPED_N_PER_K * ks and ks <= FOLD_K_MAX
+            and _passes_needed(ks, CAPPED_TILE, n_real,
+                               "capped") <= PASSES_MAX):
+        return "capped"
+    return "fold" if k_eff + RESCORE_SLACK <= 640 else "merge"
+
+
+def _passes_needed(k_scan: int, tile_rows: int, n_real: int,
+                   scheme: str) -> int:
+    lam = k_scan * tile_rows / n_real
+    if lam <= 0.5 and (scheme == "bcap" or k_scan <= 32):
+        return 2
+    if scheme == "capped" and k_scan <= 128 and lam <= 2.0:
+        return 4
+    return math.ceil(lam + 3.0 * math.sqrt(lam) + 2.0)
 
 
 def capped_passes(k_scan: int, tile_rows: int, n_real: int,
@@ -121,15 +163,19 @@ def capped_passes(k_scan: int, tile_rows: int, n_real: int,
     sized for the per-tile survivor count, a Poisson(lam = k_scan *
     tile / n) variable, with 3 sqrt(lam) of tail slack; the small-k
     serving regimes keep the measured 2 and 4.  Capped at ``PASSES_MAX``
-    (a miss costs a repair, never exactness)."""
-    lam = k_scan * tile_rows / n_real
-    if lam <= 0.5 and (scheme == "bcap" or k_scan <= 32):
-        passes = 2
-    elif scheme == "capped" and k_scan <= 128 and lam <= 2.0:
-        passes = 4
-    else:
-        passes = math.ceil(lam + 3.0 * math.sqrt(lam) + 2.0)
-    return min(PASSES_MAX, passes)
+    for a forced scheme (a miss costs a repair, never exactness);
+    ``pick_scheme`` never routes where the cap binds."""
+    return min(PASSES_MAX, _passes_needed(k_scan, tile_rows, n_real, scheme))
+
+
+def scan_width(scheme: str, k_eff: int, n_real: int) -> int:
+    """``k_scan``, the candidates a scheme keeps: ``min(k_eff + 8, n)``;
+    for merge and capped above 1024 rounded up to a multiple of 128,
+    at most 4096 and at least ``k_eff`` (ops/bruteforce.py:673-679)."""
+    k_scan = min(k_eff + RESCORE_SLACK, n_real)
+    if scheme in ("merge", "capped") and k_scan > FOLD_K_MAX:
+        k_scan = max(min(-(-k_scan // 128) * 128, MERGE_K_MAX), k_eff)
+    return k_scan
 
 
 def _proof_err(dim: int, qn, xn_max):
@@ -148,6 +194,39 @@ def _rescore(pts_padded, queries, idx, k_eff: int):
                            idx[s:s + rows], k_eff)
              for s in range(0, q, rows)]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _rescore_large(points, queries, idx, k: int):
+    """Direct-form rescore and re-rank for ``k_scan`` in the hundreds to
+    thousands (ops/bruteforce.py:520-570): the gather and the direct form
+    run over query chunks of about 64 MB, and the re-rank is a row-sort
+    kernel, ``bitonic_sort_pairs`` up to width 2048 and
+    ``rank_sort_pairs`` above.  Same contract as ``rescore_exact``:
+    (rdist, ids) ascending, (Q, k); NaN distances are +inf; ids < 0 or
+    >= n count as missing."""
+    q, dim = queries.shape
+    n = points.shape[0]
+    k_in = idx.shape[1]
+    ok = (idx >= 0) & (idx < n)
+    safe = torch.where(ok, idx, 0).long()
+    rows = max(64, (1 << 24) // max(1, k_in * dim))
+    rd = torch.empty((q, k_in), dtype=points.dtype, device=points.device)
+    for s in range(0, q, rows):
+        diff = queries[s:s + rows, None, :] - points[safe[s:s + rows]]
+        rd[s:s + rows] = torch.sum(diff * diff, dim=-1)
+    rd = torch.where(ok, nan_to_inf(rd), torch.inf)
+    row_sort = (rank_sort_pairs if k_in > BITONIC_WIDTH_MAX
+                else bitonic_sort_pairs)
+    sd, si = row_sort(rd, torch.where(ok, idx, -1).to(torch.int32))
+    return sd[:, :k], si[:, :k]
+
+
+def _rerank(pts_padded, queries, idx, k_eff: int, k_scan: int):
+    """The route's rescore of the kernel's candidates (ops/bruteforce.py:
+    719-724, :937-941): ``_rescore_large`` from ``k_scan >= 512``."""
+    if k_scan >= 512:
+        return _rescore_large(pts_padded, queries, idx, k_eff)
+    return _rescore(pts_padded, queries, idx, k_eff)
 
 
 def _bcap_rescore(pts_padded, xn_padded, queries, block_ids, k_eff: int):
@@ -184,15 +263,16 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
                   k_eff: int, k_scan: int, n_real: int):
     """The compacted repair of the proof-gated schemes
     (ops/bruteforce.py:732-779): the queries the proof could not cover
-    run the fold kernel, which is exact with the rescore slack, and their
-    rows are replaced.  Shapes are dynamic here, so the uncovered queries
+    run the fold kernel (merge above ``k_scan = 1024``), which is exact
+    with the rescore slack, and their rows are replaced.  Shapes are dynamic here, so the uncovered queries
     form one batch of their own size; the JAX package's 256-row cap and
     whole-batch fallback have no counterpart."""
     unc = torch.nonzero(~covered).flatten()
     if unc.numel() == 0:
         return best_rd, best_i
     qu = queries[unc]
-    _, idx = knn_fold(pts_padded, qu, xn_padded, k=k_scan)
+    run = knn_fold if k_scan <= FOLD_K_MAX else knn_merge
+    _, idx = run(pts_padded, qu, xn_padded, k=k_scan)
     fr, fi = _rescore(pts_padded, qu, torch.where(idx < n_real, idx, -1),
                       k_eff)
     best_rd = best_rd.index_copy(0, unc, fr)
@@ -207,13 +287,12 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
 
     ``pts_padded``/``xn_padded`` are pre-centered (``center_of``); pass the
     same ``center`` so the queries are shifted here.  ``scheme`` (default
-    ``pick_scheme``) is "bcap", "capped" or "fold".  Every scheme keeps
-    ``k_scan = min(k_eff +
-    RESCORE_SLACK, n_real)`` candidates (bcap: that many blocks, at least
-    12), re-scores them with the direct form and re-ranks:
+    ``pick_scheme``) is "bcap", "capped", "fold" or "merge".  Every scheme
+    keeps ``k_scan`` candidates (``scan_width``; bcap: that many blocks, at
+    least 12), re-scores them with the direct form and re-ranks:
 
-    * fold keeps the exact FP32 top k_scan; the slack absorbs the product
-      form's rounding, so it needs no proof;
+    * fold and merge keep the exact FP32 top k_scan; the slack absorbs the
+      product form's rounding, so they need no proof;
     * capped and bcap may skip true members where a tile had more than
       ``passes`` survivors.  Their threshold ``thr`` lower-bounds every
       point left out, so a query is covered when its re-scored k-th
@@ -225,12 +304,17 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
     if center is not None:
         queries = queries - center
     scheme = scheme or pick_scheme(k_eff, n_real)
-    k_scan = min(k_eff + RESCORE_SLACK, n_real)
-    if scheme == "fold":
-        _, idx = knn_fold(pts_padded, queries, xn_padded, k=k_scan)
+    k_scan = scan_width(scheme, k_eff, n_real)
+    if scheme == "capped" and k_scan > FOLD_K_MAX:
+        # the port's capped kernel keeps at most 1024 (deviation 1)
+        scheme = "merge"
+    if scheme in ("fold", "merge"):
+        run = knn_fold if scheme == "fold" else knn_merge
+        _, idx = run(pts_padded, queries, xn_padded, k=k_scan)
         # drop any padded-row ids (none can appear: their norms are +inf)
-        best_rd, best_i = _rescore(pts_padded, queries,
-                                   torch.where(idx < n_real, idx, -1), k_eff)
+        best_rd, best_i = _rerank(pts_padded, queries,
+                                  torch.where(idx < n_real, idx, -1), k_eff,
+                                  k_scan)
         return monotone_distances(torch.sqrt(best_rd)), best_i
     if scheme == "bcap":
         n_blocks = -(-pts_padded.shape[0] // BCAP_BLOCK)
@@ -254,8 +338,8 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
         # a seed slot may hold a NaN or padding row at +inf: the direct
         # form would score its zeroed copy as finite, so it goes as -1
         ok = torch.isfinite(rd) & (idx < n_real)
-        best_rd, best_i = _rescore(pts_padded, queries,
-                                   torch.where(ok, idx, -1), k_eff)
+        best_rd, best_i = _rerank(pts_padded, queries,
+                                  torch.where(ok, idx, -1), k_eff, k_scan)
     qn = torch.sum(queries * queries, dim=1)
     xn_max = torch.max(torch.where(torch.isfinite(xn_padded), xn_padded, 0.0))
     kth = best_rd[:, -1]

@@ -1,5 +1,5 @@
-"""Fused k-NN on the card: the fold, capped and bcap kernels and their
-plain versions.
+"""Fused k-NN on the card: the fold, capped, bcap and merge kernels and
+their plain versions.
 
 Counterpart of ``petal_neighbors_tpu/ops/pallas/knn_kernel.py``.  The
 u-domain score ``u = ‖x‖² − 2·q·x`` is the squared distance minus the
@@ -12,9 +12,12 @@ order-identical in u; ``‖q‖²`` is added back once at the output.
   (``_knn_kernel_capped``).  Misses are possible; the caller proves.
 * ``knn_bcap``: the capped scheme over the minima of blocks of
   ``BCAP_BLOCK`` contiguous rows; returns block ids (``_knn_kernel_bcap``).
+* ``knn_merge``: the exact k smallest u per query for k up to 4096,
+  sorted (``_knn_kernel_merge`` + ``_bitonic_merge_sorted``).
 
-Each launches the hand-written CUDA kernel ``csrc/knn_fold.cu`` (one
-template, one mode each) for CUDA tensors and runs its plain PyTorch
+Each launches a hand-written CUDA kernel of ``csrc/knn_fold.cu`` (one
+template with a mode each for the first three, a kernel of its own on the
+same tile product for merge) for CUDA tensors and runs its plain PyTorch
 version for CPU tensors.  Nothing else selects between them: a CUDA tensor
 launches the kernel or raises.
 
@@ -32,10 +35,14 @@ import torch
 
 __all__ = ["knn_fold", "knn_fold_reference", "knn_capped",
            "knn_capped_reference", "knn_bcap", "knn_bcap_reference",
-           "kernel_plan", "FOLD_K_MAX", "PASSES_MAX", "BCAP_BLOCK"]
+           "knn_merge", "knn_merge_reference", "kernel_plan", "FOLD_K_MAX",
+           "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK"]
 
 #: largest working set the kernels take (knn_kernel.py:1011-1012)
 FOLD_K_MAX = 1024
+
+#: largest working set of the merge kernel (knn_kernel.py:1011-1012)
+MERGE_K_MAX = 4096
 
 #: largest ``passes`` of the capped and bcap kernels: the sorted list of a
 #: tile's passes + 1 smallest candidates spans one half-warp
@@ -45,12 +52,13 @@ PASSES_MAX = 15
 #: granule of 2048 rows over 128 lanes of the TPU kernel (bcap_tile_n)
 BCAP_BLOCK = 16
 
-_MODES = {"fold": 0, "capped": 1, "bcap": 2}
+_MODES = {"fold": 0, "capped": 1, "bcap": 2, "merge": 3}
 
 
-def _check(points, queries, point_norms, k: int, name: str) -> None:
-    if not 1 <= k <= FOLD_K_MAX:
-        raise ValueError(f"{name} takes 1 <= k <= {FOLD_K_MAX}, got {k}")
+def _check(points, queries, point_norms, k: int, name: str,
+           k_max: int = FOLD_K_MAX) -> None:
+    if not 1 <= k <= k_max:
+        raise ValueError(f"{name} takes 1 <= k <= {k_max}, got {k}")
     if points.ndim != 2 or queries.ndim != 2 or point_norms.ndim != 1:
         raise ValueError(f"{name} wants points (N, d), queries (Q, d) and "
                          "point_norms (N,)")
@@ -95,6 +103,18 @@ def knn_fold_reference(points, queries, point_norms, *, k: int):
     as +inf.  Returns (rdist (Q, k) float32, ids (Q, k) int32), ascending.
     """
     _check(points, queries, point_norms, k, "knn_fold")
+    return _running_topk(points, queries, point_norms, k)
+
+
+def knn_merge_reference(points, queries, point_norms, *, k: int):
+    """Plain PyTorch version of the merge kernel: the fold kernel's plain
+    version (the same exact top-k) at k up to ``MERGE_K_MAX``.  Its output
+    is sorted ascending, ties in id order, as the kernel's."""
+    _check(points, queries, point_norms, k, "knn_merge", MERGE_K_MAX)
+    return _running_topk(points, queries, point_norms, k)
+
+
+def _running_topk(points, queries, point_norms, k: int):
     nq = queries.shape[0]
     best_u = torch.full((nq, k), torch.inf, dtype=torch.float32,
                         device=queries.device)
@@ -226,7 +246,7 @@ def _lib():
 
     lib = load("knn_fold")
     p = ctypes.POINTER(ctypes.c_int)
-    lib.knn_constants.argtypes = [p] * 5
+    lib.knn_constants.argtypes = [p] * 6
     lib.knn_constants.restype = None
     lib.knn_plan.argtypes = [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -235,18 +255,22 @@ def _lib():
     lib.knn_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.knn_launch.restype = ctypes.c_int
+    lib.knn_merge_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.knn_merge_launch.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _constants() -> dict[str, int]:
     """The kernels' fixed sizes, as the CUDA source defines them."""
-    vals = [ctypes.c_int(0) for _ in range(5)]
+    vals = [ctypes.c_int(0) for _ in range(6)]
     _lib().knn_constants(*(ctypes.byref(v) for v in vals))
-    out = dict(zip(("tq", "tn", "block", "max_passes", "max_k"),
-                   (v.value for v in vals)))
-    if (out["block"], out["max_passes"], out["max_k"]) != (
-            BCAP_BLOCK, PASSES_MAX, FOLD_K_MAX):
+    out = dict(zip(("tq", "tn", "block", "max_passes", "max_k",
+                    "merge_max_k"), (v.value for v in vals)))
+    if (out["block"], out["max_passes"], out["max_k"],
+            out["merge_max_k"]) != (BCAP_BLOCK, PASSES_MAX, FOLD_K_MAX,
+                                    MERGE_K_MAX):
         raise RuntimeError(f"csrc/knn_fold.cu disagrees with this module: "
                            f"{out}")
     return out
@@ -264,7 +288,7 @@ def _plan(device_index: int, mode: int, n: int, q: int, d: int, k: int,
 
 
 def _tile_tiles(scheme: str, tile: int) -> int:
-    if scheme == "fold":
+    if scheme in ("fold", "merge"):
         return 1
     rows = tile * BCAP_BLOCK if scheme == "bcap" else tile
     tn = _constants()["tn"]
@@ -400,7 +424,60 @@ def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
     return out
 
 
+def knn_merge(points, queries, point_norms, *, k: int):
+    """Exact streaming top-k of u for ``1 <= k <= 4096``, sorted
+    (``_knn_kernel_merge``, knn_kernel.py:336, as ``knn_pallas(scheme=
+    "merge")`` serves it).
+
+    Inputs as ``knn_fold``.  Returns ``(rdist (Q, k) float32 ascending,
+    ids (Q, k) int32)``: rdist is ``u + ‖q‖²`` clamped at 0; empty slots
+    and NaN query rows are (+inf, -1); ids of +inf-norm rows never
+    appear.  CUDA tensors launch ``csrc/knn_fold.cu``'s merge kernel
+    (counted in ``knn_merge.launches``); CPU tensors run
+    ``knn_merge_reference``.
+    """
+    _check(points, queries, point_norms, k, "knn_merge", MERGE_K_MAX)
+    if points.device.type == "cpu":
+        return knn_merge_reference(points, queries, point_norms, k=k)
+    n, d = points.shape
+    nq = queries.shape[0]
+    if n >= 2 ** 31 or nq >= 2 ** 31:
+        raise ValueError("knn_merge ids are int32: N and Q must be < 2^31")
+    points = points.contiguous()
+    queries = queries.contiguous()
+    point_norms = point_norms.contiguous()
+    dev = queries.device
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out_d, out_i
+    with torch.cuda.device(dev):
+        s, _ = _plan(dev.index if dev.index is not None
+                     else torch.cuda.current_device(), _MODES["merge"], n,
+                     nq, d, k, 1)
+        # scratch: each range's sorted working set, two slots that take
+        # turns; each range's fill and slot; the ranges' shared bound per
+        # query (all ones: none yet); one arrival counter per query tile
+        part_d = torch.empty((s, nq, 2, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((s, nq, 2, k), dtype=torch.int32, device=dev)
+        part_f = torch.empty((s, nq), dtype=torch.int32, device=dev)
+        bound = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+        counters = torch.zeros((-(-nq // _constants()["tq"]),),
+                               dtype=torch.int32, device=dev)
+        err = _lib().knn_merge_launch(
+            points.data_ptr(), queries.data_ptr(), point_norms.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), part_d.data_ptr(),
+            part_i.data_ptr(), part_f.data_ptr(), bound.data_ptr(),
+            counters.data_ptr(), n, nq,
+            d, k, s, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"knn_merge kernel launch failed: cudaError {err}")
+    knn_merge.launches += 1
+    return out_d, out_i
+
+
 #: kernel launches made by each wrapper (plain-version calls do not count)
+knn_merge.launches = 0
 knn_fold.launches = 0
 knn_capped.launches = 0
 knn_bcap.launches = 0

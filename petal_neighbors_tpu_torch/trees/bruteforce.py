@@ -11,16 +11,16 @@ Two layouts, chosen at build:
 * **kernel** — float32 Euclidean, any size: the index holds
   ``prepare_euclidean_index``'s arrays on the device (center, padded
   centered points with +inf norms on NaN and padding rows, NaN-row mask);
-  queries run the bcap, capped or fold kernel and a direct-form rescore,
-  proved and repaired where the scheme needs it
-  (``ops.bruteforce.knn_prepadded``).  ``k + 8 > 1024`` takes the scan
-  over the same arrays.
+  queries with ``1 <= k <= PALLAS_K_MAX = 4088`` run the bcap, capped, fold
+  or merge kernel and a direct-form rescore, proved and repaired where
+  the scheme needs it (``ops.bruteforce.knn_prepadded``).  Larger k takes
+  the scan over the same arrays.
 * **scan** — everything else (f64, SqEuclidean): the streamed scan
   ``ops.bruteforce.knn``.
 
 ``last_backend`` names the route that served the latest ``query_batch``:
 ``"kernel"`` or ``"scan"``; ``last_scheme`` the kernel scheme ("bcap",
-"capped", "fold"), or None after the scan.
+"capped", "fold", "merge"), or None after the scan.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import torch
 
 from ..distance import DIRECT_DIM_MAX, Euclidean, Metric, get_metric
 from ..ops import bruteforce as bf
-from ..ops.cuda.knn_kernel import FOLD_K_MAX
 from ..utils.validation import (check_points, check_points_host, check_query,
                                 check_query_batch, resolve_device)
 
@@ -168,8 +167,7 @@ class BruteForce:
         qs = check_query_batch(queries, self.dim, self._dtype(), self.device)
         n = self.num_points
         k_eff = min(int(k), n)
-        if (self._pts is not None and k_eff >= 1
-                and min(k_eff + bf.RESCORE_SLACK, n) <= FOLD_K_MAX):
+        if self._pts is not None and 1 <= k_eff <= bf.PALLAS_K_MAX:
             scheme = bf.pick_scheme(k_eff, n)
             d, i = bf.knn_prepadded(self._pts, self._norms, qs, k_eff, n,
                                     self._center, scheme=scheme)

@@ -77,8 +77,8 @@ def test_query_batch_matches_jax(n, d, dtype):
     for k in (0, 1, 10, 100, n + 5):
         _compare(pts, qs, k, jidx, tidx)
         k_eff = min(k, n)
-        want = ("kernel" if dtype == np.float32 and 1 <= k_eff
-                and min(k_eff + 8, n) <= 1024 else "scan")
+        want = ("kernel" if dtype == np.float32
+                and 1 <= k_eff <= tbf.PALLAS_K_MAX else "scan")
         assert tidx.last_backend == want, (k, tidx.last_backend)
 
 
@@ -168,13 +168,17 @@ def test_integer_input_promotes_to_f32():
 
 
 def test_large_k_takes_the_scan():
-    pts, qs = _data(1100, 64, np.float32, seed=4)
+    """Only k above PALLAS_K_MAX = 4088 leaves the kernel route; k + 8 >
+    1024 runs merge."""
+    pts, qs = _data(4200, 64, np.float32, seed=4)
     jidx = jpn.BruteForce.euclidean(pts)
     tidx = tpn.BruteForce.euclidean(pts, device="cpu")
+    _compare(pts, qs, 4089, jidx, tidx)
+    assert (tidx.last_backend, tidx.last_scheme) == ("scan", None)
+    _compare(pts, qs, 4088, jidx, tidx)
+    assert (tidx.last_backend, tidx.last_scheme) == ("kernel", "merge")
     _compare(pts, qs, 1020, jidx, tidx)
-    assert tidx.last_backend == "scan"
-    _compare(pts, qs, 1016, jidx, tidx)
-    assert tidx.last_backend == "kernel"
+    assert (tidx.last_backend, tidx.last_scheme) == ("kernel", "merge")
 
 
 @pytest.mark.parametrize("n,d", [(700, 64), (300, 8)])
@@ -309,9 +313,9 @@ def test_proof_gated_route_repairs_identical_points():
 
 
 def test_serving_scale_routes_match_jax():
-    """At n >= 262144 the index serves k=10 by bcap, k=100 by capped and
-    k=200 by fold (the JAX package's cutovers), each exact against the
-    JAX BruteForce."""
+    """At n >= 262144 the index serves k=10 by bcap, and k=100 and k=200 by
+    capped (the JAX package's cutovers), each exact against the JAX
+    BruteForce."""
     rng = np.random.default_rng(9)
     n, d = 262144, 4
     pts = rng.random((n, d), dtype=np.float32) * 255
@@ -320,10 +324,11 @@ def test_serving_scale_routes_match_jax():
     qs[2] = np.nan
     jidx = jpn.BruteForce.euclidean(pts)
     tidx = tpn.BruteForce.euclidean(pts, device="cpu")
-    for k, scheme in ((10, "bcap"), (100, "capped"), (200, "fold")):
+    for k, scheme in ((10, "bcap"), (100, "capped"), (200, "capped")):
         _compare(pts, qs, k, jidx, tidx)
         assert (tidx.last_backend, tidx.last_scheme) == ("kernel", scheme)
-    assert tbf.pick_scheme(10, n - 1) == "fold"
+    # below serving scale bcap ends; n >= 200 k_scan keeps capped
+    assert tbf.pick_scheme(10, n - 1) == "capped"
 
 
 def test_capped_route_never_returns_seeded_nan_rows(monkeypatch):
@@ -344,3 +349,139 @@ def test_capped_route_never_returns_seeded_nan_rows(monkeypatch):
     assert (ti.numpy() >= 18).all()
     od, oi = _oracle(pts, qs, k)
     np.testing.assert_allclose(td.numpy(), od, rtol=1e-4, atol=1e-4)
+
+
+# ---- the large-k path: merge, capped from k_scan 512, the row sorts -------
+
+def _reference_scheme(k_eff, n, tn=4096):
+    """The JAX package's automatic scheme (ops/bruteforce.py:638-663, with
+    bcap planes, not fast) and the passes its capped branch would run
+    (:922-928), written out independently of the port."""
+    ks = min(k_eff + 8, n)
+    if ks <= 32 and n >= 262144:
+        return "bcap", None
+    if ks <= 128 and n >= 262144:
+        scheme = "capped"
+    elif (ks <= min(1024, tn) or 3072 <= ks <= min(4088, tn)) \
+            and n >= 200 * ks:
+        scheme = "capped"
+    else:
+        return ("fold" if k_eff + 8 <= 640 else "merge"), None
+    k_scan = ks
+    if k_scan > 1024:
+        k_scan = max(min(-(-k_scan // 128) * 128, 4096), k_eff)
+    lam = k_scan * tn / n
+    if k_scan <= 32 and lam <= 0.5:
+        passes = 2
+    elif k_scan <= 128 and lam <= 2.0:
+        passes = 4
+    else:
+        passes = min(48, int(np.ceil(lam + 3.0 * np.sqrt(lam) + 2.0)))
+    return scheme, (passes, k_scan)
+
+
+@pytest.mark.parametrize("k,n", [
+    (10, 10 ** 6), (100, 10 ** 6), (200, 10 ** 6), (1000, 10 ** 6),
+    (2000, 10 ** 6), (3000, 10 ** 6), (3070, 10 ** 6), (4080, 10 ** 7),
+    (1000, 300000), (500, 150000), (500, 10 ** 6), (10, 262143),
+    (10, 3000), (700, 5000), (4088, 4100), (1, 1)])
+def test_pick_scheme_follows_reference(k, n):
+    """The reference's route, except deviation 1: where its capped branch
+    needs more than 15 passes or k_scan > 1024, the port takes fold or
+    merge."""
+    want, capped = _reference_scheme(k, n)
+    got = tbf.pick_scheme(k, n)
+    if capped is not None and (capped[0] > tbf.PASSES_MAX
+                               or capped[1] > 1024):
+        assert got == ("fold" if k + 8 <= 640 else "merge"), (k, n)
+    else:
+        assert got == want, (k, n)
+
+
+def test_deviation_one_cases():
+    """The slice's shapes at 1M rows, and the rows of deviation 1."""
+    n = 10 ** 6
+    assert [tbf.pick_scheme(k, n) for k in (200, 1000, 2000, 3000)] == [
+        "capped", "capped", "merge", "merge"]
+    assert tbf.capped_passes(1008, tbf.CAPPED_TILE, n, "capped") == 13
+    # the reference takes capped at 26 passes here, the port merge
+    assert _reference_scheme(3070, n) == ("capped", (26, 3200))
+    assert tbf.pick_scheme(3070, n) == "merge"
+    assert tbf.pick_scheme(1000, 300000) == "merge"     # 27 passes
+    assert tbf.pick_scheme(500, 150000) == "fold"       # 28 passes
+    assert [tbf.scan_width("merge", k, n) for k in (1017, 2000, 3000, 4088)] \
+        == [1152, 2048, 3072, 4096]
+    assert tbf.scan_width("capped", 1000, n) == 1008
+    assert tbf.scan_width("merge", 1090, 1100) == 1152
+    assert tbf.scan_width("fold", 1000, 1005) == 1005
+
+
+@pytest.mark.parametrize("scheme,k,width_sort", [
+    ("merge", 1500, "bitonic"), ("merge", 2100, "rank"),
+    ("capped", 600, "bitonic")])
+def test_forced_large_k_routes_match_jax(scheme, k, width_sort, monkeypatch):
+    """The port's route with the scheme forced against the JAX route at
+    "highest" (interpret mode) on the same padded index, both against the
+    f64 oracle: merge at k_scan 1536 and 2176, capped at k_scan 608 (most
+    queries repaired at 15 passes).  Both re-rank through _rescore_large,
+    on the bitonic sort up to width 2048 and the rank sort above."""
+    rng = np.random.default_rng(k)
+    n, d = 8192, 32
+    pts = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((N_Q, d)).astype(np.float32)
+    pts[[7, 4000]] = np.nan
+    qs[3] = np.nan
+    mu = jbf.center_of(jnp.asarray(pts))
+    pp, pn = jbf.pad_for_pallas(jnp.asarray(pts) - mu, tn=2048)
+    jd, ji = (np.asarray(a) for a in jbf.knn_pallas_prepadded(
+        pp, pn, jnp.asarray(qs), k, n, mu, precision="highest",
+        scheme=scheme, tn=2048, interpret=True))
+    sorts = []
+    for name in ("bitonic_sort_pairs", "rank_sort_pairs"):
+        fn = getattr(tbf, name)
+        monkeypatch.setattr(tbf, name, lambda *a, _f=fn, _n=name:
+                            sorts.append((_n, a[0].shape[1])) or _f(*a))
+    td, ti = (t.numpy() for t in tbf.knn_prepadded(
+        torch.from_numpy(np.array(pp)), torch.from_numpy(np.array(pn)),
+        torch.from_numpy(qs), k, n, torch.from_numpy(np.array(mu)),
+        scheme=scheme))
+    assert sorts and sorts[0][0].startswith(width_sort)
+    od, oi = _oracle(pts, qs, k)
+    nanq = np.isnan(qs).any(axis=1)
+    assert td.shape == (N_Q, k)
+    assert (ti[nanq] == -1).all() and np.isposinf(td[nanq]).all()
+    np.testing.assert_allclose(td[~nanq], od[~nanq], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(td[~nanq], jd[~nanq], rtol=1e-4, atol=1e-4)
+    for r in np.flatnonzero(~nanq):
+        if not _tied(pts, qs[r].astype(np.float64), k):
+            assert set(ti[r].tolist()) == set(oi[r].tolist()), r
+            assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+
+
+def test_rescore_large_matches_rescore_exact():
+    """_rescore_large (chunked gather, row-sort re-rank) gives rescore_exact's
+    answer on both sides of the bitonic / rank cutover, missing and
+    out-of-range ids included."""
+    rng = np.random.default_rng(11)
+    pts = torch.from_numpy(rng.standard_normal((3000, 16)).astype(np.float32))
+    pts[5] = float("nan")
+    qs = torch.from_numpy(rng.standard_normal((70, 16)).astype(np.float32))
+    for width in (600, 2100):
+        idx = torch.from_numpy(rng.integers(-5, 3005, (70, width))
+                               .astype(np.int32))
+        idx[:, 0] = 5
+        got = tbf._rescore_large(pts, qs, idx, 550)
+        want = tbf.rescore_exact(pts, qs, idx, 550)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [1017, 2000])
+def test_large_k_kernel_route_matches_jax(k):
+    """k + 8 > 1024 rides the kernel route (merge) end to end and answers
+    as the JAX BruteForce does."""
+    pts, qs = _data(5000, 64, np.float32, seed=12, nan_rows=(3,),
+                    nan_queries=(1,))
+    jidx = jpn.BruteForce.euclidean(pts)
+    tidx = tpn.BruteForce.euclidean(pts, device="cpu")
+    _compare(pts, qs, k, jidx, tidx)
+    assert (tidx.last_backend, tidx.last_scheme) == ("kernel", "merge")

@@ -302,3 +302,56 @@ def test_capped_rejects_bad_arguments(run, kw):
     pp, pn = pad_for_pallas(torch.zeros((2048, 4)))
     with pytest.raises(ValueError):
         run(pp, torch.zeros((2, 4)), pn, **kw)
+
+
+# ---- merge: the exact top-k for k up to 4096 ------------------------------
+
+@pytest.mark.parametrize("k", [1500, 37])
+def test_merge_matches_jax(k):
+    """The port's merge (its plain version on the CPU) against the JAX
+    merge kernel in interpret mode, NaN point and query rows included, in
+    the style of tests/test_pallas_kernel.py's merge tests: rdist rtol
+    2e-4 after sorting, ids as sets except at boundary ties, the port's
+    rows ascending."""
+    rng = np.random.default_rng(k)
+    n, d, q = 8192, 32, 16
+    pts = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    pts[[7, 4000]] = np.nan
+    qs[[3, 11]] = np.nan
+    pp, pn = jax_pad(jnp.asarray(pts), tn=2048)
+    jd, ji = (np.asarray(a) for a in knn_pallas(
+        pp, jnp.asarray(qs), pn, k=k, tq=8, tn=2048, interpret=True,
+        scheme="merge", sort_output=False))
+    td, ti = (t.numpy() for t in kk.knn_merge(
+        torch.from_numpy(np.array(pp)), torch.from_numpy(qs),
+        torch.from_numpy(np.array(pn)), k=k))
+    assert td.shape == (q, k) and ti.dtype == np.int32
+    nanq = np.isnan(qs).any(axis=1)
+    assert (ti[nanq] == -1).all() and np.isposinf(td[nanq]).all()
+    assert (ji[nanq] == -1).all()
+    sel = ti[ti >= 0]
+    assert (sel < n).all() and not np.isnan(pts[sel]).any()
+    assert (np.diff(td[~nanq], axis=1) >= 0).all()
+    np.testing.assert_allclose(td[~nanq], np.sort(jd[~nanq], 1), rtol=2e-4)
+    for r in np.flatnonzero(~nanq):
+        if not _boundary_tied(pts, qs[r].astype(np.float64), k):
+            assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+
+
+def test_merge_k_above_n_and_limits():
+    """Fewer finite rows than k: the real rows ascending, then (+inf, -1);
+    k outside 1..4096 raises; the CPU counts no launch."""
+    pts, qs = _inputs(12, 300, nan_rows=(5,))
+    pp, pn = pad_for_pallas(torch.from_numpy(pts))
+    before = kk.knn_merge.launches
+    rd, ids = kk.knn_merge(pp, torch.from_numpy(qs), pn, k=4096)
+    assert kk.knn_merge.launches == before
+    fold_rd, fold_ids = kk.knn_fold(pp, torch.from_numpy(qs), pn, k=1000)
+    assert torch.equal(rd[:, :1000], fold_rd)
+    assert torch.equal(ids[:, :1000], fold_ids)
+    assert (ids[:, :299] >= 0).all() and (ids[:, 299:] == -1).all()
+    assert torch.isinf(rd[:, 299:]).all()
+    for k in (0, 4097):
+        with pytest.raises(ValueError):
+            kk.knn_merge(pp, torch.from_numpy(qs), pn, k=k)
