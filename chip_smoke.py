@@ -19,7 +19,10 @@ Phases, each printed as one JSON line on stdout:
               sorts (bitonic, rank) against a stable ``torch.sort`` at the
               large-k path's widths with duplicate keys and +inf tails:
               keys equal, payloads equal (rank) or equal as multisets
-              within each run of equal keys (bitonic).
+              within each run of equal keys (bitonic).  The Lp kernel
+              against its plain version at d = 33, 48, 64, 130 and 960,
+              p = 1, 2.5, 3, 4 and Chebyshev, k = 1 to 4096, with NaN rows,
+              NaN queries and ragged tails.
 4. main     — ``BruteForce.euclidean`` over 1M x 128 f32 points (seed 7,
               as bench.py makes them) answering 10,240 queries at k=10
               (bcap), k=100 and k=200 (capped); every kernel's launches in
@@ -31,7 +34,17 @@ Phases, each printed as one JSON line on stdout:
               k=1000 (capped, re-ranked by the bitonic sort), k=2000 and
               k=3000 (merge; the bitonic and the rank sort), with the same
               oracle check and the launches of that run.
-6. kernels  — one JSON line: every kernel with its launches on its main
+6. main_generic — the JAX package's config 5 (benchmarks/run.py:192-212):
+              1M x 960 f32 points and 1,000 queries (seed 5, uniform in
+              [0, 1)), three indexes built one at a time, each answering
+              k=10: Euclidean and Cosine on the capped kernel, Minkowski-3
+              on the Lp kernel.  Per index: QPS, kernel ms, launches,
+              queries repaired, build seconds; ids against an f64 oracle
+              (every query; Minkowski-3 on as many as the time allows, at
+              least 256).  Then the path's kernels against their plain
+              versions at this shape, the Lp kernel's time for Manhattan and
+              Chebyshev, and bcap at this shape as a yardstick.
+7. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick.
 
@@ -65,15 +78,27 @@ SWAPS_PER_MILLION = 5
 #: FP32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+#: FP32 instructions per second on the SIMT lanes (one FFMA is 2 FLOP)
+PEAK_FP32_INSTR_S = PEAK_FP32_FLOP_S / 2
 KNN_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_fold.cu"
 SORT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/row_sort.cu"
+LP_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/lp_knn.cu"
+#: the JAX package's config 5, the GIST-1M shape (benchmarks/run.py:192-212)
+GIST_N, GIST_D, GIST_Q, GIST_SEED, GIST_K = 1_000_000, 960, 1_000, 5, 10
+#: config 5's indexes, built in this order, and the scheme each must take
+GENERIC = (("euclidean", "capped"), ("cosine", "capped"), ("minkowski3", "lp"))
+#: Minkowski-3 queries always held to the f64 oracle; the rest follow when
+#: the first ones' oracle time projects all of them under ORACLE_BUDGET_S
+LP_ORACLE_MIN_Q = 256
+ORACLE_BUDGET_S = 60.0
 REPLACES = {"fold": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:186",
             "capped": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:429",
             "bcap": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:546",
             "merge": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:336",
             "bitonic_sort": "petal_neighbors_tpu/ops/pallas/sort_kernel.py:36",
             "rank_sort":
-                "petal_neighbors_tpu/ops/pallas/rank_sort_kernel.py:48"}
+                "petal_neighbors_tpu/ops/pallas/rank_sort_kernel.py:48",
+            "lp_knn": "petal_neighbors_tpu/ops/pallas/lp_kernel.py:111"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -113,26 +138,162 @@ def bound_ms(n: int, q: int, d: int, k: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def library_topk(points, queries, norms, k: int, block: int = 1,
-                 chunk: int = 65536):
+def lp_instructions(spec) -> float:
+    """FP32 instructions per (query, row, feature) of the Lp kernel's work
+    (csrc/lp_knn.cu's table): FADD for the difference, then FADD or max
+    with |.| (p=1, Chebyshev) or FMUL and FFMA (p=3)."""
+    if spec.reduce == "max" or spec.p == 1.0:
+        return 2.0
+    if spec.p_int == 3:
+        return 3.0
+    raise ValueError(f"no instruction count for {spec}")
+
+
+def lp_bound_ms(n: int, q: int, d: int, k: int, spec) -> tuple[float, str]:
+    """Least time for the Lp kernel's work: points, mask and queries read
+    once and the (rdist, id) output written once over the memory rate,
+    against its instructions per element (lp_instructions) over the FP32
+    issue rate; the larger one bounds."""
+    bytes_ = 4 * (n * d + n + q * d) + 8 * q * k
+    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    t_ops = lp_instructions(spec) * q * n * d / PEAK_FP32_INSTR_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lp_tolerance(d: int, spec) -> float:
+    """Relative tolerance between the Lp kernel and its plain version: each
+    sums d non-negative terms in its own order, each term rounded up to p
+    times (the band (d + 2p) 2^-24 per side, twice); the non-integer power
+    adds the SFU error of csrc/lp_knn.cu (about 1.4 p 2^-23 times
+    |log2 |t||, up to 2^-14 for the smallest terms).  Chebyshev's max is
+    exact."""
+    if spec.reduce == "max":
+        return 0.0
+    tol = 2.0 * (d + 2.0 * spec.p) * 2.0 ** -24
+    return tol + (2.0 ** -14 if spec.p_int is None else 0.0)
+
+
+def compare_lp(pp, mask, qt, k: int, spec):
+    """The Lp kernel against its plain version on the same card tensors.
+    Returns (max_abs_err and max_rel_err over matched sorted rdist, rows
+    whose ids differ between near-equal rdist, the plain version's ms).
+    Kernel rows must come out ascending; finite slots, and the (+inf, -1)
+    slots of NaN queries, must match; where a row's id sets differ, its
+    differing ids, paired in rdist order, must lie within the tolerance
+    of each other."""
+    from petal_neighbors_tpu_torch.ops.cuda import lp_kernel as lk
+
+    rd_k, id_k = lk.lp_knn(pp, mask, qt, k=k, spec=spec)
+    torch.cuda.synchronize()
+    if not bool((rd_k[:, 1:] >= rd_k[:, :-1]).all()):
+        raise AssertionError(f"lp_knn {spec} k={k}: rows not ascending")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rd_p, id_p = lk.lp_knn_reference(pp, mask, qt, k=k, spec=spec)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    fin = torch.isfinite(rd_p)
+    if not torch.equal(fin, torch.isfinite(rd_k)) or not bool(
+            (id_k[~fin] == -1).all()):
+        raise AssertionError(f"lp_knn {spec} k={k}: finite slots differ")
+    tol = lp_tolerance(pp.shape[1], spec)
+    diff = torch.where(fin, (rd_k - rd_p).abs(), 0.0)
+    band = tol * torch.where(fin, rd_p.abs(), 0.0)
+    if bool((diff > band).any()):
+        raise AssertionError(f"lp_knn {spec} k={k}: rdist off by "
+                             f"{float((diff / rd_p.abs()).max())} relative")
+    rel = float(torch.where(fin & (rd_p > 0), diff / rd_p, 0.0).max())
+    nanq = torch.isnan(qt).any(dim=1)
+    if bool((id_k[nanq] != -1).any()):
+        raise AssertionError("lp_knn: a NaN query row picked up results")
+    if bool((mask[id_k[id_k >= 0].long()] != 0).any()):
+        raise AssertionError("lp_knn: a masked row was returned")
+    tied = 0
+    a, b = id_k.cpu().numpy(), id_p.cpu().numpy()
+    rk, rp = rd_k.cpu().numpy(), rd_p.cpu().numpy()
+    for r in np.flatnonzero((np.sort(a, 1) != np.sort(b, 1)).any(1)):
+        sa, sb = set(a[r].tolist()), set(b[r].tolist())
+        only_k = sorted(rk[r][list(a[r]).index(x)] for x in sa - sb)
+        only_p = sorted(rp[r][list(b[r]).index(x)] for x in sb - sa)
+        if len(only_k) != len(only_p) or any(
+                abs(x - y) > tol * abs(y) for x, y in zip(only_k, only_p)):
+            raise AssertionError(f"lp_knn {spec} k={k}: row {r} ids differ "
+                                 "off the tie band")
+        tied += 1
+    return float(diff.max()), rel, tied, plain_ms
+
+
+def lp_small_inputs(rng, n, q, d):
+    """Uniform points and queries in [0, 1)^d with NaN rows (whole and
+    partial), NaN queries and ten duplicated rows, on the card, padded by
+    pad_for_lp to a ragged row count (no padding)."""
+    from petal_neighbors_tpu_torch.ops.cuda.lp_kernel import pad_for_lp
+
+    pts, qs = small_inputs(rng, n, q, d)
+    pp, mask = pad_for_lp(torch.from_numpy(pts / 255.0).float().cuda(), tn=1)
+    return pp, mask, torch.from_numpy(qs / 255.0).float().cuda()
+
+
+#: (n, q, d) of the Lp kernel's small shapes: d = 33 and 130 on the scalar
+#: loads (130 and 960 in feature chunks, 960 the main width), 70,001 rows
+#: split into row ranges
+LP_SHAPES = ((5003, 130, 33), (4099, 70, 48), (3001, 200, 130),
+             (4500, 70, 960), (70001, 130, 64))
+LP_SPECS = ((1.0, "sum"), (2.5, "sum"), (3.0, "sum"), (4.0, "sum"),
+            (1.0, "max"))
+LP_KS = (1, 10, 100, 1024, 1100, 4096)
+
+
+def phase_lp_small():
+    """The Lp kernel against its plain version at every small shape, p and
+    k; returns the largest absolute error."""
+    from petal_neighbors_tpu_torch.ops.cuda import lp_kernel as lk
+
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for n, q, d in LP_SHAPES:
+        pp, mask, qt = lp_small_inputs(rng, n, q, d)
+        for p, reduce in LP_SPECS:
+            spec = lk.LpSpec(p, reduce)
+            for k in LP_KS:
+                if k > n:
+                    continue
+                err, rel, tied, _ = compare_lp(pp, mask, qt, k, spec)
+                worst = max(worst, err)
+                emit("kernel", name="lp_knn", n=n, q=q, d=d, p=p,
+                     reduce=reduce, k=k, max_abs_err=err, max_rel_err=rel,
+                     tol_rel=lp_tolerance(d, spec), tied_rows=tied,
+                     splits=lk.lp_plan(spec, n, q, d), ok=True)
+    return worst
+
+
+def chunked_topk(scores, n: int, k: int, chunk: int, block: int = 1):
+    """The k smallest of ``scores(s, e)`` (Q, (e - s) / block) over row
+    chunks [s, e) of [0, n), each chunk's ``torch.topk`` merged into the
+    running one; ids count in units of ``block`` rows."""
+    best_d = best_i = None
+    for s in range(0, n, chunk):
+        u = scores(s, min(n, s + chunk))
+        vd, vi = torch.topk(u, min(k, u.shape[1]), dim=1, largest=False)
+        vi = vi + s // block
+        if best_d is not None:
+            vd, pos = torch.topk(torch.cat([best_d, vd], 1), k, dim=1,
+                                 largest=False)
+            vi = torch.gather(torch.cat([best_i, vi], 1), 1, pos)
+        best_d, best_i = vd, vi
+    return best_d, best_i
+
+
+def library_topk(points, queries, norms, k: int, block: int = 1):
     """Yardstick: the same top-k of u (of 16-row block minima of u when
     ``block`` > 1) by a chunked ``torch.matmul`` plus ``torch.topk`` and a
     merge — cuBLAS, timed here and used nowhere in the port."""
-    best_u = best_i = None
-    for s in range(0, points.shape[0], chunk):
-        u = norms[s:s + chunk][None, :] - 2.0 * (queries @ points[s:s + chunk].T)
-        if block > 1:
-            u = u.reshape(u.shape[0], -1, block).amin(dim=2)
-        vu, vi = torch.topk(u, min(k, u.shape[1]), dim=1, largest=False)
-        vi = vi + s // block
-        if best_u is None:
-            best_u, best_i = vu, vi
-        else:
-            cu = torch.cat([best_u, vu], 1)
-            ci = torch.cat([best_i, vi], 1)
-            best_u, pos = torch.topk(cu, k, dim=1, largest=False)
-            best_i = torch.gather(ci, 1, pos)
-    return best_u, best_i
+    def scores(s, e):
+        u = norms[s:e][None, :] - 2.0 * (queries @ points[s:e].T)
+        return u if block == 1 else u.reshape(u.shape[0], -1, block).amin(2)
+    return chunked_topk(scores, points.shape[0], k, 65536, block)
 
 
 def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
@@ -420,28 +581,31 @@ def phase_sorts():
     return out
 
 
-def f64_oracle(points_dev, queries_dev, k: int, chunk: int = 32768):
+def _unit(x):
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def f64_oracle(points_dev, queries_dev, k: int, chunk: int = 32768,
+               cosine: bool = False):
     """Exact f64 top-k ids, chunked over points (a check on the card, not
-    the port)."""
+    the port).  ``cosine`` ranks the L2-normalized rows, whose squared
+    distance is twice the cosine distance."""
     q64 = queries_dev.double()
+    if cosine:
+        q64 = _unit(q64)
     qn = (q64 * q64).sum(1, keepdim=True)
-    best_d = best_i = None
-    for s in range(0, points_dev.shape[0], chunk):
-        p64 = points_dev[s:s + chunk].double()
-        dd = qn + (p64 * p64).sum(1)[None, :] - 2.0 * (q64 @ p64.T)
-        vd, vi = torch.topk(dd, k, dim=1, largest=False)
-        vi = vi + s
-        if best_d is None:
-            best_d, best_i = vd, vi
-        else:
-            cd = torch.cat([best_d, vd], 1)
-            ci = torch.cat([best_i, vi], 1)
-            best_d, pos = torch.topk(cd, k, dim=1, largest=False)
-            best_i = torch.gather(ci, 1, pos)
+
+    def scores(s, e):
+        p64 = points_dev[s:e].double()
+        if cosine:
+            p64 = _unit(p64)
+        return qn + (p64 * p64).sum(1)[None, :] - 2.0 * (q64 @ p64.T)
+    best_d, best_i = chunked_topk(scores, points_dev.shape[0], k, chunk)
     return best_d.clamp_min(0).sqrt(), best_i
 
 
-def check_vs_oracle(index, points_dev, queries_dev, ids, oracle_ids):
+def check_vs_oracle(index, points_dev, queries_dev, ids, oracle_ids,
+                    cosine: bool = False):
     """Every query's ids against the f64 oracle's.
 
     The port is exact to f32 direct-form distances (the JAX package's
@@ -450,14 +614,19 @@ def check_vs_oracle(index, points_dev, queries_dev, ids, oracle_ids):
     farther, in the f32 direct form over the index's centered copy (as
     ``rescore_exact`` computes it, up to 2^-22 relative for the summation
     order), than every oracle id it displaced.
-    Swaps are capped at SWAPS_PER_MILLION per 10^6 returned ids.  Returns
-    (recall, swaps, the largest f64 gap of a swap over the f32 rounding
-    band 4*d*2^-24*rd)."""
+    Swaps are capped at SWAPS_PER_MILLION per 10^6 returned ids.  A cosine
+    index is checked on its normalized copy with normalized queries (no
+    center), as the route ranks them.  Returns (recall, swaps, the largest
+    f64 gap of a swap over the f32 rounding band 4*d*2^-24*rd)."""
     from petal_neighbors_tpu_torch.ops.topk import rescore_exact
 
     a = torch.sort(ids.long(), dim=1).values.cpu().tolist()
     b = torch.sort(oracle_ids, dim=1).values.cpu().tolist()
-    qc = queries_dev - index._center
+    if cosine:
+        qc = queries_dev / torch.sqrt(
+            torch.sum(queries_dev * queries_dev, dim=-1, keepdim=True))
+    else:
+        qc = queries_dev - index._center
     hits, swaps, worst = 0, 0, 0.0
     for r, (x, y) in enumerate(zip(a, b)):
         sx, sy = set(x), set(y)
@@ -477,9 +646,14 @@ def check_vs_oracle(index, points_dev, queries_dev, ids, oracle_ids):
             raise AssertionError(f"query {r}: the port returned an id "
                                  "farther in f32 than an oracle id it left")
         q64 = queries_dev[r].double()
+        if cosine:
+            q64 = _unit(q64)
 
         def rd64(pid):
-            return float(((points_dev[pid].double() - q64) ** 2).sum())
+            p64 = points_dev[pid].double()
+            if cosine:
+                p64 = _unit(p64)
+            return float(((p64 - q64) ** 2).sum())
         gap = max(rd64(p) for p in got) - min(rd64(o) for o in missed)
         band = 4.0 * points_dev.shape[1] * 2.0 ** -24 * min(
             rd64(o) for o in missed)
@@ -489,6 +663,222 @@ def check_vs_oracle(index, points_dev, queries_dev, ids, oracle_ids):
     if swaps > max(1, SWAPS_PER_MILLION * n_ids // 10 ** 6):
         raise AssertionError(f"{swaps} boundary swaps in {n_ids} ids")
     return hits / n_ids, swaps, worst
+
+
+def lp_f64_oracle(points_dev, queries_dev, k: int, p: float):
+    """Exact f64 top-k of sum |q - x|^p by torch.cdist in f64, chunked
+    over points (a check on the card, not the port).  Returns (power sums,
+    ids)."""
+    q64 = queries_dev.double()
+    best_d, best_i = chunked_topk(
+        lambda s, e: torch.cdist(q64, points_dev[s:e].double(), p=p),
+        points_dev.shape[0], k, 65536)
+    return best_d ** p, best_i
+
+
+def check_lp_vs_oracle(points_dev, queries_dev, dists, ids, oracle_s,
+                       oracle_ids, p: float):
+    """Minkowski ids and distances against the f64 oracle.  An id may
+    differ from the oracle's only by a swap that f32 cannot order: the
+    f64 power sums of the port's extra id and of the oracle id it displaced
+    differ by less than the f32 rounding band of a sum of d non-negative
+    terms, each rounded p times, (d + 2p) 2^-24 times the oracle's k-th
+    sum.  Returns (recall, swaps, worst swap gap over its band, largest
+    relative distance error against the oracle)."""
+    d = points_dev.shape[1]
+    want = oracle_s ** (1.0 / p)
+    rel = float(((dists.double() - want).abs() / want).max())
+    if rel > (d + 2.0 * p) * 2.0 ** -24:
+        raise AssertionError(f"Minkowski distances off the oracle by {rel} "
+                             "relative")
+    a = torch.sort(ids.long(), dim=1).values.cpu().tolist()
+    b = torch.sort(oracle_ids, dim=1).values.cpu().tolist()
+    kth = oracle_s[:, -1].cpu().tolist()
+    hits, swaps, worst = 0, 0, 0.0
+    for r, (x, y) in enumerate(zip(a, b)):
+        sx, sy = set(x), set(y)
+        hits += len(sx & sy)
+        if sx == sy:
+            continue
+        q64 = queries_dev[r].double()
+
+        def s64(pid):
+            return float(((points_dev[pid].double() - q64).abs() ** p).sum())
+        got, missed = sx - sy, sy - sx
+        gap = max(s64(i) for i in got) - min(s64(o) for o in missed)
+        band = (d + 2.0 * p) * 2.0 ** -24 * kth[r]
+        if gap >= band:
+            raise AssertionError(f"query {r}: the port returned an id "
+                                 f"{gap / band:.3g} bands farther than an "
+                                 "oracle id it left")
+        swaps += len(got)
+        worst = max(worst, gap / band)
+    return hits / (len(a) * len(a[0])), swaps, worst, rel
+
+
+def library_lp_topk(points, mask, queries, k: int, p: float):
+    """Yardstick: the same top-k by a chunked ``torch.cdist`` plus
+    ``torch.topk`` and a merge, timed here and used nowhere in the port.
+    Returns the p-th-root distances."""
+    return chunked_topk(
+        lambda s, e: torch.cdist(queries, points[s:e], p=p) + mask[None, s:e],
+        points.shape[0], k, 65536)
+
+
+def phase_main_generic(wrappers, fold_rows):
+    """Config 5: three indexes over the same 1M x 960 points, built one at
+    a time, each answering the 1,000 queries at k=10 through the entry
+    points a user calls; the route, QPS, launches and the oracle checked
+    per index; then the path's kernels against their plain versions at
+    this shape.  Returns the kernels-line fields of lp_knn and the
+    launches on this path."""
+    import petal_neighbors_tpu_torch as pt
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+    from petal_neighbors_tpu_torch.ops.cuda import lp_kernel as lk
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(GIST_SEED)
+    points = rng.random((GIST_N, GIST_D), dtype=np.float32)
+    queries = rng.random((GIST_Q, GIST_D), dtype=np.float32)
+    emit("main_generic", data_s=time.perf_counter() - t0, n=GIST_N,
+         d=GIST_D, queries=GIST_Q, seed=GIST_SEED)
+    pdev = torch.from_numpy(points).cuda()
+    qdev = torch.from_numpy(queries).cuda()
+    metrics = {"euclidean": pt.Euclidean(), "cosine": pt.Cosine(),
+               "minkowski3": pt.Minkowski(3.0)}
+    lp_row, launches = None, {}
+    for name, scheme in GENERIC:
+        t0 = time.perf_counter()
+        index = pt.BruteForce(points, metrics[name])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        # ---- the path: counts from 0, warm call, best of 3 ---------------
+        for w in wrappers.values():
+            w.launches = 0
+        fold_rows.clear()
+        d, i = index.query_batch(qdev, GIST_K)
+        torch.cuda.synchronize()
+        if (index.last_backend, index.last_scheme) != ("kernel", scheme):
+            raise AssertionError(f"{name}: served by {index.last_backend} "
+                                 f"{index.last_scheme}, not {scheme}")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            d, i = index.query_batch(qdev, GIST_K)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        got = {s: w.launches for s, w in wrappers.items()}
+        need = "lp_knn" if scheme == "lp" else "capped"
+        if got[need] == 0:
+            raise AssertionError(f"main_generic {name} launched no {need} "
+                                 "kernel")
+        for s, c in got.items():
+            if c:
+                launches[s] = launches.get(s, 0) + c
+        repaired = list(fold_rows)
+        if d.shape != (GIST_Q, GIST_K) or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"{name}: bad output {tuple(d.shape)}")
+        if not bool((d[:, 1:] >= d[:, :-1]).all()):
+            raise AssertionError(f"{name}: distances not ascending")
+        # ---- the oracle -------------------------------------------------
+        t0 = time.perf_counter()
+        if scheme == "lp":
+            nq = LP_ORACLE_MIN_Q
+            os_, oi = lp_f64_oracle(pdev, qdev[:nq], GIST_K, 3.0)
+            torch.cuda.synchronize()
+            per_q = (time.perf_counter() - t0) / nq
+            if per_q * (GIST_Q - nq) <= ORACLE_BUDGET_S:
+                rs, ri = lp_f64_oracle(pdev, qdev[nq:], GIST_K, 3.0)
+                os_, oi, nq = torch.cat([os_, rs]), torch.cat([oi, ri]), GIST_Q
+            recall, swaps, worst, dist_err = check_lp_vs_oracle(
+                pdev, qdev[:nq], d[:nq], i[:nq], os_, oi, 3.0)
+        else:
+            cosine = name == "cosine"
+            od, oi = f64_oracle(pdev, qdev, GIST_K, cosine=cosine)
+            nq = GIST_Q
+            recall, swaps, worst = check_vs_oracle(index, pdev, qdev, i, oi,
+                                                   cosine=cosine)
+            want = od * od * 0.5 if cosine else od
+            dist_err = float(((d.double() - want).abs() / want).max())
+        oracle_s = time.perf_counter() - t0
+        # ---- the path's kernel at this shape, against its plain version --
+        if scheme == "lp":
+            spec = index._lp_spec
+            err, rel, tied, plain = compare_lp(index._pts, index._mask, qdev,
+                                               GIST_K, spec)
+            ms = cuda_ms(lambda: lk.lp_knn(index._pts, index._mask, qdev,
+                                           k=GIST_K, spec=spec), reps=3)
+            lib = cuda_ms(lambda: library_lp_topk(
+                index._pts, index._mask, qdev, GIST_K, 3.0), reps=1)
+            bound, by = lp_bound_ms(index._pts.shape[0], GIST_Q, GIST_D,
+                                    GIST_K, spec)
+            other = {}
+            for label, (p, reduce) in (("manhattan", (1.0, "sum")),
+                                       ("chebyshev", (1.0, "max"))):
+                s2 = lk.LpSpec(p, reduce)
+                other[label] = dict(
+                    ms=cuda_ms(lambda: lk.lp_knn(index._pts, index._mask,
+                                                 qdev, k=GIST_K, spec=s2),
+                               reps=2),
+                    bound_ms=lp_bound_ms(index._pts.shape[0], GIST_Q,
+                                         GIST_D, GIST_K, s2)[0])
+            kernel = dict(name="lp_knn", k=GIST_K, max_abs_err=err,
+                          max_rel_err=rel, tied_rows=tied, ms=ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=bound,
+                          bound_by=by, splits=lk.lp_plan(
+                              spec, index._pts.shape[0], GIST_Q, GIST_D),
+                          other_metrics=other)
+            lp_row = dict(kernel, n=index._pts.shape[0], q=GIST_Q, d=GIST_D)
+        else:
+            qk = (_unit(qdev) if name == "cosine"
+                  else qdev - index._center)
+            k, tile, passes = kernel_args("capped", GIST_K, GIST_N)
+            err, tied, plan = compare_kernel("capped", index._pts, qk,
+                                             index._norms, k, tile, passes)
+            ms = cuda_ms(lambda: kk.knn_capped(
+                index._pts, qk, index._norms, k=k, tile=tile,
+                passes=passes), reps=3)
+            plain = cuda_ms(lambda: kk.knn_capped_reference(
+                index._pts, qk, index._norms, k=k, tile=tile, passes=passes,
+                splits=plan[0]), reps=1, warm=0)
+            lib = cuda_ms(lambda: library_topk(index._pts, qk, index._norms,
+                                               k), reps=1)
+            bound, by = bound_ms(index._pts.shape[0], GIST_Q, GIST_D, k)
+            kernel = dict(name="knn_capped", k=k, tile=tile, passes=passes,
+                          plan=plan, max_abs_err=err, tied_rows=tied, ms=ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=bound,
+                          bound_by=by)
+            if name == "euclidean":
+                # the bcap yardstick at this shape: the reference serves
+                # capped here (no bcap planes over its budget)
+                kb, btile, bpasses = kernel_args("bcap", GIST_K, GIST_N)
+                kernel["bcap_yardstick"] = dict(
+                    k=kb, tile=btile, passes=bpasses,
+                    plan=kk.kernel_plan("bcap", index._pts.shape[0], GIST_Q,
+                                        GIST_D, kb, btile),
+                    ms=cuda_ms(lambda: kk.knn_bcap(
+                        index._pts, qk, index._norms, k=kb, tile=btile,
+                        passes=bpasses), reps=3),
+                    bound_ms=bound_ms(index._pts.shape[0], GIST_Q, GIST_D,
+                                      kb)[0])
+            if repaired:
+                # the repair's kernel on the repaired count of queries
+                kernel["repair_fold_ms"] = cuda_ms(lambda: kk.knn_fold(
+                    index._pts, qk[:repaired[-1]], index._norms, k=k),
+                    reps=2)
+        emit("main_generic", index=name, scheme=scheme, k=GIST_K,
+             queries=GIST_Q, qps=GIST_Q / min(walls), batch_s=min(walls),
+             kernel_ms=ms, launches_in_calls={s: c for s, c in got.items()
+                                              if c},
+             calls=4, repaired_queries_per_call=repaired, build_s=build_s,
+             recall=recall, oracle_queries=nq, boundary_swaps=swaps,
+             worst_swap_gap_over_band=worst, max_dist_rel_err=dist_err,
+             oracle_s=oracle_s, backend=index.last_backend, kernel=kernel)
+        del index, d, i
+        torch.cuda.empty_cache()
+    emit("main_generic", launches=launches)
+    return lp_row, launches
 
 
 def main() -> int:
@@ -501,6 +891,7 @@ def main() -> int:
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
     from petal_neighbors_tpu_torch.ops.cuda import _build
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+    from petal_neighbors_tpu_torch.ops.cuda import lp_kernel as lk
 
     smi = smi_line()
     emit("device", nvidia_smi=smi, torch=torch.__version__,
@@ -528,6 +919,7 @@ def main() -> int:
     # ---- kernel vs plain (launches here are not the main paths') -------
     rows, errs = phase_kernel(index._pts, index._norms, qdev - index._center)
     sorts = phase_sorts()
+    errs["lp_knn"] = phase_lp_small()
 
     # ---- the main paths ------------------------------------------------
     from petal_neighbors_tpu_torch.ops.cuda import rank_sort_kernel as rk
@@ -536,7 +928,7 @@ def main() -> int:
     wrappers = {"fold": kk.knn_fold, "capped": kk.knn_capped,
                 "bcap": kk.knn_bcap, "merge": kk.knn_merge,
                 "bitonic_sort": sk.bitonic_sort_pairs,
-                "rank_sort": rk.rank_sort_pairs}
+                "rank_sort": rk.rank_sort_pairs, "lp_knn": lk.lp_knn}
     # the route's fold calls, with their query counts: under bcap and
     # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
@@ -613,6 +1005,11 @@ def main() -> int:
                  backend=index.last_backend, build_s=build_s, **extra)
         emit(phase, launches=got)
 
+    del index, pdev, qdev
+    torch.cuda.empty_cache()
+    lp_row, generic_launches = phase_main_generic(wrappers, fold_rows)
+    launches["lp_knn"] = generic_launches["lp_knn"]
+
     kernels = []
     for scheme, k_req in MAIN_ROW.items():
         row = rows[scheme, k_req]
@@ -632,6 +1029,15 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": {"rows": row["rows"], "width": row["width"]}})
+    kernels.append({
+        "name": "lp_knn", "route": "cuda", "source": LP_SOURCE,
+        "replaces": REPLACES["lp_knn"], "launches": launches["lp_knn"],
+        "max_abs_err": max(errs["lp_knn"], lp_row["max_abs_err"]),
+        "ms": lp_row["ms"], "plain_ms": lp_row["plain_ms"],
+        "bound_ms": lp_row["bound_ms"], "bound_by": lp_row["bound_by"],
+        "library_ms": lp_row["library_ms"],
+        "shape": {key: lp_row[key] for key in ("n", "q", "d", "k",
+                                               "splits")} | {"p": 3.0}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,26 @@
 """petal_neighbors_tpu_torch — the PyTorch / CUDA port of
 ``petal_neighbors_tpu`` for one NVIDIA H100.
 
-This slice carries the exact flat index: ``BruteForce`` with the
-Euclidean and squared-Euclidean metrics, served on the card by the
-hand-written fold kernel (``ops/cuda/csrc/knn_fold.cu``).  Entry points
-take ``device=None``, which means ``"cuda"``; pass ``device="cpu"`` to run
-on the CPU, where each kernel is replaced by its plain PyTorch version.
-The port imports neither ``jax`` nor the JAX package.
+It carries the exact flat index, ``BruteForce``, for every metric of the
+JAX package (Euclidean, squared Euclidean, Cosine, Minkowski, Manhattan,
+Chebyshev, Haversine) and ``pairwise``.  On the card the index runs
+hand-written kernels: Euclidean and Cosine through the fold, capped, bcap
+and merge kernels (``ops/cuda/csrc/knn_fold.cu``) with the row sorts
+(``csrc/row_sort.cu``), Minkowski, Manhattan and Chebyshev through the Lp
+kernel (``csrc/lp_knn.cu``); the rest through the streamed scan.  Entry
+points take ``device=None``, which means ``"cuda"``; pass
+``device="cpu"`` to run on the CPU, where each kernel is replaced by its
+plain PyTorch version.  The port imports neither ``jax`` nor the JAX
+package.
 """
 
 from .convert import bruteforce_from_jax_arrays
-from .distance import Euclidean, Metric, SqEuclidean, get_metric
+from .distance import (Chebyshev, Cosine, Euclidean, Haversine, Manhattan,
+                       Metric, Minkowski, SqEuclidean, get_metric, pairwise)
 from .errors import ArrayError, EmptyArrayError, NotContiguousError
 from .trees.bruteforce import BruteForce
 
-__all__ = ["BruteForce", "Euclidean", "SqEuclidean", "Metric", "get_metric",
-           "ArrayError", "EmptyArrayError", "NotContiguousError",
+__all__ = ["BruteForce", "Euclidean", "SqEuclidean", "Cosine", "Minkowski",
+           "Manhattan", "Chebyshev", "Haversine", "Metric", "get_metric",
+           "pairwise", "ArrayError", "EmptyArrayError", "NotContiguousError",
            "bruteforce_from_jax_arrays"]

@@ -1,31 +1,55 @@
 """Carry a JAX ``BruteForce`` index across to the port without a rebuild.
 
-The index's "weights" are its resident arrays.  A JAX kernel-layout
-``BruteForce`` holds them as ``points`` (the original, on the host),
-``_center``, ``_pallas_pts``, ``_pallas_norms`` and ``_invalid`` — the
-outputs of its ``prepare_euclidean_index`` (``mu, ppad, pnorm, bad``).
-Handed over as numpy arrays, they make a port index that answers the same
-queries with the same arithmetic.
+The index's "weights" are its resident arrays, the outputs of the JAX
+package's ``prepare_*_index`` for its kernel layout:
+
+* Euclidean — ``prepare_euclidean_index``: ``center`` (``_center``),
+  ``ppad`` (``_pallas_pts``), ``pnorm`` (``_pallas_norms``), ``bad``
+  (``_invalid``);
+* cosine — ``prepare_cosine_index``: ``ppad``, ``pnorm``, ``bad``;
+* Lp — ``prepare_lp_index``: ``ppad`` (``_lp_pts``), ``mask``
+  (``_lp_mask``), ``bad``, with the Minkowski, Manhattan or Chebyshev
+  metric;
+
+each beside ``points``, the original on the host.  Handed over as numpy
+arrays, they make a port index that answers the same queries with the
+same arithmetic.
 """
 
 from __future__ import annotations
 
+from .distance import Cosine, Euclidean, get_metric
+from .ops.cuda.lp_kernel import lp_spec_for
 from .trees.bruteforce import BruteForce
 
 __all__ = ["bruteforce_from_jax_arrays"]
 
-_KEYS = ("points", "center", "ppad", "pnorm", "bad")
+_KEYS = {"euclidean": ("points", "center", "ppad", "pnorm", "bad"),
+         "cosine": ("points", "ppad", "pnorm", "bad"),
+         "lp": ("points", "ppad", "mask", "bad")}
 
 
-def bruteforce_from_jax_arrays(arrays, *, device=None) -> BruteForce:
-    """A port ``BruteForce`` (Euclidean, kernel layout) from a JAX index's
-    resident arrays: ``arrays`` maps ``points``, ``center``, ``ppad``,
-    ``pnorm`` and ``bad`` to numpy arrays, as the JAX
-    ``prepare_euclidean_index`` returns them (``ppad`` may be padded to
-    any row count)."""
-    missing = [key for key in _KEYS if key not in arrays]
+def bruteforce_from_jax_arrays(arrays, *, metric="euclidean",
+                               device=None) -> BruteForce:
+    """A port ``BruteForce`` in the kernel layout of ``metric`` from a JAX
+    index's resident arrays: ``arrays`` maps the layout's keys to numpy
+    arrays, as the JAX ``prepare_*_index`` returns them (``ppad`` may be
+    padded to any row count >= n).  Keys: ``points``, ``center``,
+    ``ppad``, ``pnorm``, ``bad`` (Euclidean); ``points``, ``ppad``,
+    ``pnorm``, ``bad`` (Cosine); ``points``, ``ppad``, ``mask``, ``bad``
+    (Minkowski, Manhattan, Chebyshev)."""
+    metric = get_metric(metric)
+    layout = ("lp" if lp_spec_for(metric) is not None
+              else "cosine" if type(metric) is Cosine
+              else "euclidean" if type(metric) is Euclidean else None)
+    if layout is None:
+        raise ValueError(f"no kernel layout serves {metric!r}")
+    missing = [key for key in _KEYS[layout] if key not in arrays]
     if missing:
-        raise KeyError(f"missing arrays: {missing}; need {list(_KEYS)}")
-    return BruteForce._from_prepared(
-        arrays["points"], arrays["center"], arrays["ppad"], arrays["pnorm"],
-        arrays["bad"], device=device)
+        raise KeyError(f"missing arrays: {missing}; need "
+                       f"{list(_KEYS[layout])}")
+    extra = {key: arrays[key] for key in ("center", "pnorm", "mask")
+             if key in _KEYS[layout]}
+    return BruteForce._from_prepared(arrays["points"], arrays["ppad"],
+                                     arrays["bad"], metric=metric,
+                                     device=device, **extra)

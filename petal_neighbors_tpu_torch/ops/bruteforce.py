@@ -3,19 +3,25 @@
 Counterpart of ``petal_neighbors_tpu/ops/bruteforce.py``, reduced to what
 the exact flat index needs:
 
-* the build: ``center_of``, ``pad_for_pallas``, ``prepare_euclidean_index``;
+* the build: ``center_of``, ``pad_for_pallas``, ``prepare_euclidean_index``,
+  ``prepare_cosine_index`` (L2-normalized rows: cosine through the
+  Euclidean kernels) and ``prepare_lp_index``;
 * the kernel route ``knn_prepadded`` (``ops/bruteforce.py:577-1009`` at
   FP32): the bcap, capped, fold or merge kernel over the padded index at
   ``k_scan = k + RESCORE_SLACK``, a direct-form rescore (re-ranked by the
   row-sort kernels from ``k_scan >= 512``, ``_rescore_large``), and for
   bcap and capped the per-batch proof with the compacted repair on the
   fold or merge kernel; it serves ``k <= PALLAS_K_MAX = 4088``;
+* the Lp route ``lp_knn_prepadded`` (``:1024-1048``): the Lp kernel's
+  direct power sums are final, converted by the metric;
 * the streamed scan ``knn`` / ``_knn_impl``: the JAX package's XLA path,
-  which serves f64 indexes, SqEuclidean and ``k > PALLAS_K_MAX``.
+  which serves f64 indexes, SqEuclidean, Haversine, low dimensions and k
+  beyond the kernels.
 
-All distance evaluation is a tiled ``‖q‖² + ‖x‖² − 2 q·xᵀ`` product on
-centered data (or the direct form at d <= 32), streamed over point chunks
-with a running top-k so the (Q, N) distance matrix never materializes.
+Euclidean distance evaluation is a tiled ``‖q‖² + ‖x‖² − 2 q·xᵀ`` product
+on centered data (or the direct form at d <= 32), streamed over point
+chunks with a running top-k so the (Q, N) distance matrix never
+materializes.
 """
 
 from __future__ import annotations
@@ -24,18 +30,22 @@ import math
 
 import torch
 
-from ..distance import DIRECT_DIM_MAX, Euclidean, Metric
+from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric
 from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
                               PASSES_MAX, knn_bcap, knn_capped, knn_fold,
                               knn_merge)
+from .cuda.lp_kernel import lp_knn, pad_for_lp
 from .cuda.rank_sort_kernel import rank_sort_pairs
 from .cuda.sort_kernel import bitonic_sort_pairs
 from .topk import (merge_topk, monotone_distances, nan_to_inf, rescore_exact,
                    smallest_k)
 
 __all__ = ["knn", "knn_prepadded", "center_of", "pad_for_pallas",
-           "prepare_euclidean_index", "pick_scheme", "capped_passes",
-           "scan_width", "RESCORE_SLACK", "PAD_ROWS", "PALLAS_K_MAX"]
+           "prepare_euclidean_index", "prepare_cosine_index",
+           "prepare_lp_index", "lp_knn_prepadded", "pick_scheme",
+           "with_bcap_planes", "capped_passes", "scan_width",
+           "RESCORE_SLACK", "PAD_ROWS", "PALLAS_K_MAX",
+           "SPLIT_BUDGET_ELEMS"]
 
 RESCORE_SLACK = 8
 
@@ -50,6 +60,10 @@ PAD_ROWS = 64
 #: corpus size from which the proof-gated schemes serve (the JAX package's
 #: cutover, ops/bruteforce.py:639-654)
 CAPPED_MIN_N = 262144
+
+#: the JAX index builds its split planes, and with them the bcap planes,
+#: only up to this many elements (trees/bruteforce.py:29, :108-113)
+SPLIT_BUDGET_ELEMS = 512 * (1 << 20)
 
 #: capped tile in rows (the JAX package's tile at d <= 256, pallas_tile_n)
 CAPPED_TILE = 4096
@@ -118,10 +132,61 @@ def prepare_euclidean_index(points: torch.Tensor, tn: int | None = None):
     return mu, ppad, pnorm, bad
 
 
-def pick_scheme(k_eff: int, n_real: int) -> str:
+def prepare_cosine_index(points: torch.Tensor, tn: int | None = None):
+    """The index-resident arrays for serving cosine through the Euclidean
+    kernels (ops/bruteforce.py:102-121): on L2-normalized rows
+    ``1 − q̂·x̂ = ‖q̂ − x̂‖²/2`` exactly, so the route (candidates, proof,
+    direct-form rescore) applies with a final ``rd/2``.  Zero-norm rows
+    normalize to NaN (0/0) and join the NaN rows: zeroed, +inf norms,
+    never selected.  No centering (unit rows are already at data scale).
+    Returns (ppad, pnorm, bad)."""
+    norms = torch.sqrt(torch.sum(points * points, dim=-1, keepdim=True))
+    unit = points / norms
+    bad = torch.isnan(unit).any(dim=-1)
+    ppad, pnorm = pad_for_pallas(unit, tn=tn, bad=bad)
+    return ppad, pnorm, bad
+
+
+def prepare_lp_index(points: torch.Tensor, tn: int | None = None):
+    """The Lp kernel's resident arrays (ops/bruteforce.py:1012-1021):
+    NaN-zeroed points padded to ``tn`` rows (default ``PAD_ROWS``), the
+    additive +inf exclusion mask, and the NaN-row flags (the scan's
+    ``invalid``).  Returns (ppad, mask, bad)."""
+    bad = torch.isnan(points).any(dim=-1)
+    ppad, mask = pad_for_lp(points, tn=PAD_ROWS if tn is None else tn,
+                            bad=bad)
+    return ppad, mask, bad
+
+
+def lp_knn_prepadded(pts_padded, mask, queries, k_eff: int, n_real: int,
+                     *, spec, metric: Metric):
+    """Exact Lp / Chebyshev k-NN over an index padded by ``pad_for_lp``
+    (ops/bruteforce.py:1024-1048): the Lp kernel's reduced distances are
+    final (the direct power sum has no cancellation, so no rescore and no
+    proof); the metric takes the p-th root, clamped ascending.  Returns
+    (distances, ids), (Q, k_eff); NaN queries and missing slots are
+    (+inf, -1)."""
+    rd, idx = lp_knn(pts_padded, mask, queries, k=k_eff, spec=spec)
+    idx = torch.where(idx < n_real, idx, -1)
+    rd = torch.where(idx < 0, torch.inf, rd)
+    return monotone_distances(metric.rdistance_to_distance(rd)), idx
+
+
+def with_bcap_planes(n_real: int, dim: int, cosine: bool = False) -> bool:
+    """Whether the reference's index would hold bcap planes, which its
+    route needs for bcap (trees/bruteforce.py:108-118, ops/bruteforce.py:
+    639-652): its split planes fit ``SPLIT_BUDGET_ELEMS``, ``n >= 262144``,
+    and it is not a cosine index (``prepare_cosine_index`` makes none)."""
+    return (not cosine and n_real * dim <= SPLIT_BUDGET_ELEMS
+            and n_real >= CAPPED_MIN_N)
+
+
+def pick_scheme(k_eff: int, n_real: int, bcap_planes: bool = True) -> str:
     """The kernel route's scheme (ops/bruteforce.py:638-663, within the
     port's kernels), with ``ks = min(k_eff + 8, n)``: bcap for ``ks <= 32``
-    and capped for ``ks <= 128`` at serving scale (``n >= 262144``);
+    where the reference's index holds bcap planes (``bcap_planes``, see
+    ``with_bcap_planes``) and capped for ``ks <= 128`` at serving scale
+    (``n >= 262144``);
     capped for ``ks <= 1024`` or ``3072 <= ks <= 4088`` where
     ``n >= 200 ks``; otherwise fold up to ``k_eff + 8 <= 640`` and merge
     above.
@@ -135,7 +200,7 @@ def pick_scheme(k_eff: int, n_real: int) -> str:
     would send most queries to the repair.  The thresholds are the JAX
     package's cutovers; this card's own are not measured yet."""
     ks = min(k_eff + RESCORE_SLACK, n_real)
-    if ks <= 32 and n_real >= CAPPED_MIN_N:
+    if ks <= 32 and n_real >= CAPPED_MIN_N and bcap_planes:
         return "bcap"
     if ks <= 128 and n_real >= CAPPED_MIN_N:
         return "capped"
@@ -281,13 +346,19 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
 
 
 def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
-                  center=None, *, scheme: str | None = None):
+                  center=None, *, scheme: str | None = None,
+                  normalize_q: bool = False, out_rdist: bool = False):
     """Exact k-NN through the kernels over an index padded by
     ``pad_for_pallas`` (``knn_pallas_prepadded`` at FP32).
 
     ``pts_padded``/``xn_padded`` are pre-centered (``center_of``); pass the
-    same ``center`` so the queries are shifted here.  ``scheme`` (default
-    ``pick_scheme``) is "bcap", "capped", "fold" or "merge".  Every scheme
+    same ``center`` so the queries are shifted here.  ``normalize_q``
+    L2-normalizes the queries (a cosine index, ``prepare_cosine_index``;
+    zero-norm queries become NaN rows); ``out_rdist`` returns squared
+    distances instead of distances (ops/bruteforce.py:664-671, :727-730).
+    ``scheme`` (default ``pick_scheme``, with bcap where the reference's
+    index would hold its planes) is "bcap", "capped", "fold" or "merge".
+    Every scheme
     keeps ``k_scan`` candidates (``scan_width``; bcap: that many blocks, at
     least 12), re-scores them with the direct form and re-ranks:
 
@@ -303,7 +374,17 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
     missing slots are (+inf, -1)."""
     if center is not None:
         queries = queries - center
-    scheme = scheme or pick_scheme(k_eff, n_real)
+    if normalize_q:
+        queries = queries / torch.sqrt(
+            torch.sum(queries * queries, dim=-1, keepdim=True))
+    scheme = scheme or pick_scheme(
+        k_eff, n_real, with_bcap_planes(n_real, pts_padded.shape[1],
+                                        normalize_q))
+
+    def to_out(rd):
+        # the sqrt needs the ascending clamp; the squared domain does not
+        return rd if out_rdist else monotone_distances(torch.sqrt(rd))
+
     k_scan = scan_width(scheme, k_eff, n_real)
     if scheme == "capped" and k_scan > FOLD_K_MAX:
         # the port's capped kernel keeps at most 1024 (deviation 1)
@@ -315,7 +396,7 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
         best_rd, best_i = _rerank(pts_padded, queries,
                                   torch.where(idx < n_real, idx, -1), k_eff,
                                   k_scan)
-        return monotone_distances(torch.sqrt(best_rd)), best_i
+        return to_out(best_rd), best_i
     if scheme == "bcap":
         n_blocks = -(-pts_padded.shape[0] // BCAP_BLOCK)
         k_cand = min(max(k_eff + RESCORE_SLACK, 12), BCAP_TILE, n_blocks)
@@ -352,15 +433,17 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
     best_rd, best_i = _prove_repair(covered, best_rd, best_i, pts_padded,
                                     xn_padded, queries, k_eff, k_scan,
                                     n_real)
-    return monotone_distances(torch.sqrt(best_rd)), best_i
+    return to_out(best_rd), best_i
 
 
-def _pick_chunk(n: int, q: int, dim: int, chunk: int | None) -> int:
+def _pick_chunk(n: int, q: int, dim: int, chunk: int | None,
+                direct: bool) -> int:
     if chunk is not None:
         return max(1, min(chunk, n))
     # Aim for ~64 MB of per-step intermediate, power-of-two sized.  The
-    # direct-difference form (d <= 32) materializes (q, c, dim), not (q, c).
-    per_elem = 4 * (dim if dim <= DIRECT_DIM_MAX else 1)
+    # direct-difference forms (d <= 32, and the Lp metrics at any d)
+    # materialize (q, c, dim), not (q, c).
+    per_elem = 4 * (dim if direct else 1)
     target = max(1, (64 << 20) // max(per_elem * q, 1))
     c = 1 << min(int(math.log2(target)) if target > 1 else 0, 20)
     return max(128, min(c, n))
@@ -372,8 +455,9 @@ def knn(points, queries, k: int, metric: Metric | None = None,
     XLA path, ``ops/bruteforce.py:144-200``).
 
     The caller centers high-dim Euclidean data (``center_of``) and passes
-    the matching ``point_norms`` or none.  ``invalid`` (n,) bool marks rows
-    that must never match (an index's zeroed NaN rows).
+    the matching ``point_norms`` or none (other metrics ignore them).
+    ``invalid`` (n,) bool marks rows that must never match (an index's
+    zeroed NaN rows).
     """
     metric = metric or Euclidean()
     n = points.shape[0]
@@ -383,7 +467,10 @@ def knn(points, queries, k: int, metric: Metric | None = None,
                             device=points.device),
                 torch.zeros((queries.shape[0], 0), dtype=torch.int32,
                             device=points.device))
-    c = _pick_chunk(n, queries.shape[0], points.shape[1], chunk)
+    dim = points.shape[1]
+    direct = dim <= DIRECT_DIM_MAX or not isinstance(metric,
+                                                     (Euclidean, Cosine))
+    c = _pick_chunk(n, queries.shape[0], dim, chunk, direct)
     return _knn_impl(points, queries, point_norms, invalid, k_eff, metric, c)
 
 

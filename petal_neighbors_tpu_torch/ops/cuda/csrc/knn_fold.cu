@@ -13,6 +13,8 @@
 //   knn_merge_kernel  _knn_kernel_merge + _bitonic_merge_sorted (:336,
 //               :287): the exact k smallest u per query for k up to 4096,
 //               output sorted ascending.
+// scan_tiles and knn_merge_kernel live in knn_tiles.cuh, templated on the
+// score operation (DotScore here); lp_knn.cu instantiates them for Lp.
 //
 // What they compute: for each query q and every point row x,
 //     u = ||x||^2 - 2 q.x
@@ -97,89 +99,18 @@
 // The C entry points return a cudaError_t; the launch returns
 // cudaGetLastError() right after the launch.
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
+#include "knn_tiles.cuh"
 
 namespace {
 
 constexpr int MODE_FOLD = 0;
 constexpr int MODE_CAPPED = 1;
 constexpr int MODE_BCAP = 2;
+constexpr int MODE_MERGE = 3;
 
-constexpr int TQ = 64;        // queries per block
-constexpr int TN = 64;        // point rows per tile
 constexpr int BLOCK = 16;     // rows per bcap block
-constexpr int DC = 128;       // features staged per chunk
-constexpr int DS = DC + 4;    // shared-memory row stride in floats
-constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_SPLITS = 64;  // a batch of one query tile spreads over SMs
-constexpr int MIN_TILES_PER_SPLIT = 64;
 constexpr int MAX_PASSES = 15;  // the list of passes+1 entries spans 16 lanes
 constexpr int MAX_K = 1024;
-constexpr int MODE_MERGE = 3;
-constexpr int MERGE_W = 128;      // survivor slots per query (merge)
-constexpr int MERGE_MAX_K = 4096;
-constexpr int MERGE_U = 8;        // set entries a lane loads per merge step
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// (a, ia) before (b, ib) in (value, id) order.
-__device__ __forceinline__ bool lex_less(float a, int ia, float b, int ib) {
-  return a < b || (a == b && ia < ib);
-}
-
-// Stage rows [row0, row0 + rows) x features [c0, c0 + w) of a row-major
-// (total, d) matrix into dst (stride DS), zero-filling rows past `total`
-// and the columns [w, wpad).
-template <bool VEC>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           long long total, long long row0,
-                                           int rows, int d, int c0, int w,
-                                           int wpad) {
-  if (VEC) {
-    const int per_row = wpad >> 2;
-    for (int idx = threadIdx.x; idx < rows * per_row; idx += THREADS) {
-      const int r = idx / per_row;
-      const int c = (idx - r * per_row) << 2;
-      const long long g = row0 + r;
-      const bool ok = g < total;
-      cp_async16(dst + r * DS + c, ok ? src + g * d + c0 + c : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * wpad; idx += THREADS) {
-      const int r = idx / wpad;
-      const int c = idx - r * wpad;
-      const long long g = row0 + r;
-      const bool ok = g < total && c < w;
-      cp_async4(dst + r * DS + c, ok ? src + g * d + c0 + c : src,
-                ok ? 4 : 0);
-    }
-  }
-}
 
 // The smallest of the half-warp's candidates (v, cid), ties to the smaller
 // id (jnp.argmin's first index: ids grow with the column).
@@ -379,114 +310,6 @@ __device__ __forceinline__ void flush_list(float& lv, int& li, float& tau,
   li = INT_MAX;
 }
 
-// Floats of shared memory the tile staging takes at width d: two point
-// tiles, one or two query tiles, two norm rows.
-__host__ __device__ __forceinline__ int tile_floats(int d) {
-  const int nch = (d + DC - 1) / DC;
-  return 2 * TN * DS + (nch > 1 ? 2 : 1) * TQ * DS + 2 * TN;
-}
-
-// The shared FP32 SIMT tile product of every kernel in this file: stream
-// the tiles [t_begin, t_end) of TN rows (and the block's TQ queries from
-// q0) through shared memory at `smem`, in chunks of DC features,
-// double-buffered with cp.async, and after each tile's last chunk call
-//     on_tile(t, xnb, acc)
-// on every thread of the block, between two __syncthreads: acc[j][i] is
-// q_(q0 + rbase + j) . x_(t*TN + xg + 16 i) summed over all d features,
-// and xnb the tile's TN norms (+inf past n).  acc is zeroed afterwards.
-template <bool VEC, class OnTile>
-__device__ __forceinline__ void scan_tiles(
-    const float* __restrict__ points, const float* __restrict__ queries,
-    const float* __restrict__ norms, long long n, int q, int d, int q0,
-    long long t_begin, long long t_end, float* smem, OnTile&& on_tile) {
-  const int nch = (d + DC - 1) / DC;
-  const int qbufs = nch > 1 ? 2 : 1;
-  float* xs = smem;                         // [2][TN][DS]
-  float* qs = xs + 2 * TN * DS;             // [qbufs][TQ][DS]
-  float* xn = qs + qbufs * TQ * DS;         // [2][TN]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int xg = lane & 15;
-  const int rbase = warp * 8 + (lane >> 4) * 4;
-  const long long nst = (t_end - t_begin) * nch;
-
-  auto issue = [&](long long s) {
-    const long long t = t_begin + s / nch;
-    const int c = static_cast<int>(s % nch);
-    const int buf = static_cast<int>(s & 1);
-    const int c0 = c * DC;
-    const int w = min(DC, d - c0);
-    const int wpad = (w + 3) & ~3;
-    stage_rows<VEC>(xs + buf * TN * DS, points, n, t * TN, TN, d, c0, w,
-                    wpad);
-    if (nch > 1 || s == 0)
-      stage_rows<VEC>(qs + (nch > 1 ? buf : 0) * TQ * DS, queries, q, q0, TQ,
-                      d, c0, w, wpad);
-    if (c == nch - 1) {
-      float* dst = xn + buf * TN;
-      for (int i = tid; i < TN; i += THREADS) {
-        const long long g = t * TN + i;
-        if (g < n)
-          cp_async4(dst + i, norms + g, 4);
-        else
-          dst[i] = INFINITY;
-      }
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  if (nst > 0) issue(0);
-  cp_async_commit();
-  for (long long s = 0; s < nst; ++s) {
-    if (s + 1 < nst) issue(s + 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-
-    const int c = static_cast<int>(s % nch);
-    const int buf = static_cast<int>(s & 1);
-    const int wpad = (min(DC, d - c * DC) + 3) & ~3;
-    const float* xb = xs + buf * TN * DS;
-    const float* qb = qs + (nch > 1 ? buf : 0) * TQ * DS;
-#pragma unroll 2
-    for (int kk = 0; kk < wpad; kk += 4) {
-      float4 qv[4], xv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        qv[j] = *reinterpret_cast<const float4*>(qb + (rbase + j) * DS + kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        xv[i] = *reinterpret_cast<const float4*>(xb + (xg + 16 * i) * DS + kk);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = acc[j][i];
-          a = fmaf(qv[j].x, xv[i].x, a);
-          a = fmaf(qv[j].y, xv[i].y, a);
-          a = fmaf(qv[j].z, xv[i].z, a);
-          a = fmaf(qv[j].w, xv[i].w, a);
-          acc[j][i] = a;
-        }
-    }
-
-    if (c == nch - 1) {
-      on_tile(t_begin + s / nch, xn + buf * TN, acc);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    }
-    __syncthreads();
-  }
-}
-
 // grid = (ceil(q / TQ), splits).  Block (bx, by) scans the rows of range
 // by into the working sets of queries [bx*TQ, bx*TQ + TQ).  part_d/part_i
 // (splits, q, k) hold the working sets when they are not in shared memory
@@ -558,7 +381,9 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   const long long t_begin = min(ntiles, per * split);
   const long long t_end = min(ntiles, t_begin + per);
 
+  const DotScore score{};
   scan_tiles<VEC>(points, queries, norms, n, q, d, q0, t_begin, t_end, smem,
+                  score,
                   [&](long long t, const float* xnb, float (&acc)[4][4]) {
       // ---- the tile's scores into the working sets ----------------------
       const int tile0 = static_cast<int>(t * TN);
@@ -571,7 +396,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float u = xnb[xg + 16 * i] - 2.f * acc[j][i];
+          const float u = score.finish(acc[j][i], xnb[xg + 16 * i]);
           v[j][i] = (u < INFINITY) ? u : INFINITY;   // NaN -> +inf
           // a NaN query gives NaN at every row, a finite one at none
           if (i == 0) qnan[j] = u != u;
@@ -735,408 +560,6 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   }
 }
 
-// ---- merge -------------------------------------------------------------
-
-// Sort one query's survivor buffer (MERGE_W slots, the first cnt filled)
-// ascending in (u, id) order by a bitonic network over the half-warp's 16
-// lanes, the empty slots as (+inf, INT_MAX).  Every lane of the warp calls
-// this; where `act` is false the half-warp leaves its buffer alone.
-__device__ __forceinline__ void sort_buffer(float* bd, int* bi, int cnt,
-                                            bool act, int xg) {
-  if (act)
-    for (int e = cnt + xg; e < MERGE_W; e += 16) {
-      bd[e] = INFINITY;
-      bi[e] = INT_MAX;
-    }
-  __syncwarp();
-  for (int size = 2; size <= MERGE_W; size <<= 1)
-    for (int s = size >> 1; s > 0; s >>= 1) {
-      if (act)
-        for (int t = xg; t < MERGE_W / 2; t += 16) {
-          const int i = 2 * s * (t / s) + (t % s);
-          const int j = i + s;
-          const float a = bd[i], b = bd[j];
-          const int ia = bi[i], ib = bi[j];
-          if (lex_less(b, ib, a, ia) == ((i & size) == 0)) {
-            bd[i] = b;
-            bi[i] = ib;
-            bd[j] = a;
-            bi[j] = ia;
-          }
-        }
-      __syncwarp();
-    }
-}
-
-// f32 -> unsigned with the same order (no NaN here), and back: the
-// per-query shared bound of merge, kept with atomicMin.
-__device__ __forceinline__ unsigned order_bits(float x) {
-  const unsigned u = __float_as_uint(x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_order_bits(unsigned b) {
-  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
-}
-
-// Half-warp merge of a sorted list A in global memory (na entries) with the
-// sorted buffer B in shared memory (nb <= MERGE_W) into O in global memory
-// (not aliasing A), keeping the first m <= na + nb.  A streams through
-// once, 16 x MERGE_U consecutive entries a step, the next step's loads
-// issued before this step's work.
-// The B entries that fall in a step's window (before the next step's first
-// entry) get their rank in A there: each lane counts its entries before the
-// B entry and the half-warp sums the counts, so every lane holds the rank.
-// Every entry then goes to its index plus the count of the other list's
-// entries before it ((u, id) order; ids are distinct); for an A entry that
-// is the B entries ranked at or below it, counted as the ranks come.  Every
-// lane of the warp calls this (shuffles); where `act` is false the
-// half-warp does nothing.
-__device__ __forceinline__ void merge_into(const float* ad, const int* ai,
-                                           int na, const float* bd,
-                                           const int* bi, int nb, float* od,
-                                           int* oi, int m, bool act, int xg) {
-  constexpr int SPAN = 16 * MERGE_U;
-  const int own = act ? (na + SPAN - 1) / SPAN : 0;
-  const int steps = max(own, __shfl_xor_sync(FULL, own, 16));
-  float a[MERGE_U], a2[MERGE_U];
-  int ia[MERGE_U], ia2[MERGE_U];
-  auto load = [&](int w0, float (&x)[MERGE_U], int (&ix)[MERGE_U]) {
-#pragma unroll
-    for (int u = 0; u < MERGE_U; ++u) {
-      const int e = w0 + u * 16 + xg;
-      x[u] = INFINITY;
-      ix[u] = INT_MAX;
-      if (act && e < na) {
-        x[u] = ad[e];
-        ix[u] = ai[e];
-      }
-    }
-  };
-  load(0, a, ia);
-  int lo = 0;   // B entries placed so far (ranked before this window)
-  for (int t = 0; t < steps; ++t) {
-    const int w0 = t * SPAN;
-    load(w0 + SPAN, a2, ia2);
-    // B entries ranked in this window: before A[w0 + SPAN], or all the
-    // rest in A's last window
-    const float nx = __shfl_sync(FULL, a2[0], 0, 16);
-    const int nix = __shfl_sync(FULL, ia2[0], 0, 16);
-    const bool last = w0 + SPAN >= na;
-    int hi = lo;
-    if (act && w0 < na)
-      while (hi < nb && (last || lex_less(bd[hi], bi[hi], nx, nix))) ++hi;
-    const int mine = hi - lo;
-    const int most = max(mine, __shfl_xor_sync(FULL, mine, 16));
-    int off[MERGE_U];   // B entries ranked at or below each A entry
-#pragma unroll
-    for (int u = 0; u < MERGE_U; ++u) off[u] = lo;
-    for (int jj = 0; jj < most; ++jj) {
-      const int j = lo + jj;
-      const bool live = jj < mine;
-      const float b = live ? bd[j] : 0.f;
-      const int ib = live ? bi[j] : 0;
-      int c = 0;
-#pragma unroll
-      for (int u = 0; u < MERGE_U; ++u) c += live && lex_less(a[u], ia[u], b, ib);
-#pragma unroll
-      for (int sh = 8; sh > 0; sh >>= 1) c += __shfl_xor_sync(FULL, c, sh);
-      if (live) {
-#pragma unroll
-        for (int u = 0; u < MERGE_U; ++u) off[u] += c <= u * 16 + xg;
-        if (xg == 0 && w0 + c + j < m) {
-          od[w0 + c + j] = b;
-          oi[w0 + c + j] = ib;
-        }
-      }
-    }
-    if (act && w0 < na) {
-#pragma unroll
-      for (int u = 0; u < MERGE_U; ++u) {
-        const int e = w0 + u * 16 + xg;
-        if (e < na && e + off[u] < m) {
-          od[e + off[u]] = a[u];
-          oi[e + off[u]] = ia[u];
-        }
-      }
-    }
-    lo = hi;
-#pragma unroll
-    for (int u = 0; u < MERGE_U; ++u) {
-      a[u] = a2[u];
-      ia[u] = ia2[u];
-    }
-  }
-  // A empty: B goes as it is
-  if (act && na == 0)
-    for (int j = xg; j < nb && j < m; j += 16) {
-      od[j] = bd[j];
-      oi[j] = bi[j];
-    }
-}
-
-// Lane xg of a half-warp writes outputs [m*xg/16, m*(xg+1)/16) of the
-// (u, id)-ordered merge of the sorted lists A (na entries) and B (nb, in
-// global memory written by another block, read with __ldcg), m <= na + nb,
-// into O (not aliasing A or B).  Each lane finds where its outputs start
-// by a binary search on the merge path, then merges sequentially.
-__device__ __forceinline__ void merge_path(const float* ad, const int* ai,
-                                           int na, const float* bd,
-                                           const int* bi, int nb, float* od,
-                                           int* oi, int m, int xg) {
-  const int p0 = static_cast<int>(static_cast<long long>(m) * xg / 16);
-  const int p1 = static_cast<int>(static_cast<long long>(m) * (xg + 1) / 16);
-  int lo = max(0, p0 - nb), hi = min(p0, na);
-  while (lo < hi) {   // the count taken from A among the first p0 outputs
-    const int i = (lo + hi) >> 1;
-    const int j = p0 - i;
-    if (!lex_less(__ldcg(bd + j - 1), __ldcg(bi + j - 1), ad[i], ai[i]))
-      lo = i + 1;
-    else
-      hi = i;
-  }
-  int i = lo, j = p0 - lo;
-  for (int p = p0; p < p1; ++p) {
-    bool from_a = j >= nb;
-    float b = 0.f;
-    int ib = 0;
-    if (!from_a) {
-      b = __ldcg(bd + j);
-      ib = __ldcg(bi + j);
-      from_a = i < na && !lex_less(b, ib, ad[i], ai[i]);
-    }
-    if (from_a) {
-      od[p] = ad[i];
-      oi[p] = ai[i];
-      ++i;
-    } else {
-      od[p] = b;
-      oi[p] = ib;
-      ++j;
-    }
-  }
-}
-
-// grid = (ceil(q / TQ), splits).  Block (bx, by) scans the rows of range
-// by for queries [bx*TQ, bx*TQ + TQ).  Each query keeps a sorted working
-// set of at most k (u, id) in global scratch, two slots that take turns
-// (part_d / part_i, (splits, q, 2, k)), its size `fill` and its k-th
-// value tau (+inf until full); a tile's scores below tau go to the query's
-// MERGE_W-slot buffer in shared memory, and a buffer that cannot take
-// another tile's survivors is sorted and merged into the set.  With
-// splits > 1 each range publishes fill*2 + slot in part_f (splits, q) and
-// the last block of a query tile (counters) merges the other ranges' sets
-// into its own.  The ranges of a query share a bound, bound[q] (order
-// bits, all ones before any range has k entries): each range that holds k
-// entries lowers it to its k-th value, and a flush takes it into tau.  A
-// range's k-th value bounds the query's final k-th from above, so the
-// bound drops nothing that belongs to the top k (a point tied with it may
-// give way to another of the same u).  Output: the sorted set, rd =
-// max(u + ||q||^2, 0), and (+inf, -1) past fill.
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-knn_merge_kernel(const float* __restrict__ points,
-                 const float* __restrict__ queries,
-                 const float* __restrict__ norms, float* __restrict__ out_d,
-                 int* __restrict__ out_i, float* __restrict__ part_d,
-                 int* __restrict__ part_i, int* __restrict__ part_f,
-                 unsigned* __restrict__ bound, int* __restrict__ counters,
-                 long long n, int q, int d, int k, int splits) {
-  extern __shared__ float4 smem4[];
-  __shared__ int is_last;
-  __shared__ int fin[TQ];                   // fill*2 + slot per query row
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* buf_d = smem + tile_floats(d);     // [TQ][MERGE_W]
-  int* buf_i = reinterpret_cast<int*>(buf_d + TQ * MERGE_W);
-  const int q0 = blockIdx.x * TQ;
-  const int split = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int qg = lane >> 4;
-  const int xg = lane & 15;
-  const int rbase = warp * 8 + qg * 4;
-  const unsigned below = (1u << xg) - 1u;   // lanes under xg in its half
-
-  // the two slots of query row r of range `sp`
-  auto set_d = [&](int sp, int r, int slot) {
-    return part_d + ((static_cast<long long>(sp) * q + q0 + r) * 2 + slot) * k;
-  };
-  auto set_i = [&](int sp, int r, int slot) {
-    return part_i + ((static_cast<long long>(sp) * q + q0 + r) * 2 + slot) * k;
-  };
-
-  float tau[4];
-  int fill[4], cnt[4], slot[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    // rows past q get tau = -inf: nothing is ever below it
-    tau[j] = q0 + rbase + j < q ? INFINITY : -INFINITY;
-    fill[j] = cnt[j] = slot[j] = 0;
-  }
-
-  // merge query j's buffer into its set where `act`; the whole warp calls
-  auto flush = [&](int j, bool act) {
-    float* bd = buf_d + (rbase + j) * MERGE_W;
-    int* bi = buf_i + (rbase + j) * MERGE_W;
-    sort_buffer(bd, bi, cnt[j], act, xg);
-    const int m = min(k, fill[j] + cnt[j]);
-    merge_into(set_d(split, rbase + j, slot[j]),
-               set_i(split, rbase + j, slot[j]), fill[j], bd, bi, cnt[j],
-               set_d(split, rbase + j, slot[j] ^ 1),
-               set_i(split, rbase + j, slot[j] ^ 1), m, act, xg);
-    __syncwarp();
-    if (act) {
-      slot[j] ^= 1;
-      fill[j] = m;
-      cnt[j] = 0;
-      unsigned* bq = bound + q0 + rbase + j;
-      if (m == k) {
-        const float kth = set_d(split, rbase + j, slot[j])[k - 1];
-        if (kth < tau[j]) tau[j] = kth;
-        if (xg == 0) atomicMin(bq, order_bits(kth));
-      }
-      const float shared = from_order_bits(__ldcg(bq));
-      if (shared < tau[j]) tau[j] = shared;
-    }
-    __syncwarp();
-  };
-
-  const long long ntiles = (n + TN - 1) / TN;
-  const long long per = (ntiles + splits - 1) / splits;
-  const long long t_begin = min(ntiles, per * split);
-  const long long t_end = min(ntiles, t_begin + per);
-
-  scan_tiles<VEC>(points, queries, norms, n, q, d, q0, t_begin, t_end, smem,
-                  [&](long long t, const float* xnb, float (&acc)[4][4]) {
-    const int tile0 = static_cast<int>(t * TN);
-    float v[4][4];
-    bool need[4];
-    bool any_need = false;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int c = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float u = xnb[xg + 16 * i] - 2.f * acc[j][i];
-        v[j][i] = (u < INFINITY) ? u : INFINITY;   // NaN -> +inf
-        c += __popc((__ballot_sync(FULL, v[j][i] < tau[j]) >> (qg * 16)) &
-                    0xffffu);
-      }
-      need[j] = cnt[j] + c > MERGE_W;
-      any_need |= need[j];
-    }
-    // a buffer that cannot take this tile's survivors flushes, and with it
-    // every buffer at least half full: the warps' merges overlap
-    if (__syncthreads_or(any_need)) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool go = need[j] || 2 * cnt[j] >= MERGE_W;
-        if (__any_sync(FULL, go)) flush(j, go);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* bd = buf_d + (rbase + j) * MERGE_W;
-      int* bi = buf_i + (rbase + j) * MERGE_W;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool hit = v[j][i] < tau[j];
-        const unsigned mine =
-            (__ballot_sync(FULL, hit) >> (qg * 16)) & 0xffffu;
-        if (hit) {
-          const int at = cnt[j] + __popc(mine & below);
-          bd[at] = v[j][i];
-          bi[at] = tile0 + xg + 16 * i;
-        }
-        cnt[j] += __popc(mine);
-      }
-    }
-  });
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool need = cnt[j] > 0;
-    if (__any_sync(FULL, need)) flush(j, need);
-  }
-
-  if (splits > 1) {
-    if (xg == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (q0 + rbase + j < q)
-          part_f[static_cast<long long>(split) * q + q0 + rbase + j] =
-              fill[j] * 2 + slot[j];
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0)
-      is_last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = rbase + j;
-      const bool live = q0 + r < q;
-      for (int other = 0; other < splits; ++other) {
-        if (other == split) continue;
-        const int meta =
-            live ? __ldcg(part_f + static_cast<long long>(other) * q + q0 + r)
-                 : 0;
-        const int ofill = meta >> 1;
-        const int m = min(k, fill[j] + ofill);
-        if (live && ofill > 0)
-          merge_path(set_d(split, r, slot[j]), set_i(split, r, slot[j]),
-                     fill[j], set_d(other, r, meta & 1),
-                     set_i(other, r, meta & 1), ofill,
-                     set_d(split, r, slot[j] ^ 1),
-                     set_i(split, r, slot[j] ^ 1), m, xg);
-        __syncwarp();
-        if (live && ofill > 0) {
-          slot[j] ^= 1;
-          fill[j] = m;
-        }
-      }
-    }
-  }
-  if (xg == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) fin[rbase + j] = fill[j] * 2 + slot[j];
-  }
-  __syncthreads();
-
-  // ---- output: rd = max(u + ||q||^2, 0); past fill (+inf, -1) ----------
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    const int gq = q0 + r;
-    if (gq >= q) break;
-    const float* qrow = queries + static_cast<long long>(gq) * d;
-    float qn = 0.f;
-    for (int f = lane; f < d; f += 32) qn = fmaf(qrow[f], qrow[f], qn);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(FULL, qn, off);
-    const int nf = fin[r] >> 1;
-    const float* sd = set_d(split, r, fin[r] & 1);
-    const int* si = set_i(split, r, fin[r] & 1);
-    float* od = out_d + static_cast<long long>(gq) * k;
-    int* oi = out_i + static_cast<long long>(gq) * k;
-    for (int e = lane; e < k; e += 32) {
-      if (e < nf) {
-        const float rd = sd[e] + qn;
-        od[e] = rd < 0.f ? 0.f : rd;
-        oi[e] = si[e];
-      } else {
-        od[e] = INFINITY;
-        oi[e] = -1;
-      }
-    }
-  }
-}
-
-size_t tile_smem_bytes(int d) {
-  return sizeof(float) * static_cast<size_t>(tile_floats(d));
-}
-
 template <int MODE>
 cudaError_t set_smem(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -1148,29 +571,15 @@ cudaError_t set_smem(size_t smem) {
                               static_cast<int>(smem));
 }
 
-cudaError_t set_merge_smem(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_merge_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(knn_merge_kernel<false>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-// Shared memory of one block, and the attribute that allows it: the tile
-// staging plus the working sets (fold, capped, bcap, when ws_in_smem) or
-// the survivor buffers (merge).
+// Shared memory of one fold, capped or bcap block, and the attribute that
+// allows it: the tile staging plus the working sets when ws_in_smem.
 cudaError_t prepare(int mode, int d, int k, int ws_in_smem, size_t* smem) {
   *smem = tile_smem_bytes(d) +
-          (mode == MODE_MERGE ? static_cast<size_t>(TQ) * MERGE_W * 8
-           : ws_in_smem       ? static_cast<size_t>(TQ) * k * 8
-                              : 0);
+          (ws_in_smem ? static_cast<size_t>(TQ) * k * 8 : 0);
   switch (mode) {
     case MODE_FOLD: return set_smem<MODE_FOLD>(*smem);
     case MODE_CAPPED: return set_smem<MODE_CAPPED>(*smem);
     case MODE_BCAP: return set_smem<MODE_BCAP>(*smem);
-    case MODE_MERGE: return set_merge_smem(*smem);
   }
   return cudaErrorInvalidValue;
 }
@@ -1187,8 +596,7 @@ cudaError_t occupancy(int mode, int* per_sm, size_t smem) {
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           per_sm, knn_kernel<MODE_BCAP, true>, THREADS, smem);
   }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, knn_merge_kernel<true>, THREADS, smem);
+  return cudaErrorInvalidValue;
 }
 
 template <int MODE>
@@ -1227,53 +635,28 @@ void knn_constants(int* tq, int* tn, int* block, int* max_passes,
 
 // The launch plan for a problem: where the working set lives (shared
 // memory when two blocks still fit on an SM; always global for merge) and
-// how many row ranges to split into.  The split minimizes the waves of
-// blocks over the card's resident-block slots per unit of work (within 5%
-// of the best, fewest splits), keeping each range at least
-// MIN_TILES_PER_SPLIT tiles of rows and a whole number of tile_tiles.
+// how many row ranges to split into (choose_splits).
 // mode: 0 fold, 1 capped, 2 bcap, 3 merge (tile_tiles 1).
 int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
              int* splits, int* ws_in_smem) {
   if (mode < MODE_FOLD || mode > MODE_MERGE || tile_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, optin = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int optin = 0, sms = 0;
+  cudaError_t err = card_limits(&sms, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t ws = static_cast<size_t>(TQ) * k * 8;
   *ws_in_smem = mode != MODE_MERGE &&
                 tile_smem_bytes(d) + ws + 1024 <= static_cast<size_t>(optin) / 2;
-  size_t smem = 0;
-  err = prepare(mode, d, k, *ws_in_smem, &smem);
   int per_sm = 0;
-  if (err == cudaSuccess) err = occupancy(mode, &per_sm, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long slots = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
-  const long long qtiles = (q + TQ - 1) / TQ;
-  const long long ntiles = (n + TN - 1) / TN;
-  const long long units = (ntiles + tile_tiles - 1) / tile_tiles;
-  const long long min_units =
-      (MIN_TILES_PER_SPLIT + tile_tiles - 1) / tile_tiles;
-  long long max_splits = units / min_units;
-  max_splits = max_splits < 1 ? 1 : (max_splits > MAX_SPLITS ? MAX_SPLITS
-                                                              : max_splits);
-  double best = 1e30;
-  double cost[MAX_SPLITS + 1];
-  for (long long s = 1; s <= max_splits; ++s) {
-    const long long waves = (qtiles * s + slots - 1) / slots;
-    cost[s] = static_cast<double>(waves) / s;
-    if (cost[s] < best) best = cost[s];
+  if (mode == MODE_MERGE) {
+    err = merge_occupancy<DotScore>(d, &per_sm);
+  } else {
+    size_t smem = 0;
+    err = prepare(mode, d, k, *ws_in_smem, &smem);
+    if (err == cudaSuccess) err = occupancy(mode, &per_sm, smem);
   }
-  *splits = 1;
-  for (long long s = 1; s <= max_splits; ++s)
-    if (cost[s] <= 1.05 * best) {
-      *splits = static_cast<int>(s);
-      break;
-    }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *splits = choose_splits(per_sm, sms, n, q, tile_tiles);
   return 0;
 }
 
@@ -1338,25 +721,9 @@ int knn_merge_launch(const float* points, const float* queries,
                      float* part_d, int* part_i, int* part_f,
                      unsigned* bound, int* counters, long long n, int q,
                      int d, int k, int splits, void* stream) {
-  if (k < 1 || k > MERGE_MAX_K || q < 1 || splits < 1 || splits > MAX_SPLITS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = 0;
-  cudaError_t err = prepare(MODE_MERGE, d, k, 0, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(points) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(queries) % 16 == 0;
-  const dim3 grid((q + TQ - 1) / TQ, splits);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    knn_merge_kernel<true><<<grid, THREADS, smem, s>>>(
-        points, queries, norms, out_d, out_i, part_d, part_i, part_f, bound,
-        counters, n, q, d, k, splits);
-  else
-    knn_merge_kernel<false><<<grid, THREADS, smem, s>>>(
-        points, queries, norms, out_d, out_i, part_d, part_i, part_f, bound,
-        counters, n, q, d, k, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(merge_launch(
+      DotScore{}, points, queries, norms, out_d, out_i, part_d, part_i,
+      part_f, bound, counters, n, q, d, k, splits, stream));
 }
 
 }  // extern "C"

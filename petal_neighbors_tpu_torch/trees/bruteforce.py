@@ -6,21 +6,33 @@ reference's own test oracle (ball_tree.rs:873-894
 metric trees cannot prune, and a tiled distance product is the exact
 search at the speed of the card.
 
-Two layouts, chosen at build:
+Four layouts, chosen at build (the JAX package's, trees/bruteforce.py:
+79-128):
 
-* **kernel** — float32 Euclidean, any size: the index holds
+* **Lp kernel** — float32 Minkowski, Manhattan or Chebyshev at d > 32 and
+  n >= 4096: the index holds ``prepare_lp_index``'s arrays (NaN-zeroed
+  padded points, the additive +inf mask, the NaN-row mask); queries with
+  ``1 <= k <= 4096`` run the Lp kernel, whose direct power sums are final
+  (``ops.bruteforce.lp_knn_prepadded``).
+* **cosine kernel** — float32 Cosine at d > 32 and n >= 4096: the index
+  holds ``prepare_cosine_index``'s L2-normalized padded rows (zero-norm
+  rows join the NaN rows), and queries with ``1 <= k <= PALLAS_K_MAX``
+  take the Euclidean route on normalized queries, reporting ``rd / 2``.
+* **Euclidean kernel** — float32 Euclidean, any size: the index holds
   ``prepare_euclidean_index``'s arrays on the device (center, padded
   centered points with +inf norms on NaN and padding rows, NaN-row mask);
   queries with ``1 <= k <= PALLAS_K_MAX = 4088`` run the bcap, capped, fold
   or merge kernel and a direct-form rescore, proved and repaired where
-  the scheme needs it (``ops.bruteforce.knn_prepadded``).  Larger k takes
-  the scan over the same arrays.
-* **scan** — everything else (f64, SqEuclidean): the streamed scan
-  ``ops.bruteforce.knn``.
+  the scheme needs it (``ops.bruteforce.knn_prepadded``).
+* **scan** — everything else (f64, SqEuclidean, Haversine, low
+  dimensions, small corpora): the streamed scan ``ops.bruteforce.knn``.
+  A kernel layout answers k beyond its kernels with the scan over its own
+  resident copy and NaN-row mask.
 
 ``last_backend`` names the route that served the latest ``query_batch``:
 ``"kernel"`` or ``"scan"``; ``last_scheme`` the kernel scheme ("bcap",
-"capped", "fold", "merge"), or None after the scan.
+"capped", "fold", "merge", "lp"), or None after the scan.  Unlike the JAX
+package, a kernel failure raises: nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -28,12 +40,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..distance import DIRECT_DIM_MAX, Euclidean, Metric, get_metric
+from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric, get_metric
 from ..ops import bruteforce as bf
+from ..ops.cuda.lp_kernel import LP_K_MAX, lp_spec_for
 from ..utils.validation import (check_points, check_points_host, check_query,
                                 check_query_batch, resolve_device)
 
 __all__ = ["BruteForce"]
+
+#: smallest corpus the Lp and cosine kernel layouts take
+#: (trees/bruteforce.py:76-84)
+KERNEL_MIN_N = 4096
 
 
 class BruteForce:
@@ -52,18 +69,32 @@ class BruteForce:
         self.last_backend = self.last_scheme = None
         self._center = None
         self.point_norms = None
-        self._pts = self._norms = self._invalid = None
+        self._pts = self._norms = self._invalid = self._mask = None
+        self._lp_spec = None
+        self._cosine = self._bcap = False
         probe = check_points_host(points)
-        self.metric.validate_dim(probe.shape[1])
+        n, d = probe.shape
+        self.metric.validate_dim(d)
         self.points = probe
-        if (type(self.metric) is Euclidean
-                and self._dtype() == torch.float32):
-            # only DERIVED arrays are resident (padded centered points +
-            # norms + NaN mask); the original stays where it was given
+        f32 = self._dtype() == torch.float32
+        kernel_ok = f32 and d > DIRECT_DIM_MAX and n >= KERNEL_MIN_N
+        lp_spec = lp_spec_for(self.metric)
+        # only DERIVED arrays are resident in the kernel layouts; the
+        # original stays where it was given, and the scan slices _pts[:n]
+        self._qpoints = None
+        if lp_spec is not None and kernel_ok:
+            self._lp_spec = lp_spec
+            self._pts, self._mask, self._invalid = bf.prepare_lp_index(
+                check_points(probe, self.device))
+        elif type(self.metric) is Cosine and kernel_ok:
+            self._cosine = True
+            self._pts, self._norms, self._invalid = bf.prepare_cosine_index(
+                check_points(probe, self.device))
+        elif type(self.metric) is Euclidean and f32:
             (self._center, self._pts, self._norms,
              self._invalid) = bf.prepare_euclidean_index(
                  check_points(probe, self.device))
-            self._qpoints = None               # scan slices _pts[:n]
+            self._bcap = bf.with_bcap_planes(n, d)
         else:
             self.points = check_points(probe, self.device)
             self._qpoints = self.points        # what queries run against
@@ -79,15 +110,19 @@ class BruteForce:
         return cls(points, Euclidean(), device=device)
 
     @classmethod
-    def _from_prepared(cls, points, center, ppad, pnorm, bad, *,
-                       device=None) -> "BruteForce":
-        """A kernel-layout Euclidean index from arrays that
-        ``prepare_euclidean_index`` made (by either package), with no
-        rebuild.  ``ppad`` may be padded to any row count >= n; one that
-        is not a multiple of ``PAD_ROWS`` gets more +inf-norm rows, so the
-        bcap rescore reads whole blocks."""
+    def _from_prepared(cls, points, ppad, bad, *, metric=None, center=None,
+                       pnorm=None, mask=None, device=None) -> "BruteForce":
+        """A kernel-layout index from the arrays that either package's
+        ``prepare_*_index`` made, with no rebuild: Euclidean (``center``,
+        ``ppad``, ``pnorm``, ``bad``), cosine (``ppad``, ``pnorm``,
+        ``bad``) or Lp (``ppad``, ``mask``, ``bad``; a Minkowski,
+        Manhattan or Chebyshev ``metric``).  ``ppad`` may be padded to any
+        row count >= n; a Euclidean or cosine one that is not a multiple
+        of ``PAD_ROWS`` gets more +inf-norm rows, so the bcap rescore reads
+        whole blocks."""
         self = cls.__new__(cls)
-        self.metric = Euclidean()
+        self.metric = get_metric(metric if metric is not None
+                                 else "euclidean")
         self.device = resolve_device(device)
         self.last_backend = self.last_scheme = None
         self.point_norms = None
@@ -96,25 +131,41 @@ class BruteForce:
         dev = self.device
 
         def on_device(a, dtype):
+            if a is None:
+                return None
             a = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
             return a.to(dev, dtype).contiguous()
 
+        self._lp_spec = lp_spec_for(self.metric)
+        self._cosine = type(self.metric) is Cosine
         self._center = on_device(center, torch.float32)
         self._pts = on_device(ppad, torch.float32)
         self._norms = on_device(pnorm, torch.float32)
+        self._mask = on_device(mask, torch.float32)
         self._invalid = on_device(bad, torch.bool)
-        if (self._center.shape != (d,) or self._pts.ndim != 2
-                or self._pts.shape[0] < n or self._pts.shape[1] != d
-                or self._norms.shape != (self._pts.shape[0],)
-                or self._invalid.shape != (n,)):
-            raise ValueError("prepared arrays do not match the points: "
-                             f"points {tuple(self.points.shape)}, center "
-                             f"{tuple(self._center.shape)}, ppad "
-                             f"{tuple(self._pts.shape)}, pnorm "
-                             f"{tuple(self._norms.shape)}, bad "
-                             f"{tuple(self._invalid.shape)}")
-        if self._pts.shape[0] % bf.PAD_ROWS:
+        # the Lp layout's row values are its mask, the others' their norms
+        row = self._mask if self._lp_spec is not None else self._norms
+        needs_center = type(self.metric) is Euclidean
+        if (row is None or (self._center is not None) != needs_center
+                or self._pts.ndim != 2 or self._pts.shape[0] < n
+                or self._pts.shape[1] != d
+                or row.shape != (self._pts.shape[0],)
+                or self._invalid.shape != (n,)
+                or (self._center is not None
+                    and self._center.shape != (d,))):
+            raise ValueError(
+                f"prepared arrays do not match the points and "
+                f"{self.metric!r}: points {tuple(self.points.shape)}, "
+                + ", ".join(f"{k} {None if a is None else tuple(a.shape)}"
+                            for k, a in (("center", self._center),
+                                         ("ppad", self._pts),
+                                         ("pnorm", self._norms),
+                                         ("mask", self._mask),
+                                         ("bad", self._invalid))))
+        if self._lp_spec is None and self._pts.shape[0] % bf.PAD_ROWS:
             self._pts, self._norms = bf.pad_for_pallas(self._pts, self._norms)
+        self._bcap = (type(self.metric) is Euclidean
+                      and bf.with_bcap_planes(n, d))
         self._qpoints = None
         return self
 
@@ -131,13 +182,17 @@ class BruteForce:
         return qs if self._center is None else qs - self._center
 
     def _scan_points(self):
-        """Points and norms for the scan.  In kernel layout only the
-        padded (centered, NaN-zeroed) copy is resident: slice it; the NaN
-        rows' exclusion lives in their +inf norms and the invalid mask."""
+        """Points and norms for the scan.  In a kernel layout only the
+        padded (centered or normalized, NaN-zeroed) copy is resident:
+        slice it; the NaN rows' exclusion lives in the invalid mask (and
+        the Euclidean layout's +inf norms).  Cosine is scale-invariant, so
+        the scan's Cosine.rdist on the normalized copy answers as on the
+        original."""
         if self._qpoints is not None:
             return self._qpoints, self.point_norms
         n = self.num_points
-        return self._pts[:n], self._norms[:n]
+        norms = None if self._norms is None else self._norms[:n]
+        return self._pts[:n], norms
 
     # -- single-query API (reference-shaped) ------------------------------
     def query_nearest(self, point):
@@ -167,10 +222,20 @@ class BruteForce:
         qs = check_query_batch(queries, self.dim, self._dtype(), self.device)
         n = self.num_points
         k_eff = min(int(k), n)
-        if self._pts is not None and 1 <= k_eff <= bf.PALLAS_K_MAX:
-            scheme = bf.pick_scheme(k_eff, n)
+        if self._lp_spec is not None and 1 <= k_eff <= LP_K_MAX:
+            d, i = bf.lp_knn_prepadded(self._pts, self._mask, qs, k_eff, n,
+                                       spec=self._lp_spec, metric=self.metric)
+            self.last_backend, self.last_scheme = "kernel", "lp"
+            return d, i
+        if self._norms is not None and 1 <= k_eff <= bf.PALLAS_K_MAX:
+            scheme = bf.pick_scheme(k_eff, n, self._bcap)
             d, i = bf.knn_prepadded(self._pts, self._norms, qs, k_eff, n,
-                                    self._center, scheme=scheme)
+                                    self._center, scheme=scheme,
+                                    normalize_q=self._cosine,
+                                    out_rdist=self._cosine)
+            if self._cosine:
+                # ‖q̂−x̂‖²/2 == 1 − q̂·x̂; /2 is exact and keeps the order
+                d = d * 0.5
             self.last_backend, self.last_scheme = "kernel", scheme
             return d, i
         pts, norms = self._scan_points()

@@ -144,8 +144,7 @@ def test_typed_errors():
     with pytest.raises(ValueError):
         tpn.BruteForce.euclidean(np.ones(5, np.float32), device="cpu")
     assert issubclass(tpn.EmptyArrayError, tpn.ArrayError)
-    with pytest.raises(NotImplementedError):
-        tpn.get_metric("cosine")
+    assert isinstance(tpn.get_metric("cosine"), tpn.Cosine)
     with pytest.raises(ValueError):
         tpn.get_metric("nope")
     with pytest.raises(NotImplementedError):
@@ -485,3 +484,242 @@ def test_large_k_kernel_route_matches_jax(k):
     tidx = tpn.BruteForce.euclidean(pts, device="cpu")
     _compare(pts, qs, k, jidx, tidx)
     assert (tidx.last_backend, tidx.last_scheme) == ("kernel", "merge")
+
+
+# ---- the generic-metric path: the Lp kernel, cosine through the kernels --
+
+GEN_N, GEN_D = 4608, 48
+
+#: (name, JAX metric, port metric) on the Lp route
+LP_METRICS = {
+    "minkowski3": (jpn.Minkowski(3.0), tpn.Minkowski(3.0)),
+    "manhattan": (jpn.Manhattan(), tpn.Manhattan()),
+    "chebyshev": (jpn.Chebyshev(), tpn.Chebyshev()),
+}
+
+
+@pytest.fixture
+def jax_kernels(monkeypatch):
+    """The JAX BruteForce's Lp and cosine kernel routes, run as its own
+    tests run them (tests/test_bruteforce.py:330-353, :584-605): Pallas in
+    interpret mode on the CPU."""
+    from functools import partial
+
+    import petal_neighbors_tpu.ops.pallas.knn_kernel as jkk
+    monkeypatch.setattr(jkk, "pallas_available", lambda: True)
+    monkeypatch.setattr(jbf, "FORCE_INTERPRET", True)
+    monkeypatch.setattr(jbf, "knn_pallas_prepadded", partial(
+        jbf.knn_pallas_prepadded.__wrapped__, interpret=True))
+
+
+def _gen_data(seed, n=GEN_N, d=GEN_D):
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((N_Q, d)).astype(np.float32)
+    pts[11] = np.nan
+    pts[40, 3] = np.nan
+    qs[2] = np.nan
+    return pts, qs
+
+
+def _f64_dists(metric, pts, q):
+    """Every point's f64 distance to q under the port's metric, NaN as
+    +inf."""
+    d = metric.dist(torch.from_numpy(q.astype(np.float64))[None],
+                    torch.from_numpy(pts.astype(np.float64)))[0].numpy()
+    return np.where(np.isnan(d), np.inf, d)
+
+
+def _compare_generic(metric, pts, qs, k, jd, ji, td, ti, tol=1e-5):
+    """Distances within tol; NaN queries (+inf, -1); ids equal as sets
+    where the f64 k-th and (k+1)-th distances are apart."""
+    jd, ji, td, ti = (np.asarray(a) for a in (jd, ji, td, ti))
+    assert td.shape == jd.shape == (len(qs), min(k, len(pts)))
+    np.testing.assert_allclose(td, jd, rtol=tol, atol=tol)
+    with np.errstate(invalid="ignore"):          # inf - inf in the tails
+        assert (np.diff(td, axis=1)[np.isfinite(td[:, 1:])] >= 0).all()
+    bad = metric.invalid_queries(torch.from_numpy(qs)).numpy()
+    assert (ti[bad] == -1).all() and np.isposinf(td[bad]).all()
+    for r in np.flatnonzero(~bad):
+        d = np.sort(_f64_dists(metric, pts, qs[r]))
+        if k < len(d) and d[k] - d[k - 1] <= 1e-5 * max(d[k], 1e-12):
+            continue
+        assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+
+
+@pytest.mark.parametrize("name", list(LP_METRICS))
+def test_lp_route_matches_jax(name, jax_kernels):
+    """Minkowski-3, Manhattan and Chebyshev at d > 32 and n >= 4096 take
+    the Lp kernel route in both packages and answer alike; NaN rows are
+    never returned."""
+    jm, tm = LP_METRICS[name]
+    pts, qs = _gen_data(20)
+    jidx = jpn.BruteForce(pts, jm)
+    tidx = tpn.BruteForce(pts, tm, device="cpu")
+    assert jidx._lp_spec is not None
+    for k in (1, 7, 100):
+        jd, ji = jidx.query_batch(qs, k)
+        assert jidx.last_backend == "pallas"
+        td, ti = tidx.query_batch(qs, k)
+        assert (tidx.last_backend, tidx.last_scheme) == ("kernel", "lp")
+        assert td.dtype == torch.float32 and ti.dtype == torch.int32
+        _compare_generic(tm, pts, qs, k, jd, ji, td, ti)
+        assert not np.isin(ti.numpy(), [11, 40]).any()
+    i, d = tidx.query(qs[0], 3)
+    assert i.tolist() == tidx.query_batch(qs[:1], 3)[1][0].tolist()
+    assert tidx.query_nearest(pts[17]) == (17, 0.0)
+
+
+def test_cosine_route_matches_jax(jax_kernels):
+    """Cosine at d > 32 and n >= 4096 rides the Euclidean kernels on the
+    normalized copy in both packages; zero-norm and NaN rows are never
+    returned, and zero-norm and NaN queries give (+inf, -1)."""
+    pts, qs = _gen_data(21)
+    pts[5] = 0.0
+    qs[7] = 0.0
+    jidx = jpn.BruteForce(pts, jpn.Cosine())
+    tidx = tpn.BruteForce(pts, "cosine", device="cpu")
+    assert jidx._cosine_kernel and tidx._cosine
+    for k in (1, 5, 40):
+        jd, ji = jidx.query_batch(qs, k)
+        assert jidx.last_backend == "pallas"
+        td, ti = tidx.query_batch(qs, k)
+        assert tidx.last_backend == "kernel"
+        assert tidx.last_scheme in ("fold", "capped")
+        _compare_generic(tpn.Cosine(), pts, qs, k, jd, ji, td, ti, tol=2e-6)
+        assert not np.isin(ti.numpy(), [5, 11, 40]).any()
+        # against the f64 oracle
+        for r in (0, 1, 3):
+            want = np.sort(_f64_dists(tpn.Cosine(), pts, qs[r]))[:k]
+            np.testing.assert_allclose(td[r].numpy(), want, atol=2e-6)
+    assert (ti[7] == -1).all() and np.isposinf(td[7].numpy()).all()
+
+
+def test_generic_scan_routes_match_jax():
+    """Haversine, low-d Minkowski, small corpora and f64 Lp take the scan
+    and answer as the JAX XLA path."""
+    rng = np.random.default_rng(22)
+    lat = rng.uniform(-1.5, 1.5, (500, 1))
+    lon = rng.uniform(-3.1, 3.1, (500, 1))
+    geo = np.concatenate([lat, lon], 1).astype(np.float32)
+    geo[9] = np.nan
+    cases = [(tpn.Haversine(), jpn.Haversine(), geo, geo[:N_Q] + 0.01),
+             (tpn.Minkowski(3.0), jpn.Minkowski(3.0)) + _gen_data(23, d=8),
+             (tpn.Chebyshev(), jpn.Chebyshev()) + _gen_data(24, n=3000),
+             (tpn.Cosine(), jpn.Cosine()) + _gen_data(25, n=3000),
+             (tpn.Manhattan(), jpn.Manhattan()) + tuple(
+                 a.astype(np.float64) for a in _gen_data(26, n=700))]
+    for tm, jm, pts, qs in cases:
+        tidx = tpn.BruteForce(pts, tm, device="cpu")
+        jidx = jpn.BruteForce(pts, jm)
+        for k in (1, 10):
+            jd, ji = jidx.query_batch(qs, k)
+            td, ti = tidx.query_batch(qs, k)
+            assert (tidx.last_backend, tidx.last_scheme) == ("scan", None)
+            tol = 1e-10 if pts.dtype == np.float64 else 1e-5
+            _compare_generic(tm, pts, qs, k, jd, ji, td, ti, tol=tol)
+
+
+def test_lp_k_beyond_the_kernel_takes_the_scan():
+    """k > 4096 leaves the Lp kernel for the scan over the index's own
+    NaN-zeroed copy and its invalid mask, as the JAX index does."""
+    pts, qs = _gen_data(27, d=40)
+    qs = qs[:6]
+    tidx = tpn.BruteForce(pts, tpn.Minkowski(3.0), device="cpu")
+    td, ti = tidx.query_batch(qs, 4100)
+    assert (tidx.last_backend, tidx.last_scheme) == ("scan", None)
+    jd, ji = jbf.knn(pts, qs, 4100, jpn.Minkowski(3.0), backend="xla")
+    _compare_generic(tpn.Minkowski(3.0), pts, qs, 4100, jd, ji, td, ti)
+    assert not np.isin(ti.numpy(), [11, 40]).any()
+    tidx.query_batch(qs, 4096)
+    assert (tidx.last_backend, tidx.last_scheme) == ("kernel", "lp")
+
+
+def _reference_with_bcap(n, d, cosine=False):
+    """The JAX index's bcap planes, written out from
+    trees/bruteforce.py:93-118: cosine indexes have none; otherwise
+    with_split = n*d <= SPLIT_BUDGET_ELEMS and with_bcap = with_split and
+    n >= 262144."""
+    with_split = n * d <= jpn.BruteForce.SPLIT_BUDGET_ELEMS
+    return not cosine and with_split and n >= 262144
+
+
+@pytest.mark.parametrize("n,d,cosine,want", [
+    (10 ** 6, 128, False, "bcap"), (10 ** 6, 960, False, "capped"),
+    (10 ** 6, 128, True, "capped"), (262144, 2048, False, "bcap"),
+    (262145, 2048, False, "capped"), (262143, 128, False, "capped")])
+def test_pick_scheme_takes_bcap_where_the_reference_has_planes(n, d, cosine,
+                                                                want):
+    """The route repair: bcap only where the reference's index holds bcap
+    planes, so k=10 at the GIST-1M shape (1M x 960) and on a cosine index
+    is capped, as the reference serves it."""
+    planes = tbf.with_bcap_planes(n, d, cosine)
+    assert planes == _reference_with_bcap(n, d, cosine)
+    assert tbf.SPLIT_BUDGET_ELEMS == jpn.BruteForce.SPLIT_BUDGET_ELEMS
+    assert tbf.pick_scheme(10, n, planes) == want
+
+
+def test_index_passes_the_bcap_flag(monkeypatch):
+    """BruteForce hands pick_scheme its own planes flag: with the cutovers
+    scaled down to a 4608-row index, a budget one element short of n*d
+    turns k=10 from bcap to capped, and a cosine index never takes bcap."""
+    pts, qs = _gen_data(28, d=40)
+    monkeypatch.setattr(tbf, "CAPPED_MIN_N", 4096)
+    for budget, want in ((GEN_N * 40, "bcap"), (GEN_N * 40 - 1, "capped")):
+        monkeypatch.setattr(tbf, "SPLIT_BUDGET_ELEMS", budget)
+        idx = tpn.BruteForce.euclidean(pts, device="cpu")
+        d, i = idx.query_batch(qs, 10)
+        assert idx.last_scheme == want
+        assert not np.isin(i.numpy(), [11, 40]).any()
+    cos = tpn.BruteForce(pts, "cosine", device="cpu")
+    cos.query_batch(qs, 10)
+    assert cos.last_scheme == "capped"
+
+
+def test_bruteforce_from_jax_arrays_lp_and_cosine():
+    """The JAX package's Lp and cosine layouts carried across answer as a
+    rebuilt index does: the Lp layout bit for bit (the same values through
+    the same arithmetic), the cosine one within its normalization's
+    rounding."""
+    pts, qs = _gen_data(29)
+    pts[5] = 0.0
+    ppad, mask, bad = jbf.prepare_lp_index(jnp.asarray(pts), 512)
+    arrays = dict(points=pts, ppad=np.asarray(ppad), mask=np.asarray(mask),
+                  bad=np.asarray(bad))
+    for m in (tpn.Minkowski(3.0), tpn.Chebyshev()):
+        carried = bruteforce_from_jax_arrays(arrays, metric=m, device="cpu")
+        built = tpn.BruteForce(pts, m, device="cpu")
+        assert tuple(carried._pts.shape) == ppad.shape
+        for k in (1, 10):
+            cd, ci = carried.query_batch(qs, k)
+            assert (carried.last_backend, carried.last_scheme) == (
+                "kernel", "lp")
+            bd, bi = built.query_batch(qs, k)
+            assert torch.equal(cd, bd) and torch.equal(ci, bi)
+        # the scan over the carried copy
+        cd, ci = carried.query_batch(qs[:3], 4100)
+        bd, bi = built.query_batch(qs[:3], 4100)
+        assert carried.last_backend == "scan"
+        np.testing.assert_allclose(cd.numpy(), bd.numpy(), rtol=1e-6)
+    cpad, cnorm, _, cbad = jbf.prepare_cosine_index(
+        jnp.asarray(pts), jbf.pad_granule(GEN_D), with_split=False)
+    carried = bruteforce_from_jax_arrays(
+        dict(points=pts, ppad=np.asarray(cpad), pnorm=np.asarray(cnorm),
+             bad=np.asarray(cbad)), metric="cosine", device="cpu")
+    built = tpn.BruteForce(pts, "cosine", device="cpu")
+    assert carried._cosine
+    for k in (1, 10):
+        cd, ci = carried.query_batch(qs, k)
+        bd, bi = built.query_batch(qs, k)
+        assert carried.last_backend == "kernel"
+        _compare_generic(tpn.Cosine(), pts, qs, k, bd, bi, cd, ci, tol=1e-6)
+        assert not np.isin(ci.numpy(), [5, 11, 40]).any()
+    with pytest.raises(KeyError):
+        bruteforce_from_jax_arrays({"points": pts, "ppad": arrays["ppad"],
+                                    "bad": arrays["bad"]},
+                                   metric="minkowski", device="cpu")
+    with pytest.raises(ValueError):
+        bruteforce_from_jax_arrays(dict(arrays, mask=arrays["mask"][:7]),
+                                   metric=tpn.Manhattan(), device="cpu")
+    with pytest.raises(ValueError):
+        bruteforce_from_jax_arrays(arrays, metric="haversine", device="cpu")
