@@ -7,15 +7,20 @@ Phases, each printed as one JSON line on stdout:
 1. device   — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    — compiles every kernel source under
               petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc.
-3. kernel   — each kernel (fold, capped, bcap, merge) against its plain
-              PyTorch version on the card, with the same launch plan: small
+3. kernel   — each kernel (fold, fold_lazy, capped, bcap, merge) against
+              its plain PyTorch version on the card, with the same launch
+              plan: small
               shapes with NaN rows, NaN queries, duplicated rows and ragged
               tails (at the vectorized and the chunked scalar widths, split
               into row ranges or not, working set in shared or global
               memory), k = 1024 (fold) and 1100 to 4096 (merge), and the
               main paths' shapes over 1M x 128.  Sorted rdist and
               thresholds must agree within the stated tolerance, and an id
-              may differ only against one of near-equal rdist.  The two row
+              may differ only against one of near-equal rdist; fold_lazy
+              must also give fold's rdist bit for bit.  The two minima
+              kernels (subchunk, block) against their plain versions at
+              ragged row counts, d = 17 to 130, NaN rows and queries, 1 and
+              several row ranges, and at the SIFT shape.  The two row
               sorts (bitonic, rank) against a stable ``torch.sort`` at the
               large-k path's widths with duplicate keys and +inf tails:
               keys equal, payloads equal (rank) or equal as multisets
@@ -34,7 +39,13 @@ Phases, each printed as one JSON line on stdout:
               k=1000 (capped, re-ranked by the bitonic sort), k=2000 and
               k=3000 (merge; the bitonic and the rank sort), with the same
               oracle check and the launches of that run.
-6. main_generic — the JAX package's config 5 (benchmarks/run.py:192-212):
+6. main_opt_in — the same index through ``knn_prepadded`` with the opt-in
+              schemes on all 10,240 queries: bcap2 at k=10 and k=100 (the
+              large-k rescore and the bitonic sort), two_phase and
+              fold_lazy at k=10; QPS, launches, queries repaired (bcap2) and
+              whole-batch fallbacks (two_phase) per call; ids against the
+              main phase's f64 oracle.
+7. main_generic — the JAX package's config 5 (benchmarks/run.py:192-212):
               1M x 960 f32 points and 1,000 queries (seed 5, uniform in
               [0, 1)), three indexes built one at a time, each answering
               k=10: Euclidean and Cosine on the capped kernel, Minkowski-3
@@ -44,7 +55,7 @@ Phases, each printed as one JSON line on stdout:
               least 256).  Then the path's kernels against their plain
               versions at this shape, the Lp kernel's time for Manhattan and
               Chebyshev, and bcap at this shape as a yardstick.
-7. kernels  — one JSON line: every kernel with its launches on its main
+8. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick.
 
@@ -83,6 +94,10 @@ PEAK_FP32_INSTR_S = PEAK_FP32_FLOP_S / 2
 KNN_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_fold.cu"
 SORT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/row_sort.cu"
 LP_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/lp_knn.cu"
+MINIMA_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_minima.cu"
+#: the opt-in schemes' requests on the SIFT index, in order
+OPT_IN = (("bcap2", 10), ("bcap2", 100), ("two_phase", 10),
+          ("fold_lazy", 10))
 #: the JAX package's config 5, the GIST-1M shape (benchmarks/run.py:192-212)
 GIST_N, GIST_D, GIST_Q, GIST_SEED, GIST_K = 1_000_000, 960, 1_000, 5, 10
 #: config 5's indexes, built in this order, and the scheme each must take
@@ -92,6 +107,10 @@ GENERIC = (("euclidean", "capped"), ("cosine", "capped"), ("minkowski3", "lp"))
 LP_ORACLE_MIN_Q = 256
 ORACLE_BUDGET_S = 60.0
 REPLACES = {"fold": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:186",
+            "fold_lazy": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:116",
+            "subchunk_minima":
+                "petal_neighbors_tpu/ops/pallas/knn_kernel.py:804",
+            "bcap_minima": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:706",
             "capped": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:429",
             "bcap": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:546",
             "merge": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:336",
@@ -133,6 +152,16 @@ def bound_ms(n: int, q: int, d: int, k: int) -> tuple[float, str]:
     output written once (working set and threshold) over the memory rate,
     against 2*Q*N*d FP32 FLOP over the SIMT peak; the larger one bounds."""
     bytes_ = 4 * (n * d + n + q * d) + 8 * q * k + 4 * q
+    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    t_ops = 2.0 * q * n * d / PEAK_FP32_FLOP_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def minima_bound_ms(n: int, q: int, d: int, rows: int) -> tuple[float, str]:
+    """Least time for a minima kernel's work: points, norms and queries
+    read once and the (Q, ceil(N / rows)) minima written once over the
+    memory rate, against 2*Q*N*d FP32 FLOP over the SIMT peak."""
+    bytes_ = 4 * (n * d + n + q * d) + 4 * q * -(-n // rows)
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
     t_ops = 2.0 * q * n * d / PEAK_FP32_FLOP_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -300,9 +329,11 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
          passes: int, splits: int = 1):
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
-    if scheme in ("fold", "merge"):
+    if scheme in ("fold", "fold_lazy", "merge"):
         run = {("fold", True): kk.knn_fold_reference,
                ("fold", False): kk.knn_fold,
+               ("fold_lazy", True): kk.knn_fold_lazy_reference,
+               ("fold_lazy", False): kk.knn_fold_lazy,
                ("merge", True): kk.knn_merge_reference,
                ("merge", False): kk.knn_merge}[scheme, plain]
         return run(pp, qt, pn, k=k) + (None,)
@@ -385,6 +416,112 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
     return err, tied_rows, plan
 
 
+def lazy_is_fold(pp, qt, pn, k: int) -> int:
+    """fold_lazy against fold on the same card tensors: sorted rdist equal
+    bit for bit, and ids equal as sets except for ids at a row's largest
+    rdist (the last block of a query tile to arrive folds the other row
+    ranges in, so exact ties at the k-th value may fall either way in
+    either kernel).  Returns the rows whose ids differ at such a tie."""
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    rd_l, id_l = kk.knn_fold_lazy(pp, qt, pn, k=k)
+    rd_f, id_f = kk.knn_fold(pp, qt, pn, k=k)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.sort(rd_l, 1).values, torch.sort(rd_f, 1).values):
+        raise AssertionError(f"fold_lazy k={k}: rdist differ from fold's")
+    tied = 0
+    a, b = id_l.cpu().numpy(), id_f.cpu().numpy()
+    ra, rb = rd_l.cpu().numpy(), rd_f.cpu().numpy()
+    for r in np.flatnonzero((np.sort(a, 1) != np.sort(b, 1)).any(1)):
+        diff = set(a[r].tolist()) ^ set(b[r].tolist())
+        at = {**dict(zip(b[r].tolist(), rb[r])), **dict(zip(a[r].tolist(),
+                                                            ra[r]))}
+        if any(at[x] != ra[r].max() for x in diff):
+            raise AssertionError(f"fold_lazy k={k}: row {r} ids differ "
+                                 "from fold's off a tie")
+        tied += 1
+    return tied
+
+
+def compare_minima(kind: str, pp, qt, pn) -> tuple[float, float]:
+    """A minima kernel against its plain version on the same card tensors:
+    NaN (NaN queries) and +inf (all-padding blocks) in the same places,
+    and the rest within the f32 accumulation band 2*d*2^-24*(‖q‖² + max
+    ‖x‖²) of a row (the two sum the dot product in different orders).
+    Returns (max abs error, the plain version's ms)."""
+    from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
+
+    fn, plain = {"subchunk": (mk.subchunk_minima,
+                              mk.subchunk_minima_reference),
+                 "block": (mk.bcap_minima, mk.bcap_minima_reference)}[kind]
+    got = fn(pp, qt, pn)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(pp, qt, pn)
+    stop.record()
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{kind} minima: shape {tuple(got.shape)}, "
+                             f"want {tuple(want.shape)}")
+    nanq = torch.isnan(qt).any(dim=1)
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and bool(torch.isnan(got[nanq]).all())
+            and torch.equal(torch.isposinf(got), torch.isposinf(want))):
+        raise AssertionError(f"{kind} minima: NaN or +inf columns differ")
+    fin = torch.isfinite(want)
+    xn_max = torch.where(torch.isfinite(pn), pn, 0.0).max()
+    band = 2.0 * pp.shape[1] * 2.0 ** -24 * (torch.sum(qt * qt, 1) + xn_max)
+    diff = torch.where(fin, (got - want).abs(), 0.0)
+    if bool((diff > torch.nan_to_num(band)[:, None]).any()):
+        raise AssertionError(f"{kind} minima: off by {float(diff.max())}")
+    return float(diff.max()), start.elapsed_time(stop)
+
+
+def library_minima(points, queries, norms, rows: int):
+    """Yardstick: the same minima by a chunked ``torch.matmul`` and
+    ``amin`` over ``rows``-row blocks (cuBLAS), timed here and used nowhere
+    in the port."""
+    n, nq = points.shape[0], queries.shape[0]
+    parts = []
+    for s in range(0, n, 65536):
+        u = norms[s:s + 65536][None, :] - 2.0 * (queries @ points[s:s + 65536].T)
+        short = -u.shape[1] % rows
+        if short:
+            u = torch.nn.functional.pad(u, (0, short), value=float("inf"))
+        parts.append(u.reshape(nq, -1, rows).amin(2))
+    return torch.cat(parts, 1)
+
+
+#: (n, q, d, pad rows) of the minima kernels' small shapes: row counts no
+#: multiple of 16 or 128 (tn=1: no padding), d = 17 and 130 on the scalar
+#: loads (130 in two feature chunks), 70,001 rows split into row ranges
+MINIMA_CASES = ((5003, 301, 128, 1), (4099, 130, 130, 1), (3001, 70, 17, 1),
+                (70001, 300, 64, 64), (70001, 200, 128, 1), (1, 3, 8, 1))
+
+
+def phase_minima_small(rng):
+    """Both minima kernels against their plain versions at every small
+    shape; returns the largest absolute error of each."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda.minima_kernel import minima_plan
+
+    worst = {"subchunk_minima": 0.0, "bcap_minima": 0.0}
+    for n, q, d, tn in MINIMA_CASES:
+        pts, qs = small_inputs(rng, n, q, d)
+        spp, spn = bf.pad_for_pallas(torch.from_numpy(pts).cuda(), tn=tn)
+        qt = torch.from_numpy(qs).cuda()
+        for kind, name in (("subchunk", "subchunk_minima"),
+                           ("block", "bcap_minima")):
+            err, _ = compare_minima(kind, spp, qt, spn)
+            worst[name] = max(worst[name], err)
+            emit("kernel", name=name, n=spp.shape[0], q=q, d=d,
+                 max_abs_err=err,
+                 splits=minima_plan(kind, spp.shape[0], q, d), ok=True)
+    return worst
+
+
 def small_inputs(rng, n, q, d):
     """Uniform points and queries in [0, 255)^d with NaN rows (whole and
     partial), NaN queries and ten duplicated rows (exact ties), where the
@@ -414,6 +551,11 @@ SMALL_CASES = (
     ("fold", 1, 3, 8, 1, 4, 1, 0),
     ("fold", 70001, 300, 128, 1, 18, 1, 0),
     ("fold", 70001, 200, 128, 64, 1024, 1, 0),
+    ("fold_lazy", 5003, 301, 128, 1, 18, 1, 0),
+    ("fold_lazy", 4099, 130, 130, 1, 1, 1, 0),
+    ("fold_lazy", 3001, 70, 17, 1, 33, 1, 0),
+    ("fold_lazy", 70001, 300, 128, 1, 18, 1, 0),
+    ("fold_lazy", 70001, 200, 64, 64, 1024, 1, 0),
     ("capped", 5003, 301, 128, 1, 18, 512, 2),
     ("capped", 5003, 301, 128, 64, 108, 512, 0),
     ("capped", 4099, 130, 130, 1, 40, 1024, 4),
@@ -437,10 +579,12 @@ SMALL_CASES = (
 #: the main paths' kernel calls: (scheme, k requested, queries).  fold at
 #: k=200 is the repair kernel of the main path, timed on the whole batch
 MAIN_CALLS = (("bcap", 10, N_Q), ("capped", 100, N_Q), ("capped", 200, N_Q),
-              ("fold", 200, N_Q), ("capped", 1000, N_Q_LARGE),
+              ("fold", 200, N_Q), ("fold_lazy", 10, N_Q),
+              ("capped", 1000, N_Q_LARGE),
               ("merge", 2000, N_Q_LARGE), ("merge", 3000, N_Q_LARGE))
 #: the row each kernel reports in the kernels line
-MAIN_ROW = {"bcap": 10, "capped": 100, "fold": 200, "merge": 3000}
+MAIN_ROW = {"bcap": 10, "capped": 100, "fold": 200, "merge": 3000,
+            "fold_lazy": 10}
 #: row sorts: (kind, widths checked, main width)
 SORTS = (("bitonic_sort", (1008, 2048), 2048),
          ("rank_sort", (2176, 3072, 4096), 3072))
@@ -463,12 +607,14 @@ def kernel_args(scheme: str, k_req: int, n_real: int):
 
 def phase_kernel(pp, pn, queries_c):
     """Each kernel against its plain version at every listed shape, then at
-    the main paths' shapes; returns the main-shape rows by (scheme, k)."""
+    the main paths' shapes; returns the main-shape rows by (scheme, k) (the
+    minima kernels by (name, None)) and each kernel's largest error."""
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
 
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    errs = {s: 0.0 for s in ("fold", "capped", "bcap", "merge")}
+    errs = {s: 0.0 for s in ("fold", "fold_lazy", "capped", "bcap", "merge")}
     for scheme, n, q, d, tn, k, tile, passes in SMALL_CASES:
         pts, qs = small_inputs(rng, n, q, d)
         spp, spn = bf.pad_for_pallas(torch.from_numpy(pts).to(dev), tn=tn)
@@ -476,9 +622,13 @@ def phase_kernel(pp, pn, queries_c):
         err, tied, plan = compare_kernel(scheme, spp, qt, spn, k, tile,
                                          passes)
         errs[scheme] = max(errs[scheme], err)
+        extra = {}
+        if scheme == "fold_lazy":
+            extra["tied_rows_vs_fold"] = lazy_is_fold(spp, qt, spn, k)
         emit("kernel", name=f"knn_{scheme}", n=n, q=q, d=d, k=k, tile=tile,
              passes=passes, max_abs_err=err, tied_rows=tied, plan=plan,
-             ok=True)
+             **extra, ok=True)
+    errs.update(phase_minima_small(rng))
 
     n_real = N
     rows = {}
@@ -499,6 +649,11 @@ def phase_kernel(pp, pn, queries_c):
             # the same launch at k=16: the tile product with few merges
             extra["ms_at_k16"] = cuda_ms(lambda: _run(
                 scheme, False, pp, qt, pn, 16, 1, 0), reps=2)
+        if scheme == "fold_lazy":
+            # fold on the same work, in the same call, and the two equal
+            extra["tied_rows_vs_fold"] = lazy_is_fold(pp, qt, pn, k)
+            extra["fold_ms"] = cuda_ms(lambda: _run(
+                "fold", False, pp, qt, pn, k, 1, 0), reps=3)
         row = dict(k_request=k_req, k=k, tile=tile, passes=passes,
                    n=pp.shape[0], q=q, d=DIM,
                    peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, H100 "
@@ -508,6 +663,26 @@ def phase_kernel(pp, pn, queries_c):
                    bound_by=by, **extra)
         emit("kernel", name=f"knn_{scheme}", **row, ok=True)
         rows[scheme, k_req] = row
+
+    # the minima kernels at the SIFT shape: all 10,240 queries
+    for kind, name, fn, width in (("subchunk", "subchunk_minima",
+                                   mk.subchunk_minima, mk.SUBCHUNK),
+                                  ("block", "bcap_minima", mk.bcap_minima,
+                                   mk.BCAP_BLOCK)):
+        err, plain = compare_minima(kind, pp, queries_c, pn)
+        errs[name] = max(errs[name], err)
+        ms = cuda_ms(lambda: fn(pp, queries_c, pn), reps=3)
+        lib = cuda_ms(lambda: library_minima(pp, queries_c, pn, width),
+                      reps=2)
+        bound, by = minima_bound_ms(pp.shape[0], N_Q, DIM, width)
+        row = dict(n=pp.shape[0], q=N_Q, d=DIM, rows=width,
+                   splits=mk.minima_plan(kind, pp.shape[0], N_Q, DIM),
+                   peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, H100 "
+                        "SXM data sheet",
+                   max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                   bound_ms=bound, bound_by=by)
+        emit("kernel", name=name, **row, ok=True)
+        rows[name, None] = row
     return rows, errs
 
 
@@ -881,6 +1056,64 @@ def phase_main_generic(wrappers, fold_rows):
     return lp_row, launches
 
 
+def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
+                      fold_rows):
+    """The opt-in schemes over the SIFT index's arrays through
+    ``knn_prepadded`` (as ``benchmarks/bcap2_probe.py`` drives the JAX
+    one), every request on all 10,240 queries: a warm call and 3 timed
+    ones each; the launches in those calls, the queries each bcap2 repair
+    carried, each two_phase call's whole-batch fallback, and every query's
+    ids against the main phase's f64 oracle.  Returns the launches."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+
+    for w in wrappers.values():
+        w.launches = 0
+    kernel_ms = {"bcap2": {"bcap_minima": rows["bcap_minima", None]["ms"]},
+                 "two_phase": {"subchunk_minima":
+                               rows["subchunk_minima", None]["ms"],
+                               "knn_fold at k_scan 18 (fallback)":
+                               rows["fold_lazy", 10]["fold_ms"]},
+                 "fold_lazy": {"knn_fold_lazy": rows["fold_lazy", 10]["ms"]}}
+    for scheme, k in OPT_IN:
+        before = {s: w.launches for s, w in wrappers.items()}
+        fold_rows.clear()
+        fallbacks, walls = [], []
+        for call in range(4):                        # warm, then 3 timed
+            t0 = time.perf_counter()
+            d, i = bf.knn_prepadded(index._pts, index._norms, qdev, k, N,
+                                    index._center, scheme=scheme)
+            torch.cuda.synchronize()
+            if call:
+                walls.append(time.perf_counter() - t0)
+            if scheme == "two_phase":
+                fallbacks.append(bf.last_two_phase_fallback)
+        got = {s: w.launches - before[s] for s, w in wrappers.items()}
+        if d.shape != (N_Q, k) or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"{scheme} k={k}: bad output "
+                                 f"{tuple(d.shape)}")
+        if not bool((d[:, 1:] >= d[:, :-1]).all()):
+            raise AssertionError(f"{scheme} k={k}: distances not ascending")
+        recall, swaps, worst = check_vs_oracle(index, pdev, qdev, i,
+                                               oracle_ids[:, :k])
+        extra = {}
+        if scheme == "bcap2":
+            extra["repaired_queries_per_call"] = list(fold_rows)
+        if scheme == "two_phase":
+            extra["fallbacks_per_call"] = [int(f) for f in fallbacks]
+        emit("main_opt_in", scheme=scheme, k=k, queries=N_Q,
+             qps=N_Q / min(walls), batch_s=min(walls),
+             kernel_ms=kernel_ms[scheme],
+             launches_in_calls={s: c for s, c in got.items() if c}, calls=4,
+             recall=recall, oracle_queries=N_Q, boundary_swaps=swaps,
+             worst_swap_gap_over_band=worst, **extra)
+    got = {s: w.launches for s, w in wrappers.items()}
+    for s in ("fold_lazy", "subchunk_minima", "bcap_minima", "bitonic_sort"):
+        if got[s] == 0:
+            raise AssertionError(f"main_opt_in launched no {s} kernel")
+    emit("main_opt_in", launches=got)
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -892,6 +1125,7 @@ def main() -> int:
     from petal_neighbors_tpu_torch.ops.cuda import _build
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
     from petal_neighbors_tpu_torch.ops.cuda import lp_kernel as lk
+    from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
 
     smi = smi_line()
     emit("device", nvidia_smi=smi, torch=torch.__version__,
@@ -928,7 +1162,10 @@ def main() -> int:
     wrappers = {"fold": kk.knn_fold, "capped": kk.knn_capped,
                 "bcap": kk.knn_bcap, "merge": kk.knn_merge,
                 "bitonic_sort": sk.bitonic_sort_pairs,
-                "rank_sort": rk.rank_sort_pairs, "lp_knn": lk.lp_knn}
+                "rank_sort": rk.rank_sort_pairs, "lp_knn": lk.lp_knn,
+                "fold_lazy": kk.knn_fold_lazy,
+                "subchunk_minima": mk.subchunk_minima,
+                "bcap_minima": mk.bcap_minima}
     # the route's fold calls, with their query counts: under bcap and
     # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
@@ -973,6 +1210,8 @@ def main() -> int:
             launches.setdefault(s, got[s])
 
         _, oi = f64_oracle(pdev, qs, max(ks))
+        if phase == "main":
+            main_oracle = oi
         for k, scheme in ks.items():
             d, i, wall = out[k]
             if d.shape != (qs.shape[0], k) or not bool(torch.isfinite(d).all()):
@@ -982,7 +1221,8 @@ def main() -> int:
             recall, swaps, worst = check_vs_oracle(index, pdev, qs, i,
                                                    oi[:, :k])
             kernel_ms = {f"knn_{s}": rows[s, k_req]["ms"]
-                         for s, k_req in rows if k_req == k}
+                         for s, k_req in rows
+                         if k_req == k and s in (scheme, "fold")}
             extra = {}
             if phase == "main_large_k":
                 kernel_ms.update({kind: row["ms"] for kind, row in
@@ -1004,6 +1244,11 @@ def main() -> int:
                  boundary_swaps=swaps, worst_swap_gap_over_band=worst,
                  backend=index.last_backend, build_s=build_s, **extra)
         emit(phase, launches=got)
+
+    for s, c in phase_main_opt_in(index, pdev, qdev, main_oracle, rows,
+                                  wrappers, fold_rows).items():
+        if s in ("fold_lazy", "subchunk_minima", "bcap_minima"):
+            launches[s] = c
 
     del index, pdev, qdev
     torch.cuda.empty_cache()
@@ -1029,6 +1274,16 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": {"rows": row["rows"], "width": row["width"]}})
+    for name in ("subchunk_minima", "bcap_minima"):
+        row = rows[name, None]
+        kernels.append({
+            "name": name, "route": "cuda", "source": MINIMA_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": {key: row[key] for key in ("n", "q", "d", "rows",
+                                                "splits")}})
     kernels.append({
         "name": "lp_knn", "route": "cuda", "source": LP_SOURCE,
         "replaces": REPLACES["lp_knn"], "launches": launches["lp_knn"],

@@ -11,7 +11,10 @@ the exact flat index needs:
   ``k_scan = k + RESCORE_SLACK``, a direct-form rescore (re-ranked by the
   row-sort kernels from ``k_scan >= 512``, ``_rescore_large``), and for
   bcap and capped the per-batch proof with the compacted repair on the
-  fold or merge kernel; it serves ``k <= PALLAS_K_MAX = 4088``;
+  fold or merge kernel; it serves ``k <= PALLAS_K_MAX = 4088``.  The
+  opt-in schemes, which ``pick_scheme`` never takes: fold_lazy (the lazy
+  fold kernel), two_phase (subchunk minima, a whole-batch proof and
+  fallback) and bcap2 (block minima, the bcap proof and repair);
 * the Lp route ``lp_knn_prepadded`` (``:1024-1048``): the Lp kernel's
   direct power sums are final, converted by the metric;
 * the streamed scan ``knn`` / ``_knn_impl``: the JAX package's XLA path,
@@ -33,8 +36,9 @@ import torch
 from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric
 from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
                               PASSES_MAX, knn_bcap, knn_capped, knn_fold,
-                              knn_merge)
+                              knn_fold_lazy, knn_merge)
 from .cuda.lp_kernel import lp_knn, pad_for_lp
+from .cuda.minima_kernel import SUBCHUNK, bcap_minima, subchunk_minima
 from .cuda.rank_sort_kernel import rank_sort_pairs
 from .cuda.sort_kernel import bitonic_sort_pairs
 from .topk import (merge_topk, monotone_distances, nan_to_inf, rescore_exact,
@@ -82,6 +86,17 @@ BCAP_TILE = 128
 #: pointwise |computed u − true u| bound of the FP32 score product
 #: (ops/bruteforce.py:274, "highest"), with the sequential-sum term
 PROOF_EPS = 2.0 ** -23
+
+#: entries past the exact k-th cutoff that the large-k bcap compaction
+#: absorbs before a row must repair (ops/bruteforce.py:418-420)
+BCAP_TIE_MARGIN = 64
+
+#: float32 +inf as int32: rdist >= 0, so its int32 bits keep its order
+_INF_BITS = 0x7F800000
+
+#: whether the most recent two_phase call fell back to the fold route for
+#: its whole batch (some query's proof failed)
+last_two_phase_fallback = False
 
 
 def center_of(points: torch.Tensor) -> torch.Tensor:
@@ -294,34 +309,110 @@ def _rerank(pts_padded, queries, idx, k_eff: int, k_scan: int):
     return _rescore(pts_padded, queries, idx, k_eff)
 
 
-def _bcap_rescore(pts_padded, xn_padded, queries, block_ids, k_eff: int):
-    """Exact direct-form rescore of the bcap kernel's candidate blocks
-    (ops/bruteforce.py:375-415): each id maps to ``BCAP_BLOCK`` contiguous
-    rows, gathered as one slab.  Padding and NaN rows carry +inf norms and
-    are excluded; NaN queries give (+inf, -1).  Returns (rd, ids)
-    ascending, (Q, k_eff)."""
-    b = BCAP_BLOCK
+def _block_rd(pts_padded, xn_padded, queries, block_ids, block: int):
+    """Exact direct-form rdist of every row of the candidate blocks, an id
+    b standing for rows [b*block, b*block + block), gathered together
+    (ops/bruteforce.py:375-415, :465-478).  Ids < 0, rows past the padded
+    index, and NaN and padding rows (+inf norms, an exclusion the direct
+    form cannot see) give (+inf, -1); NaN distances are +inf.  The gather
+    runs over query chunks of about 256 MB of float32.  Returns (rd (Q, R)
+    float32, rows (Q, R) int32), R = kb * block, in candidate order."""
     q, kb = block_ids.shape
     n_pad, dim = pts_padded.shape
-    pts3 = pts_padded.reshape(n_pad // b, b, dim)
-    xn3 = xn_padded.reshape(n_pad // b, b)
-    off = torch.arange(b, dtype=torch.int32, device=pts_padded.device)
-    rows_per = max(1, (1 << 26) // (kb * b * dim))
-    out_d, out_i = [], []
-    for s in range(0, q, rows_per):
-        bic = block_ids[s:s + rows_per]
-        qc = queries[s:s + rows_per]
-        safe = torch.where(bic >= 0, bic, 0).long()
-        diff = qc[:, None, None, :] - pts3[safe]        # (qc, kb, b, d)
-        rd = torch.sum(diff * diff, dim=-1)
-        ok = torch.isfinite(xn3[safe]) & (bic >= 0)[:, :, None]
-        rd = torch.where(ok, nan_to_inf(rd), torch.inf)
-        rows = safe.int()[:, :, None] * b + off
-        d_, i_ = smallest_k(rd.reshape(len(qc), -1),
-                            rows.reshape(len(qc), -1), k_eff)
-        out_d.append(d_)
-        out_i.append(torch.where(torch.isfinite(d_), i_, -1))
-    return torch.cat(out_d), torch.cat(out_i)
+    width = kb * block
+    off = torch.arange(block, dtype=block_ids.dtype, device=block_ids.device)
+    rows = (block_ids[:, :, None] * block + off).reshape(q, width)
+    ok = (block_ids >= 0).repeat_interleave(block, dim=1) & (rows < n_pad)
+    safe = torch.where(ok, rows, 0).long()
+    ok &= torch.isfinite(xn_padded[safe])
+    rd = torch.empty((q, width), dtype=pts_padded.dtype,
+                     device=pts_padded.device)
+    step = max(1, (1 << 26) // max(1, width * dim))
+    for s in range(0, q, step):
+        diff = queries[s:s + step, None, :] - pts_padded[safe[s:s + step]]
+        rd[s:s + step] = torch.sum(diff * diff, dim=-1)
+    return (torch.where(ok, nan_to_inf(rd), torch.inf),
+            torch.where(ok, rows, -1).to(torch.int32))
+
+
+def _block_rescore(pts_padded, xn_padded, queries, block_ids, k_eff: int,
+                   block: int):
+    """The k_eff smallest exact rdist over the candidate blocks'
+    rows (``_block_rd``; the reference's ``_bcap_rescore``, and the
+    candidate rescore of ``_two_phase_small_k``), ascending, ties by
+    candidate position; NaN queries and missing slots give (+inf, -1).
+    Returns (rd, ids), (Q, k_eff)."""
+    rd, rows = _block_rd(pts_padded, xn_padded, queries, block_ids, block)
+    best_rd, best_i = smallest_k(rd, rows, k_eff)
+    return best_rd, torch.where(torch.isfinite(best_rd), best_i, -1)
+
+
+def _bcap_rescore_large(pts_padded, xn_padded, queries, block_ids,
+                        k_eff: int):
+    """Rescore and selection of bcap candidates where ``k_eff * 16 > 1024``
+    (ops/bruteforce.py:423-512): the exact rdist over the (Q, R) candidate
+    rows, the exact k-th cutoff per row by bisection on the float32 bit
+    order (31 masked counts, no sort), the entries at or below it
+    compacted in candidate order into W = min(R, ceil((k + 64) / 128) * 128)
+    lanes, and one row sort of width W (``bitonic_sort_pairs`` up to 2048,
+    ``rank_sort_pairs`` above).  A row whose entries at or below a finite
+    cutoff overflow W (ties) is flagged for the caller's repair.  A row
+    with fewer than k finite candidates has cutoff +inf; it compacts its
+    finite entries only, which always fit (the reference compacts its +inf
+    entries too, in candidate order, and can push finite ones past W).
+    Returns (rd (Q, k) ascending, ids (Q, k), overflow (Q,) bool)."""
+    rd, rows = _block_rd(pts_padded, xn_padded, queries, block_ids,
+                         BCAP_BLOCK)
+    q, width = rd.shape
+    bits = rd.view(torch.int32)
+    lo = torch.zeros((q,), dtype=torch.int32, device=rd.device)
+    hi = torch.full((q,), _INF_BITS, dtype=torch.int32, device=rd.device)
+    for _ in range(31):
+        mid = lo + (hi - lo) // 2
+        ge = torch.sum(bits <= mid[:, None], dim=1) >= k_eff
+        lo = torch.where(ge, lo, mid + 1)
+        hi = torch.where(ge, mid, hi)
+    cutoff = hi
+    w = min(width, -(-(k_eff + BCAP_TIE_MARGIN) // 128) * 128)
+    keep = bits <= torch.clamp_max(cutoff, _INF_BITS - 1)[:, None]
+    count = torch.sum(keep, dim=1)
+    pos = torch.cumsum(keep, dim=1) - 1
+    pos = torch.where(keep & (pos < w), pos, w)        # column w: dropped
+    cd = torch.full((q, w + 1), torch.inf, dtype=rd.dtype,
+                    device=rd.device).scatter_(1, pos, rd)[:, :w]
+    ci = torch.full((q, w + 1), -1, dtype=torch.int32,
+                    device=rd.device).scatter_(1, pos, rows)[:, :w]
+    overflow = (count > w) & (cutoff < _INF_BITS)
+    row_sort = (rank_sort_pairs if w > BITONIC_WIDTH_MAX
+                else bitonic_sort_pairs)
+    sd, si = row_sort(cd.contiguous(), ci.contiguous())
+    best_rd = sd[:, :k_eff]
+    return (best_rd, torch.where(torch.isfinite(best_rd), si[:, :k_eff], -1),
+            overflow)
+
+
+def _two_phase_small_k(pts_padded, xn_padded, queries, k_eff: int):
+    """Two-phase candidates (ops/bruteforce.py:284-372): the subchunk
+    minima kernel, then each query's k_eff smallest subchunk minima (a
+    stable sort: ties to the lower column, as the reference's argmin loop),
+    and the exact direct-form rescore of their k_eff * 128 rows.  The k-th
+    smallest minimum T bounds the true k-th u from above, and every point
+    with u <= T lies in a selected subchunk.  Returns (rd (Q, k_eff)
+    ascending, ids, T (Q,) u-domain); T is +inf where there are no more
+    than k_eff subchunks (every row is a candidate), NaN for a NaN query.
+    The port keeps its 64-row pad: rows past the padded index are missing
+    candidates."""
+    minima = subchunk_minima(pts_padded, queries, xn_padded)
+    vals, sid = torch.sort(minima, dim=1, stable=True)
+    nc = minima.shape[1]
+    if k_eff <= nc:
+        thr_u = vals[:, k_eff - 1]
+    else:
+        thr_u = torch.full((queries.shape[0],), torch.inf,
+                           dtype=minima.dtype, device=minima.device)
+    best_rd, best_i = _block_rescore(pts_padded, xn_padded, queries,
+                                     sid[:, :min(k_eff, nc)], k_eff, SUBCHUNK)
+    return best_rd, best_i, thr_u
 
 
 def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
@@ -345,6 +436,19 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
     return best_rd, best_i
 
 
+def _fold_route(pts_padded, xn_padded, queries, scheme: str, k_eff: int,
+                k_scan: int, n_real: int):
+    """The exact k_scan candidates of the fold, fold_lazy or merge kernel,
+    rescored in the direct form (ops/bruteforce.py:700-725).  Returns
+    (rd, ids) ascending, (Q, k_eff)."""
+    run = {"fold": knn_fold, "fold_lazy": knn_fold_lazy,
+           "merge": knn_merge}[scheme]
+    _, idx = run(pts_padded, queries, xn_padded, k=k_scan)
+    # drop any padded-row ids (none can appear: their norms are +inf)
+    return _rerank(pts_padded, queries, torch.where(idx < n_real, idx, -1),
+                   k_eff, k_scan)
+
+
 def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
                   center=None, *, scheme: str | None = None,
                   normalize_q: bool = False, out_rdist: bool = False):
@@ -357,21 +461,31 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
     zero-norm queries become NaN rows); ``out_rdist`` returns squared
     distances instead of distances (ops/bruteforce.py:664-671, :727-730).
     ``scheme`` (default ``pick_scheme``, with bcap where the reference's
-    index would hold its planes) is "bcap", "capped", "fold" or "merge".
-    Every scheme
-    keeps ``k_scan`` candidates (``scan_width``; bcap: that many blocks, at
-    least 12), re-scores them with the direct form and re-ranks:
+    index would hold its planes) is "bcap", "capped", "fold" or "merge",
+    or one of the opt-in schemes "fold_lazy", "two_phase" and "bcap2",
+    which ``pick_scheme`` never takes (ops/bruteforce.py:626-637).  Every
+    scheme keeps ``k_scan`` candidates (``scan_width``; bcap and bcap2:
+    that many 16-row blocks, at least 12; two_phase: k_eff 128-row
+    subchunks), re-scores them with the direct form and re-ranks:
 
-    * fold and merge keep the exact FP32 top k_scan; the slack absorbs the
-      product form's rounding, so they need no proof;
+    * fold, fold_lazy and merge keep the exact FP32 top k_scan; the slack
+      absorbs the product form's rounding, so they need no proof.
+      fold_lazy raises ValueError beyond ``k_scan = 1024``, as the
+      reference's kernel asserts;
     * capped and bcap may skip true members where a tile had more than
-      ``passes`` survivors.  Their threshold ``thr`` lower-bounds every
+      ``passes`` survivors, and bcap2 keeps the blocks of its smallest
+      block minima.  Their threshold ``thr`` lower-bounds every
       point left out, so a query is covered when its re-scored k-th
       distance is at most ``thr − err`` (``_proof_err``); uncovered
-      queries are recomputed by the fold kernel (``_prove_repair``).
+      queries are recomputed by the fold kernel (``_prove_repair``);
+    * two_phase's threshold is the k-th smallest subchunk minimum.  If the
+      proof leaves any query uncovered, the whole batch re-runs the fold
+      route (fold up to k_scan 1024, merge above), as the reference does;
+      ``last_two_phase_fallback`` records whether the last call did.
 
     Returns (distances, ids), (Q, k_eff), ascending; NaN queries and
     missing slots are (+inf, -1)."""
+    global last_two_phase_fallback
     if center is not None:
         queries = queries - center
     if normalize_q:
@@ -389,43 +503,75 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
     if scheme == "capped" and k_scan > FOLD_K_MAX:
         # the port's capped kernel keeps at most 1024 (deviation 1)
         scheme = "merge"
-    if scheme in ("fold", "merge"):
-        run = knn_fold if scheme == "fold" else knn_merge
-        _, idx = run(pts_padded, queries, xn_padded, k=k_scan)
-        # drop any padded-row ids (none can appear: their norms are +inf)
-        best_rd, best_i = _rerank(pts_padded, queries,
-                                  torch.where(idx < n_real, idx, -1), k_eff,
-                                  k_scan)
+    if scheme == "fold_lazy" and k_scan > FOLD_K_MAX:
+        raise ValueError(f"fold_lazy keeps at most {FOLD_K_MAX} candidates, "
+                         f"k_scan={k_scan}")
+    if scheme in ("fold", "fold_lazy", "merge"):
+        best_rd, best_i = _fold_route(pts_padded, xn_padded, queries, scheme,
+                                      k_eff, k_scan, n_real)
         return to_out(best_rd), best_i
-    if scheme == "bcap":
+    qn = torch.sum(queries * queries, dim=1)
+    xn_max = torch.max(torch.where(torch.isfinite(xn_padded), xn_padded, 0.0))
+    err = _proof_err(queries.shape[1], qn, xn_max)
+    if scheme == "two_phase":
+        # ops/bruteforce.py:955-981: one uncovered query sends the whole
+        # batch to the fold route; with the k nearest points in k different
+        # subchunks the k-th rescored distance equals T + ||q||^2 up to
+        # rounding, so at serving scale most batches fall back
+        best_rd, best_i, thr_u = _two_phase_small_k(pts_padded, xn_padded,
+                                                    queries, k_eff)
+        kth, thr = best_rd[:, -1], thr_u + qn
+        covered = (kth <= thr - err) | (~torch.isfinite(kth)
+                                        & ~torch.isfinite(thr))
+        last_two_phase_fallback = not bool(torch.all(covered))
+        if last_two_phase_fallback:
+            run = ("fold" if min(k_eff + RESCORE_SLACK, n_real) <= FOLD_K_MAX
+                   else "merge")
+            best_rd, best_i = _fold_route(
+                pts_padded, xn_padded, queries, run, k_eff,
+                scan_width(run, k_eff, n_real), n_real)
+        return to_out(best_rd), best_i
+    overflow = None
+    if scheme in ("bcap", "bcap2"):
         n_blocks = -(-pts_padded.shape[0] // BCAP_BLOCK)
-        k_cand = min(max(k_eff + RESCORE_SLACK, 12), BCAP_TILE, n_blocks)
-        tile, tile_rows = BCAP_TILE, BCAP_TILE * BCAP_BLOCK
+        if scheme == "bcap":
+            k_cand = min(max(k_eff + RESCORE_SLACK, 12), BCAP_TILE, n_blocks)
+            passes = capped_passes(k_cand, BCAP_TILE * BCAP_BLOCK, n_real,
+                                   scheme)
+            _, idx, thr = knn_bcap(pts_padded, queries, xn_padded, k=k_cand,
+                                   tile=BCAP_TILE, passes=passes)
+        else:
+            # ops/bruteforce.py:853-905: the k_cand smallest block minima;
+            # an unselected block's minimum is at least the k_cand-th
+            k_cand = min(max(k_eff + RESCORE_SLACK, 12), n_blocks)
+            minima = bcap_minima(pts_padded, queries, xn_padded)
+            vals, idx = torch.topk(minima, k_cand, dim=1, largest=False)
+            thr = vals[:, -1] + qn
         covers_all = k_cand * BCAP_BLOCK >= n_real
+        if k_eff * BCAP_BLOCK > 1024:
+            best_rd, best_i, overflow = _bcap_rescore_large(
+                pts_padded, xn_padded, queries, idx, k_eff)
+        else:
+            best_rd, best_i = _block_rescore(pts_padded, xn_padded, queries,
+                                             idx, k_eff, BCAP_BLOCK)
     elif scheme == "capped":
-        k_cand = k_scan
-        tile = tile_rows = max(CAPPED_TILE, -(-k_scan // PAD_ROWS) * PAD_ROWS)
+        tile = max(CAPPED_TILE, -(-k_scan // PAD_ROWS) * PAD_ROWS)
+        passes = capped_passes(k_scan, tile, n_real, scheme)
+        rd, idx, thr = knn_capped(pts_padded, queries, xn_padded, k=k_scan,
+                                  tile=tile, passes=passes)
         covers_all = k_scan >= n_real
-    else:
-        raise ValueError(f"unknown scheme {scheme!r}")
-    passes = capped_passes(k_cand, tile_rows, n_real, scheme)
-    run = knn_bcap if scheme == "bcap" else knn_capped
-    rd, idx, thr = run(pts_padded, queries, xn_padded, k=k_cand, tile=tile,
-                       passes=passes)
-    if scheme == "bcap":
-        best_rd, best_i = _bcap_rescore(pts_padded, xn_padded, queries, idx,
-                                        k_eff)
-    else:
         # a seed slot may hold a NaN or padding row at +inf: the direct
         # form would score its zeroed copy as finite, so it goes as -1
         ok = torch.isfinite(rd) & (idx < n_real)
         best_rd, best_i = _rerank(pts_padded, queries,
                                   torch.where(ok, idx, -1), k_eff, k_scan)
-    qn = torch.sum(queries * queries, dim=1)
-    xn_max = torch.max(torch.where(torch.isfinite(xn_padded), xn_padded, 0.0))
+    else:
+        raise ValueError(f"unknown scheme {scheme!r}")
     kth = best_rd[:, -1]
-    covered = covers_all | (kth <= thr - _proof_err(queries.shape[1], qn,
-                                                    xn_max))
+    covered = covers_all | (kth <= thr - err)
+    if overflow is not None:
+        # ties past the compaction's margin: the row repairs
+        covered = covered & ~overflow
     # a non-finite k-th is covered only when thr is non-finite too (a NaN
     # query, or nothing finite skipped); a finite thr means finite scores
     # were skipped while the set still held +inf seeds (:841-849)

@@ -1,9 +1,12 @@
 // knn_fold.cu — the fold family of streaming top-k kernels, FP32 SIMT.
 //
-// Replaces three kernels of petal_neighbors_tpu/ops/pallas/knn_kernel.py,
+// Replaces four kernels of petal_neighbors_tpu/ops/pallas/knn_kernel.py,
 // one template instantiated per mode:
 //   MODE_FOLD   _knn_kernel (:186, the "fold" scheme, with _fold_min :97):
 //               the exact k smallest u per query.
+//   MODE_FOLD_LAZY _knn_kernel_lazy (:116, the opt-in "fold_lazy" scheme):
+//               fold's results bit for bit; a tile first takes one fused
+//               test (below) before any per-candidate work.
 //   MODE_CAPPED _knn_kernel_capped (:429): at most `passes` extractions per
 //               tile of rows, plus a per-query threshold thr below which no
 //               point outside the working set can lie.
@@ -58,6 +61,13 @@
 //     slot), recomputes the maximum, and repeats while the smallest
 //     remaining candidate is below tau.  While the set still has +inf
 //     slots they fill in order, without a scan.
+//   * fold_lazy: the TPU kernel's point is one fused reduce per tile (the
+//     tile minimum against each query's tau) before the u tile and the
+//     extraction loop.  Here that is one warp-wide vote over all 8 of the
+//     warp's queries: only when some score of the tile is below its
+//     query's tau do the NaN conversion and the four fold_query calls (each
+//     with its own vote) run.  The scores and every comparison are fold's,
+//     so the working sets are fold's bit for bit.
 //   * capped / bcap: each query keeps a sorted list of the passes+1
 //     smallest candidates of the current tile, one entry per lane of its
 //     half-warp (insertion = ballot + shuffle-up); at the tile's end its
@@ -107,6 +117,12 @@ constexpr int MODE_FOLD = 0;
 constexpr int MODE_CAPPED = 1;
 constexpr int MODE_BCAP = 2;
 constexpr int MODE_MERGE = 3;
+constexpr int MODE_FOLD_LAZY = 4;
+
+// fold and fold_lazy keep the exact top k (no seed, no list, no threshold)
+__host__ __device__ constexpr bool folds(int mode) {
+  return mode == MODE_FOLD || mode == MODE_FOLD_LAZY;
+}
 
 constexpr int BLOCK = 16;     // rows per bcap block
 constexpr int MAX_PASSES = 15;  // the list of passes+1 entries spans 16 lanes
@@ -367,7 +383,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
     tau[j] = live[j] ? INFINITY : -INFINITY;
     amax[j] = 0;
     // capped / bcap sets are full from the seed on (+inf slots included)
-    fill[j] = (MODE == MODE_FOLD || !live[j]) ? 0 : k;
+    fill[j] = (folds(MODE) || !live[j]) ? 0 : k;
     miss[j] = INFINITY;
     lv[j] = INFINITY;
     li[j] = INT_MAX;
@@ -386,6 +402,17 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
                   score,
                   [&](long long t, const float* xnb, float (&acc)[4][4]) {
       // ---- the tile's scores into the working sets ----------------------
+      if (MODE == MODE_FOLD_LAZY) {
+        // one fused test for the warp's 8 queries: a NaN score fails it, as
+        // its +inf stand-in fails fold_query's
+        bool hit = false;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            hit |= score.finish(acc[j][i], xnb[xg + 16 * i]) < tau[j];
+        if (!__any_sync(FULL, hit)) return;
+      }
       const int tile0 = static_cast<int>(t * TN);
       int cid[4];
 #pragma unroll
@@ -402,7 +429,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
           if (i == 0) qnan[j] = u != u;
         }
       }
-      if (MODE == MODE_FOLD) {
+      if (folds(MODE)) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           fold_query(v[j], cid, tau[j], amax[j], fill[j],
@@ -465,7 +492,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
           }
         }
       }
-      if (MODE != MODE_FOLD &&
+      if (!folds(MODE) &&
           ((t - t_begin + 1) % tile_tiles == 0 || t + 1 == t_end)) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -486,7 +513,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
         pi[e] = ws_i[e];
       }
     }
-    if (MODE != MODE_FOLD && xg == 0) {
+    if (!folds(MODE) && xg == 0) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (live[j])
@@ -501,7 +528,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
     __threadfence();
     for (int other = 0; other < splits; ++other) {
       if (other == split) continue;
-      if (MODE != MODE_FOLD) {
+      if (!folds(MODE)) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           if (live[j]) {
@@ -532,7 +559,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
       }
     }
   }
-  if (MODE != MODE_FOLD && xg == 0) {
+  if (!folds(MODE) && xg == 0) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       thr_s[rbase + j] = miss[j] < tau[j] ? miss[j] : tau[j];
@@ -556,7 +583,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
       od[e] = id < 0 ? INFINITY : (rd < 0.f ? 0.f : rd);
       oi[e] = id;
     }
-    if (MODE != MODE_FOLD && lane == 0) out_t[gq] = thr_s[r] + qn;
+    if (!folds(MODE) && lane == 0) out_t[gq] = thr_s[r] + qn;
   }
 }
 
@@ -571,8 +598,9 @@ cudaError_t set_smem(size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Shared memory of one fold, capped or bcap block, and the attribute that
-// allows it: the tile staging plus the working sets when ws_in_smem.
+// Shared memory of one fold, fold_lazy, capped or bcap block, and the
+// attribute that allows it: the tile staging plus the working sets when
+// ws_in_smem.
 cudaError_t prepare(int mode, int d, int k, int ws_in_smem, size_t* smem) {
   *smem = tile_smem_bytes(d) +
           (ws_in_smem ? static_cast<size_t>(TQ) * k * 8 : 0);
@@ -580,6 +608,7 @@ cudaError_t prepare(int mode, int d, int k, int ws_in_smem, size_t* smem) {
     case MODE_FOLD: return set_smem<MODE_FOLD>(*smem);
     case MODE_CAPPED: return set_smem<MODE_CAPPED>(*smem);
     case MODE_BCAP: return set_smem<MODE_BCAP>(*smem);
+    case MODE_FOLD_LAZY: return set_smem<MODE_FOLD_LAZY>(*smem);
   }
   return cudaErrorInvalidValue;
 }
@@ -595,6 +624,9 @@ cudaError_t occupancy(int mode, int* per_sm, size_t smem) {
     case MODE_BCAP:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           per_sm, knn_kernel<MODE_BCAP, true>, THREADS, smem);
+    case MODE_FOLD_LAZY:
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          per_sm, knn_kernel<MODE_FOLD_LAZY, true>, THREADS, smem);
   }
   return cudaErrorInvalidValue;
 }
@@ -622,7 +654,7 @@ extern "C" {
 
 // The kernels' fixed sizes: queries per block (counters are sized by it),
 // rows per tile (capped tiles are multiples of it), rows per bcap block,
-// and the largest passes and k (fold, capped and bcap; merge).
+// and the largest passes and k (fold, fold_lazy, capped and bcap; merge).
 void knn_constants(int* tq, int* tn, int* block, int* max_passes,
                    int* max_k, int* merge_max_k) {
   *tq = TQ;
@@ -636,10 +668,11 @@ void knn_constants(int* tq, int* tn, int* block, int* max_passes,
 // The launch plan for a problem: where the working set lives (shared
 // memory when two blocks still fit on an SM; always global for merge) and
 // how many row ranges to split into (choose_splits).
-// mode: 0 fold, 1 capped, 2 bcap, 3 merge (tile_tiles 1).
+// mode: 0 fold, 1 capped, 2 bcap, 3 merge, 4 fold_lazy (tile_tiles 1 for
+// the folds and merge).
 int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
              int* splits, int* ws_in_smem) {
-  if (mode < MODE_FOLD || mode > MODE_MERGE || tile_tiles < 1)
+  if (mode < MODE_FOLD || mode > MODE_FOLD_LAZY || tile_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int optin = 0, sms = 0;
   cudaError_t err = card_limits(&sms, &optin);
@@ -660,14 +693,15 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
   return 0;
 }
 
-// mode: 0 fold, 1 capped, 2 bcap.  points (n, d), queries (q, d), norms
-// (n,) float32, row-major; outputs out_d (q, k) float32, out_i (q, k)
-// int32 and, for capped and bcap, out_t (q,) float32.  Scratch part_d
-// (splits, q, k) float32 and part_i (splits, q, k) int32 (unused when
-// splits == 1 and ws_in_smem), part_m (splits, q) float32 (capped, bcap)
-// and zeroed counters (ceil(q / TQ),) int32.  1 <= k <= MAX_K, q >= 1,
-// n < 2^31; capped: k <= tile_tiles * TN; bcap: k <= tile_tiles * TN /
-// BLOCK; 0 <= passes <= MAX_PASSES.  splits and ws_in_smem as knn_plan
+// mode: 0 fold, 1 capped, 2 bcap, 4 fold_lazy.  points (n, d), queries
+// (q, d), norms (n,) float32, row-major; outputs out_d (q, k) float32,
+// out_i (q, k) int32 and, for capped and bcap, out_t (q,) float32.
+// Scratch part_d (splits, q, k) float32 and part_i (splits, q, k) int32
+// (unused when splits == 1 and ws_in_smem), part_m (splits, q) float32
+// (capped, bcap) and zeroed counters (ceil(q / TQ),) int32.  1 <= k <=
+// MAX_K, q >= 1, n < 2^31; capped: k <= tile_tiles * TN; bcap: k <=
+// tile_tiles * TN / BLOCK; the folds: tile_tiles 1; 0 <= passes <=
+// MAX_PASSES.  splits and ws_in_smem as knn_plan
 // returned them for the same mode, n, q, d, k and tile_tiles.  Returns the
 // launch's cudaError_t (0 on success).
 int knn_launch(int mode, const float* points, const float* queries,
@@ -678,8 +712,9 @@ int knn_launch(int mode, const float* points, const float* queries,
   const long long cap = mode == MODE_CAPPED ? static_cast<long long>(tile_tiles) * TN
                         : mode == MODE_BCAP ? static_cast<long long>(tile_tiles) * (TN / BLOCK)
                                             : MAX_K;
-  if (mode < MODE_FOLD || mode > MODE_BCAP || k < 1 || k > MAX_K ||
-      k > cap || tile_tiles < 1 || (mode == MODE_FOLD && tile_tiles != 1) ||
+  if (mode < MODE_FOLD || mode == MODE_MERGE || mode > MODE_FOLD_LAZY ||
+      k < 1 || k > MAX_K || k > cap || tile_tiles < 1 ||
+      (folds(mode) && tile_tiles != 1) ||
       passes < 0 || passes > MAX_PASSES || splits < 1 || splits > MAX_SPLITS)
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
@@ -700,6 +735,12 @@ int knn_launch(int mode, const float* points, const float* queries,
       launch<MODE_CAPPED>(vec, grid, smem, s, points, queries, norms, out_d,
                           out_i, out_t, part_d, part_i, part_m, counters, n,
                           q, d, k, tile_tiles, passes, splits, ws_in_smem);
+      break;
+    case MODE_FOLD_LAZY:
+      launch<MODE_FOLD_LAZY>(vec, grid, smem, s, points, queries, norms,
+                             out_d, out_i, out_t, part_d, part_i, part_m,
+                             counters, n, q, d, k, tile_tiles, passes, splits,
+                             ws_in_smem);
       break;
     default:
       launch<MODE_BCAP>(vec, grid, smem, s, points, queries, norms, out_d,

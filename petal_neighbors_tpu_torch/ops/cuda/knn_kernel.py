@@ -1,5 +1,5 @@
-"""Fused k-NN on the card: the fold, capped, bcap and merge kernels and
-their plain versions.
+"""Fused k-NN on the card: the fold, fold_lazy, capped, bcap and merge
+kernels and their plain versions.
 
 Counterpart of ``petal_neighbors_tpu/ops/pallas/knn_kernel.py``.  The
 u-domain score ``u = ‖x‖² − 2·q·x`` is the squared distance minus the
@@ -7,6 +7,9 @@ per-query ``‖q‖²``, which is constant along a row, so every comparison is
 order-identical in u; ``‖q‖²`` is added back once at the output.
 
 * ``knn_fold``: the exact k smallest u per query (``_knn_kernel``).
+* ``knn_fold_lazy``: fold's results bit for bit, with one fused test per
+  tile before any per-candidate work (``_knn_kernel_lazy``, the opt-in
+  "fold_lazy" scheme).
 * ``knn_capped``: at most ``passes`` extractions per tile of rows, and a
   per-query threshold ``thr`` that lower-bounds every point left out
   (``_knn_kernel_capped``).  Misses are possible; the caller proves.
@@ -16,7 +19,7 @@ order-identical in u; ``‖q‖²`` is added back once at the output.
   sorted (``_knn_kernel_merge`` + ``_bitonic_merge_sorted``).
 
 Each launches a hand-written CUDA kernel of ``csrc/knn_fold.cu`` (one
-template with a mode each for the first three, a kernel of its own on the
+template with a mode each for the first four, a kernel of its own on the
 same tile product for merge) for CUDA tensors and runs its plain PyTorch
 version for CPU tensors.  Nothing else selects between them: a CUDA tensor
 launches the kernel or raises.
@@ -33,7 +36,8 @@ import functools
 
 import torch
 
-__all__ = ["knn_fold", "knn_fold_reference", "knn_capped",
+__all__ = ["knn_fold", "knn_fold_reference", "knn_fold_lazy",
+           "knn_fold_lazy_reference", "knn_capped",
            "knn_capped_reference", "knn_bcap", "knn_bcap_reference",
            "knn_merge", "knn_merge_reference", "kernel_plan", "FOLD_K_MAX",
            "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK"]
@@ -52,13 +56,22 @@ PASSES_MAX = 15
 #: granule of 2048 rows over 128 lanes of the TPU kernel (bcap_tile_n)
 BCAP_BLOCK = 16
 
-_MODES = {"fold": 0, "capped": 1, "bcap": 2, "merge": 3}
+_MODES = {"fold": 0, "capped": 1, "bcap": 2, "merge": 3, "fold_lazy": 4}
+
+#: the schemes that keep the exact top k (no seed, no threshold)
+_FOLDS = ("fold", "fold_lazy")
 
 
 def _check(points, queries, point_norms, k: int, name: str,
            k_max: int = FOLD_K_MAX) -> None:
     if not 1 <= k <= k_max:
         raise ValueError(f"{name} takes 1 <= k <= {k_max}, got {k}")
+    check_arrays(points, queries, point_norms, name)
+
+
+def check_arrays(points, queries, point_norms, name: str) -> None:
+    """The u-domain kernels' inputs: points (N, d) with N >= 1, queries
+    (Q, d), point_norms (N,), all float32 on one CUDA or CPU device."""
     if points.ndim != 2 or queries.ndim != 2 or point_norms.ndim != 1:
         raise ValueError(f"{name} wants points (N, d), queries (Q, d) and "
                          "point_norms (N,)")
@@ -103,6 +116,13 @@ def knn_fold_reference(points, queries, point_norms, *, k: int):
     as +inf.  Returns (rdist (Q, k) float32, ids (Q, k) int32), ascending.
     """
     _check(points, queries, point_norms, k, "knn_fold")
+    return _running_topk(points, queries, point_norms, k)
+
+
+def knn_fold_lazy_reference(points, queries, point_norms, *, k: int):
+    """Plain PyTorch version of the fold_lazy kernel: its results are the
+    fold kernel's, so it is fold's plain version (``knn_fold_reference``)."""
+    _check(points, queries, point_norms, k, "knn_fold_lazy")
     return _running_topk(points, queries, point_norms, k)
 
 
@@ -288,7 +308,7 @@ def _plan(device_index: int, mode: int, n: int, q: int, d: int, k: int,
 
 
 def _tile_tiles(scheme: str, tile: int) -> int:
-    if scheme in ("fold", "merge"):
+    if scheme in _FOLDS + ("merge",):
         return 1
     rows = tile * BCAP_BLOCK if scheme == "bcap" else tile
     tn = _constants()["tn"]
@@ -320,8 +340,8 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
     dev = queries.device
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    out_t = torch.empty((nq if scheme != "fold" else 0,), dtype=torch.float32,
-                        device=dev)
+    out_t = torch.empty((0 if scheme in _FOLDS else nq,),
+                        dtype=torch.float32, device=dev)
     if nq == 0:
         return out_d, out_i, out_t
     with torch.cuda.device(dev):
@@ -335,8 +355,8 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
         part = (s, nq, k) if (s > 1 or not ws_smem) else (0,)
         part_d = torch.empty(part, dtype=torch.float32, device=dev)
         part_i = torch.empty(part, dtype=torch.int32, device=dev)
-        part_m = torch.empty((s, nq) if scheme != "fold" and s > 1 else (0,),
-                             dtype=torch.float32, device=dev)
+        part_m = torch.empty((s, nq) if scheme not in _FOLDS and s > 1
+                             else (0,), dtype=torch.float32, device=dev)
         counters = torch.zeros((-(-nq // _constants()["tq"]),),
                                dtype=torch.int32, device=dev)
         err = _lib().knn_launch(
@@ -370,6 +390,25 @@ def knn_fold(points, queries, point_norms, *, k: int):
         return knn_fold_reference(points, queries, point_norms, k=k)
     out_d, out_i, _ = _launch("fold", points, queries, point_norms, k)
     knn_fold.launches += 1
+    return out_d, out_i
+
+
+def knn_fold_lazy(points, queries, point_norms, *, k: int):
+    """The fold contract with the lazy kernel (``_knn_kernel_lazy``,
+    knn_kernel.py:116, ``knn_pallas(scheme="fold_lazy")``): a tile whose
+    scores all miss their queries' working-set maxima costs one warp vote
+    and no per-candidate work.  Inputs, ``1 <= k <= 1024`` and outputs as
+    ``knn_fold``, with which its results agree bit for bit.
+
+    CUDA tensors launch ``csrc/knn_fold.cu``'s ``MODE_FOLD_LAZY`` (counted
+    in ``knn_fold_lazy.launches``); CPU tensors run
+    ``knn_fold_lazy_reference``.
+    """
+    _check(points, queries, point_norms, k, "knn_fold_lazy")
+    if points.device.type == "cpu":
+        return knn_fold_lazy_reference(points, queries, point_norms, k=k)
+    out_d, out_i, _ = _launch("fold_lazy", points, queries, point_norms, k)
+    knn_fold_lazy.launches += 1
     return out_d, out_i
 
 
@@ -479,5 +518,6 @@ def knn_merge(points, queries, point_norms, *, k: int):
 #: kernel launches made by each wrapper (plain-version calls do not count)
 knn_merge.launches = 0
 knn_fold.launches = 0
+knn_fold_lazy.launches = 0
 knn_capped.launches = 0
 knn_bcap.launches = 0

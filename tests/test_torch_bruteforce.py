@@ -486,6 +486,195 @@ def test_large_k_kernel_route_matches_jax(k):
     assert (tidx.last_backend, tidx.last_scheme) == ("kernel", "merge")
 
 
+# ---- the opt-in schemes: fold_lazy, two_phase, bcap2 ----------------------
+
+def _padded(pts):
+    """The JAX package's centred index padded to 2048 rows, as the JAX
+    route's own tests build it."""
+    mu = jbf.center_of(jnp.asarray(pts))
+    pp, pn = jbf.pad_for_pallas(jnp.asarray(pts) - mu, tn=2048)
+    return mu, pp, pn
+
+
+def _jax_route(scheme, pts, qs, k, mu, pp, pn):
+    """knn_pallas_prepadded at "highest" in interpret mode; bcap and bcap2
+    read planes interleaved at a 2048-row granule, whose blocks are the
+    port's 16 contiguous rows."""
+    kw = dict(precision="highest", interpret=True, scheme=scheme, tn=2048)
+    if scheme in ("bcap", "bcap2"):
+        from petal_neighbors_tpu.ops.pallas.knn_kernel import (
+            prepare_bcap_planes)
+        kw.update(bcap_tn=2048, bcap_planes=prepare_bcap_planes(
+            pp, pn, tn=2048, precision="highest"))
+    return [np.asarray(a) for a in jbf.knn_pallas_prepadded(
+        pp, pn, jnp.asarray(qs), k, len(pts), mu, **kw)]
+
+
+def _port_route(scheme, pts, qs, k, mu, pp, pn):
+    return [t.numpy() for t in tbf.knn_prepadded(
+        torch.from_numpy(np.array(pp)), torch.from_numpy(np.array(pn)),
+        torch.from_numpy(qs), k, len(pts), torch.from_numpy(np.array(mu)),
+        scheme=scheme)]
+
+
+def _check_exact(pts, qs, k, td, ti, jd=None, ji=None):
+    """Against the f64 oracle (and the JAX route where given): distances
+    within rtol/atol 1e-4 (direct forms on differently centred copies),
+    ids as sets off f32 ties, NaN queries (+inf, -1)."""
+    od, oi = _oracle(pts, qs, k)
+    nanq = np.isnan(qs).any(axis=1)
+    assert td.shape == (len(qs), k) and ti.dtype == np.int32
+    assert (ti[nanq] == -1).all() and np.isposinf(td[nanq]).all()
+    np.testing.assert_allclose(td[~nanq], od[~nanq], rtol=1e-4, atol=1e-4)
+    if jd is not None:
+        np.testing.assert_allclose(td[~nanq], jd[~nanq], rtol=1e-4, atol=1e-4)
+        assert (ji[nanq] == -1).all()
+    for r in np.flatnonzero(~nanq):
+        if not _tied(pts, qs[r].astype(np.float64), k):
+            assert set(ti[r].tolist()) == set(oi[r].tolist()), r
+            if ji is not None:
+                assert set(ti[r].tolist()) == set(ji[r].tolist()), r
+
+
+@pytest.mark.parametrize("scheme", ["fold_lazy", "two_phase", "bcap2"])
+@pytest.mark.parametrize("k", [10, 40])
+def test_opt_in_schemes_match_jax(scheme, k):
+    """knn_prepadded(scheme=...) against the JAX route on the same padded
+    index, both against the f64 oracle, NaN rows and queries included."""
+    rng = np.random.default_rng(30 + k)
+    pts = rng.standard_normal((8192, 32)).astype(np.float32)
+    qs = rng.standard_normal((N_Q, 32)).astype(np.float32)
+    pts[[7, 4000]] = np.nan
+    qs[3] = np.nan
+    mu, pp, pn = _padded(pts)
+    jd, ji = _jax_route(scheme, pts, qs, k, mu, pp, pn)
+    td, ti = _port_route(scheme, pts, qs, k, mu, pp, pn)
+    _check_exact(pts, qs, k, td, ti, jd, ji)
+
+
+@pytest.mark.parametrize("scheme", ["bcap", "bcap2"])
+def test_bcap_large_k_rescore_matches_jax(scheme, monkeypatch):
+    """k * 16 > 1024 (k=80: 88 blocks, 1408 candidate rows) takes the
+    large-k rescore in both packages: the bisection cutoff, the compaction
+    into 256 lanes and the bitonic sort; forced bcap too, as the reference
+    does."""
+    rng = np.random.default_rng(31)
+    pts = rng.standard_normal((8192, 16)).astype(np.float32)
+    qs = rng.standard_normal((N_Q, 16)).astype(np.float32)
+    pts[[5, 6000]] = np.nan
+    qs[9] = np.nan
+    mu, pp, pn = _padded(pts)
+    jd, ji = _jax_route(scheme, pts, qs, 80, mu, pp, pn)
+    widths = []
+    sort = tbf.bitonic_sort_pairs
+    monkeypatch.setattr(tbf, "bitonic_sort_pairs", lambda k_, v_: widths.append(
+        k_.shape[1]) or sort(k_, v_))
+    td, ti = _port_route(scheme, pts, qs, 80, mu, pp, pn)
+    assert widths[0] == 256
+    _check_exact(pts, qs, 80, td, ti, jd, ji)
+
+
+def test_bcap2_large_k_on_the_rank_sort(monkeypatch):
+    """k=1990: 512 blocks cover all 8192 rows, and the compaction's 2176
+    lanes go to the rank sort; exact against the f64 oracle."""
+    rng = np.random.default_rng(32)
+    pts = rng.standard_normal((8192, 8)).astype(np.float32)
+    qs = rng.standard_normal((6, 8)).astype(np.float32)
+    pts[100] = np.nan
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    widths = []
+    sort = tbf.rank_sort_pairs
+    monkeypatch.setattr(tbf, "rank_sort_pairs", lambda k_, v_: widths.append(
+        k_.shape[1]) or sort(k_, v_))
+    td, ti = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), 1990, 8192, mu,
+                               scheme="bcap2")
+    assert widths == [2176]
+    od, oi = _oracle(pts, qs, 1990)
+    np.testing.assert_allclose(td.numpy(), od, rtol=1e-4, atol=1e-4)
+    for r in range(len(qs)):
+        if not _tied(pts, qs[r].astype(np.float64), 1990):
+            assert set(ti[r].tolist()) == set(oi[r].tolist())
+
+
+@pytest.mark.parametrize("k", [10, 20])
+def test_bcap2_k_up_to_n(k):
+    """n = 20 rows, one padded 64-row index: every block is a candidate;
+    the ids are the oracle's in order (as the JAX package's test)."""
+    rng = np.random.default_rng(33)
+    pts = rng.standard_normal((20, 8)).astype(np.float32)
+    qs = rng.standard_normal((N_Q, 8)).astype(np.float32)
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    td, ti = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), k, 20, mu,
+                               scheme="bcap2")
+    od, oi = _oracle(pts, qs, k)
+    np.testing.assert_array_equal(ti.numpy(), oi)
+    np.testing.assert_allclose(td.numpy(), od, rtol=1e-5, atol=1e-5)
+
+
+def test_bcap2_all_ties_repair(monkeypatch):
+    """An all-identical corpus: every block minimum equals the k-th
+    rescored value, the proof cannot certify, the repair answers every
+    query, and the result stays exact (distance 0, k distinct ids)."""
+    rng = np.random.default_rng(34)
+    pts = np.broadcast_to(rng.standard_normal((1, 8)).astype(np.float32),
+                          (4096, 8)).copy()
+    qs = np.broadcast_to(pts[0], (N_Q, 8)).copy()
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    folds = []
+    fold = tbf.knn_fold
+    monkeypatch.setattr(tbf, "knn_fold", lambda *a, **kw: folds.append(
+        len(a[1])) or fold(*a, **kw))
+    td, ti = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), 5, 4096, mu,
+                               scheme="bcap2")
+    assert folds == [N_Q]
+    assert (td.numpy() == 0).all()
+    for row in ti.tolist():
+        assert len(set(row)) == 5 and all(0 <= x < 4096 for x in row)
+
+
+def test_two_phase_fallback_or_not(monkeypatch):
+    """Random points put the 10 nearest in 10 different subchunks for most
+    queries, so the proof fails and the whole batch re-runs the fold
+    route; with every point duplicated beside itself, two of the 10
+    nearest share a subchunk and every query is covered.  Both answers are
+    exact and agree with the JAX route."""
+    rng = np.random.default_rng(35)
+    folds = []
+    fold = tbf.knn_fold
+    monkeypatch.setattr(tbf, "knn_fold", lambda *a, **kw: folds.append(
+        len(a[1])) or fold(*a, **kw))
+    for paired, want in ((False, True), (True, False)):
+        pts = rng.standard_normal((8192, 16)).astype(np.float32)
+        if paired:
+            pts[1::2] = pts[0::2]
+        qs = rng.standard_normal((N_Q, 16)).astype(np.float32)
+        pts[7] = np.nan
+        qs[4] = np.nan
+        mu, pp, pn = _padded(pts)
+        folds.clear()
+        td, ti = _port_route("two_phase", pts, qs, 10, mu, pp, pn)
+        assert tbf.last_two_phase_fallback is want
+        assert folds == ([N_Q] if want else [])
+        jd, ji = _jax_route("two_phase", pts, qs, 10, mu, pp, pn)
+        _check_exact(pts, qs, 10, td, ti, jd, ji)
+
+
+def test_fold_lazy_route_limits():
+    """fold_lazy keeps at most 1024 candidates, as the reference's kernel
+    asserts; it answers as fold does below that."""
+    pts, qs = _data(3000, 40, np.float32, seed=36, nan_rows=(4,),
+                    nan_queries=(2,))
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    with pytest.raises(ValueError, match="fold_lazy"):
+        tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), 1017, 3000, mu,
+                          scheme="fold_lazy")
+    lazy = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), 1016, 3000, mu,
+                             scheme="fold_lazy")
+    fold = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), 1016, 3000, mu,
+                             scheme="fold")
+    assert torch.equal(lazy[0], fold[0]) and torch.equal(lazy[1], fold[1])
+
+
 # ---- the generic-metric path: the Lp kernel, cosine through the kernels --
 
 GEN_N, GEN_D = 4608, 48

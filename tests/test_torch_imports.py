@@ -40,11 +40,12 @@ def test_no_jax_import(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"knn_kernel.py", "lp_kernel.py", "sort_kernel.py",
-            "rank_sort_kernel.py", "bruteforce.py", "topk.py", "convert.py",
-            "chip_smoke.py"} <= names
+    assert {"knn_kernel.py", "lp_kernel.py", "minima_kernel.py",
+            "sort_kernel.py", "rank_sort_kernel.py", "bruteforce.py",
+            "topk.py", "convert.py", "chip_smoke.py"} <= names
     csrc = ROOT / "petal_neighbors_tpu_torch" / "ops" / "cuda" / "csrc"
-    assert {"knn_fold.cu", "knn_tiles.cuh", "lp_knn.cu", "row_sort.cu"} <= {
+    assert {"knn_fold.cu", "knn_minima.cu", "knn_tiles.cuh", "lp_knn.cu",
+            "row_sort.cu"} <= {
         p.name for p in csrc.iterdir()}
 
 
@@ -52,6 +53,7 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, petal_neighbors_tpu_torch, "
             "petal_neighbors_tpu_torch.ops.cuda._build, "
             "petal_neighbors_tpu_torch.ops.cuda.lp_kernel, "
+            "petal_neighbors_tpu_torch.ops.cuda.minima_kernel, "
             "petal_neighbors_tpu_torch.distance; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m.split('.')[0] == 'petal_neighbors_tpu' "

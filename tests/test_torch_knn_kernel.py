@@ -35,15 +35,16 @@ def _inputs(seed, n, nan_rows=(), nan_queries=()):
     return pts, qs
 
 
-def _both(pts, qs, k):
+def _both(pts, qs, k, scheme="fold"):
     pp, pn = jax_pad(jnp.asarray(pts), tn=TN)
     # sort_output=False as the serving route calls it (the JAX sort pass
     # repeats an id in +inf slots; the working set itself does not)
     jd, ji = knn_pallas(pp, jnp.asarray(qs), pn, k=k, tq=TQ, tn=TN,
-                        interpret=True, sort_output=False)
-    td, ti = kk.knn_fold(torch.from_numpy(np.array(pp)),
-                         torch.from_numpy(qs),
-                         torch.from_numpy(np.array(pn)), k=k)
+                        interpret=True, sort_output=False, scheme=scheme,
+                        precision="highest")
+    run = kk.knn_fold_lazy if scheme == "fold_lazy" else kk.knn_fold
+    td, ti = run(torch.from_numpy(np.array(pp)), torch.from_numpy(qs),
+                 torch.from_numpy(np.array(pn)), k=k)
     return (np.asarray(jd), np.asarray(ji)), (td.numpy(), ti.numpy())
 
 
@@ -61,8 +62,8 @@ def _boundary_tied(pts, q, k):
     return k < len(d) and d[k] - d[k - 1] <= 2e-4 * d[k]
 
 
-def _check(pts, qs, k):
-    (jd, ji), (td, ti) = _both(pts, qs, k)
+def _check(pts, qs, k, scheme="fold"):
+    (jd, ji), (td, ti) = _both(pts, qs, k, scheme)
     assert td.shape == (TQ, k) and ti.dtype == np.int32
     n = pts.shape[0]
     bad = np.isnan(pts).any(axis=1)
@@ -94,6 +95,34 @@ def test_fold_nan_rows_and_queries(k):
     pts, qs = _inputs(k, 1024, nan_rows=(0, 7, 300, 1023),
                       nan_queries=(0, 5, 127))
     _check(pts, qs, k)
+
+
+@pytest.mark.parametrize("k", [1, 18, 100])
+def test_fold_lazy_matches_jax(k):
+    """The lazy fold (its plain version on the CPU) against the JAX lazy
+    kernel, _knn_kernel_lazy, in interpret mode, NaN rows and queries
+    included: the same rdist and, off boundary ties, the same id sets."""
+    pts, qs = _inputs(k + 1, 1024, nan_rows=(0, 9, 511, 1023),
+                      nan_queries=(1, 64))
+    _check(pts, qs, k, "fold_lazy")
+
+
+def test_fold_lazy_is_fold():
+    """fold_lazy's results are fold's bit for bit, ragged tail and k above
+    the finite rows included; its plain version counts no launch."""
+    pts, qs = _inputs(2, 700, nan_rows=(3, 699), nan_queries=(7,))
+    pp, pn = pad_for_pallas(torch.from_numpy(pts))
+    before = (kk.knn_fold_lazy.launches, kk.knn_fold.launches)
+    for k in (1, 18, 1024):
+        lazy = kk.knn_fold_lazy(pp, torch.from_numpy(qs), pn, k=k)
+        fold = kk.knn_fold(pp, torch.from_numpy(qs), pn, k=k)
+        plain = kk.knn_fold_lazy_reference(pp, torch.from_numpy(qs), pn, k=k)
+        for x, y, z in zip(lazy, fold, plain):
+            assert torch.equal(x, y) and torch.equal(x, z)
+    assert (kk.knn_fold_lazy.launches, kk.knn_fold.launches) == before
+    for k in (0, 1025):
+        with pytest.raises(ValueError):
+            kk.knn_fold_lazy(pp, torch.from_numpy(qs), pn, k=k)
 
 
 def test_fold_ragged_tail():
