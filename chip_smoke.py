@@ -21,10 +21,15 @@ Phases, each printed as one JSON line on stdout:
               kernels (subchunk, block) against their plain versions at
               ragged row counts, d = 17 to 130, NaN rows and queries, 1 and
               several row ranges, and at the SIFT shape.  The two row
-              sorts (bitonic, rank) against a stable ``torch.sort`` at the
-              large-k path's widths with duplicate keys and +inf tails:
-              keys equal, payloads equal (rank) or equal as multisets
-              within each run of equal keys (bitonic).  The Lp kernel
+              sorts (bitonic, rank; one block sort on the card) against a
+              stable ``torch.sort``, keys bit for bit and payloads exact:
+              both entry points on the edge rows (all keys equal, only
+              +inf, negative keys, -0.0 among +0.0) at widths 1 to 8192;
+              rows with duplicate keys and +inf tails at the path's
+              shapes (bitonic 2,048 x 1008 and 2048, 10,240 x 256; rank
+              2,048 x 2176, 3072 and 4096), timed; and the rows the route
+              itself hands each sort at k=1000, 2000, 3000 and bcap2
+              k=100, captured and timed beside them.  The Lp kernel
               against its plain version at d = 33, 48, 64, 130 and 960,
               p = 1, 2.5, 3, 4 and Chebyshev, k = 1 to 4096, with NaN rows,
               NaN queries and ragged tails.
@@ -132,13 +137,18 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean device milliseconds per call, by CUDA events over ``reps``."""
+def cuda_ms(fn, reps: int, warm: int = 1, hold: bool = False) -> float:
+    """Mean device milliseconds per call, by CUDA events over ``reps``.
+    ``hold`` queues the launches behind a sleep of 2*10^7 cycles on the
+    card (about 10 ms), so that a kernel shorter than its host-side launch
+    is timed back to back and not at the rate the host launches it."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -585,9 +595,22 @@ MAIN_CALLS = (("bcap", 10, N_Q), ("capped", 100, N_Q), ("capped", 200, N_Q),
 #: the row each kernel reports in the kernels line
 MAIN_ROW = {"bcap": 10, "capped": 100, "fold": 200, "merge": 3000,
             "fold_lazy": 10}
-#: row sorts: (kind, widths checked, main width)
-SORTS = (("bitonic_sort", (1008, 2048), 2048),
-         ("rank_sort", (2176, 3072, 4096), 3072))
+#: row sorts: (kind, (rows, width) shapes checked and timed, the main
+#: shape of the kernels line): the widths of k=1000, k=2000 and bcap2
+#: k=100 (bitonic), of k=3000 and up to k_scan 4096 (rank)
+SORTS = (("bitonic_sort", ((N_Q_LARGE, 1008), (N_Q_LARGE, 2048), (N_Q, 256)),
+          (N_Q_LARGE, 2048)),
+         ("rank_sort", ((N_Q_LARGE, 2176), (N_Q_LARGE, 3072),
+                        (N_Q_LARGE, 4096)), (N_Q_LARGE, 3072)))
+#: widths at which both entry points are held to a stable sort on the edge
+#: rows, 1 to the widest row taken
+SORT_EDGE_WIDTHS = (1, 2, 3, 255, 256, 257, 1008, 2048, 3072, 4097, 8192)
+#: requests whose row-sort inputs are captured from the route and timed:
+#: (label, forced scheme or None for the index's own route, k, queries)
+ROUTE_SORTS = (("capped k=1000", None, 1000, N_Q_LARGE),
+               ("merge k=2000", None, 2000, N_Q_LARGE),
+               ("merge k=3000", None, 3000, N_Q_LARGE),
+               ("bcap2 k=100", "bcap2", 100, N_Q))
 
 
 def kernel_args(scheme: str, k_req: int, n_real: int):
@@ -698,12 +721,109 @@ def sort_rows(rows: int, width: int, gen) -> tuple:
     return keys.cuda(), vals.cuda()
 
 
-def phase_sorts():
-    """The bitonic and the rank sort against a stable torch.sort on the
-    card: keys equal; payloads equal (rank: ties by position, as the
-    contract says) or equal as multisets within each run of equal keys
-    (bitonic: the contract leaves tie order free).  Then the time at the
-    large-k path's shapes (2,048 rows).  Returns rows by kind."""
+#: the contract's edge rows, in the order edge_rows makes them
+EDGE_ROWS = ("all keys equal", "only +inf", "negative keys with ties",
+             "-0.0 among +0.0 and +-0.25", "-0.0 among ties and +inf",
+             "normal keys")
+
+
+def edge_rows(width: int, gen) -> tuple:
+    """One row of each of EDGE_ROWS at ``width``, with distinct payloads,
+    on the card."""
+    keys = torch.randn((len(EDGE_ROWS), width), generator=gen)
+    keys[0] = 1.5
+    keys[1] = float("inf")
+    keys[2] = -0.5 * torch.randint(0, max(2, width // 4), (width,),
+                                   generator=gen).float()
+    keys[3] = torch.tensor([-0.25, -0.0, 0.0, 0.25])[
+        torch.randint(0, 4, (width,), generator=gen)]
+    keys[4] = torch.randint(-3, 3, (width,), generator=gen).float()
+    keys[4, ::4] = -0.0
+    keys[4, 1::5] = float("inf")
+    vals = torch.randperm(keys.numel(), generator=gen).int().reshape(
+        keys.shape)
+    return keys.cuda(), vals.cuda()
+
+
+def check_stable(kind: str, fn, plain, keys, vals, label: str) -> None:
+    """A row sort against its plain version (a stable ``torch.sort`` and
+    a gather) on the same card tensors: keys equal bit for bit (-0.0 in
+    its place) and payloads equal, ties by input position."""
+    ok_, ov = fn(keys, vals)
+    torch.cuda.synchronize()
+    rk_, rv = plain(keys, vals)
+    if not torch.equal(ok_.view(torch.int32), rk_.view(torch.int32)):
+        raise AssertionError(f"{kind} {label}: keys differ from a stable "
+                             "sort")
+    if not torch.equal(ov, rv):
+        raise AssertionError(f"{kind} {label}: payloads differ from a "
+                             "stable sort")
+
+
+def time_sort(fn, plain, keys, vals) -> dict:
+    """A row sort's ms, its plain version's and the library call's (a
+    stable ``torch.sort`` and a ``gather``), each held behind a sleep so
+    that the events time the launches back to back; and the bound: each
+    key and payload read once and written once at the HBM rate."""
+    def library():
+        sk_, pos = torch.sort(keys, dim=1, stable=True)
+        return sk_, torch.gather(vals, 1, pos)
+    return dict(rows=keys.shape[0], width=keys.shape[1], max_abs_err=0.0,
+                ms=cuda_ms(lambda: fn(keys, vals), reps=20, hold=True),
+                plain_ms=cuda_ms(lambda: plain(keys, vals), reps=20,
+                                 hold=True),
+                library_ms=cuda_ms(library, reps=20, hold=True),
+                bound_ms=2 * keys.numel() * 8 / PEAK_BYTES_S * 1e3,
+                bound_by="bytes", peak="HBM 3.35 TB/s, H100 SXM data sheet")
+
+
+def capture_route_rows(index, qdev) -> dict:
+    """The (keys, payloads) that the route hands to a row sort, one call
+    of each ROUTE_SORTS request with the sorts' names in ops.bruteforce
+    wrapped to keep the inputs of the call with the most rows (the
+    batch's re-rank, not a repair's).  Returns {label: (kind, keys,
+    vals)}."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+
+    originals = {"bitonic_sort": bf.bitonic_sort_pairs,
+                 "rank_sort": bf.rank_sort_pairs}
+    seen = []
+
+    def keep(kind):
+        def call(keys, vals):
+            if not seen or keys.shape[0] > seen[0][1].shape[0]:
+                seen[:] = [(kind, keys.clone(), vals.clone())]
+            return originals[kind](keys, vals)
+        return call
+
+    out = {}
+    bf.bitonic_sort_pairs = keep("bitonic_sort")
+    bf.rank_sort_pairs = keep("rank_sort")
+    try:
+        for label, scheme, k, nq in ROUTE_SORTS:
+            seen.clear()
+            if scheme is None:
+                index.query_batch(qdev[:nq], k)
+            else:
+                bf.knn_prepadded(index._pts, index._norms, qdev[:nq], k, N,
+                                 index._center, scheme=scheme)
+            torch.cuda.synchronize()
+            if not seen:
+                raise AssertionError(f"{label}: the route ran no row sort")
+            out[label] = seen[0]
+    finally:
+        bf.bitonic_sort_pairs = originals["bitonic_sort"]
+        bf.rank_sort_pairs = originals["rank_sort"]
+    return out
+
+
+def phase_sorts(index, qdev):
+    """Both row sorts against a stable torch.sort on the card, keys bit for
+    bit and payloads exact: both entry points on the edge rows at every
+    SORT_EDGE_WIDTHS width; each sort on rows with duplicate keys and +inf
+    tails at its path's shapes (and at 301 rows), timed; then on the rows
+    the route itself hands it (ROUTE_SORTS), timed beside them.  Returns
+    the main shape's row by kind, with the route rows' ms."""
     from petal_neighbors_tpu_torch.ops.cuda import rank_sort_kernel as rk
     from petal_neighbors_tpu_torch.ops.cuda import sort_kernel as sk
 
@@ -711,48 +831,33 @@ def phase_sorts():
                             sk.bitonic_sort_pairs_reference),
            "rank_sort": (rk.rank_sort_pairs, rk.rank_sort_pairs_reference)}
     gen = torch.Generator().manual_seed(3)
+    for width in SORT_EDGE_WIDTHS:
+        keys, vals = edge_rows(width, gen)
+        for kind, (fn, plain) in fns.items():
+            check_stable(kind, fn, plain, keys, vals,
+                         f"edge rows at width {width}")
+    emit("kernel", name="row_sorts", edge_widths=SORT_EDGE_WIDTHS,
+         edge_rows=EDGE_ROWS, entry_points=sorted(fns), ok=True)
     out = {}
-    for kind, widths, main_width in SORTS:
+    for kind, shapes, main_shape in SORTS:
         fn, plain = fns[kind]
-        for width in widths:
-            for nrows in (301, N_Q_LARGE):
-                keys, vals = sort_rows(nrows, width, gen)
-                ok_, ov = fn(keys, vals)
-                torch.cuda.synchronize()
-                rk_, rv = plain(keys, vals)
-                if not torch.equal(ok_, rk_):
-                    raise AssertionError(f"{kind} width {width}: keys differ")
-                exact = torch.equal(ov, rv)
-                if kind == "rank_sort" and not exact:
-                    raise AssertionError(f"{kind} width {width}: payloads "
-                                         "differ from a stable sort")
-                if not exact:
-                    # multisets within each run of equal keys
-                    run = torch.cumsum(torch.cat([torch.ones_like(
-                        ok_[:, :1], dtype=torch.long), (ok_[:, 1:] != ok_[
-                            :, :-1]).long()], 1), 1)
-                    key = run * (2 ** 32) + ov.long()
-                    ref = run * (2 ** 32) + rv.long()
-                    if not torch.equal(torch.sort(key, 1).values,
-                                       torch.sort(ref, 1).values):
-                        raise AssertionError(f"{kind} width {width}: "
-                                             "payloads left their tie run")
-            ms = cuda_ms(lambda: fn(keys, vals), reps=10)
-            plain_ms = cuda_ms(lambda: plain(keys, vals), reps=10)
-
-            def library():
-                sk_, pos = torch.sort(keys, dim=1, stable=True)
-                return sk_, torch.gather(vals, 1, pos)
-            lib = cuda_ms(library, reps=10)
-            # each key and payload read once and written once
-            bound = 2 * keys.numel() * 8 / PEAK_BYTES_S * 1e3
-            row = dict(rows=N_Q_LARGE, width=width, payload_exact=exact,
-                       max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib, bound_ms=bound, bound_by="bytes",
-                       peak="HBM 3.35 TB/s, H100 SXM data sheet")
+        for nrows, width in shapes:
+            for r in (301, nrows):
+                keys, vals = sort_rows(r, width, gen)
+                check_stable(kind, fn, plain, keys, vals,
+                             f"{r} x {width}")
+            row = dict(time_sort(fn, plain, keys, vals), rows_from="synthetic")
             emit("kernel", name=kind, **row, ok=True)
-            if width == main_width:
+            if (nrows, width) == main_shape:
                 out[kind] = row
+    for label, (kind, keys, vals) in capture_route_rows(index, qdev).items():
+        fn, plain = fns[kind]
+        check_stable(kind, fn, plain, keys, vals, label)
+        row = dict(time_sort(fn, plain, keys, vals), rows_from=label)
+        emit("kernel", name=kind, **row, ok=True)
+        main = out[kind]
+        if (main["rows"], main["width"]) == (row["rows"], row["width"]):
+            main["route_ms"] = row["ms"]
     return out
 
 
@@ -1152,7 +1257,7 @@ def main() -> int:
 
     # ---- kernel vs plain (launches here are not the main paths') -------
     rows, errs = phase_kernel(index._pts, index._norms, qdev - index._center)
-    sorts = phase_sorts()
+    sorts = phase_sorts(index, qdev)
     errs["lp_knn"] = phase_lp_small()
 
     # ---- the main paths ------------------------------------------------
@@ -1273,6 +1378,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "route_rows_ms": row.get("route_ms"),
             "shape": {"rows": row["rows"], "width": row["width"]}})
     for name in ("subchunk_minima", "bcap_minima"):
         row = rows[name, None]

@@ -1,37 +1,69 @@
-// row_sort.cu — row sorts of (f32 key, int32 payload) pairs, one block per
-// row, for the large-k re-rank.
+// row_sort.cu — the row sort of (f32 key, int32 payload) pairs for the
+// large-k re-rank: one stable block sort for Hopper, launched by both entry
+// points.
 //
 // Replaces two kernels of petal_neighbors_tpu/ops/pallas/:
 //   bitonic_sort  sort_kernel.py _sort_kernel (:36, bitonic_sort_pairs :70):
-//                 the classic bitonic network over the row padded to a
-//                 power of two with (+inf, -1).
+//                 a bitonic network over the row padded to a power of two.
 //   rank_sort     rank_sort_kernel.py _rank_sort_kernel (:48,
-//                 rank_sort_pairs :107): counting rank,
-//                     rank[i] = #{j : key_j < key_i or (key_j == key_i and j < i)}
-//                 then out[rank[i]] = (key_i, val_i).
+//                 rank_sort_pairs :107): a counting rank,
+//                     rank[i] = #{j : key_j < key_i or (key_j == key_i and j < i)}.
+// Both compute one function, so the card runs one sort for both; each entry
+// point keeps its name and its launch count on the Python side.
 //
-// Contract (both): keys are NaN-free; each row sorts ascending by key and
-// the payload follows its key.  Both order ties by input position, so the
-// output equals a stable sort bit for bit.  The bitonic network compares
-// (key, position) with the key mapped to an order-preserving unsigned
-// integer (-0.0 taken as +0.0, so it ties with +0.0 as `<` says), packed
-// into one 64-bit word: the network then moves 8 bytes per element
-// (2048 x 8 B = 16 KB of shared memory at width 2048) and the payload and
-// key are gathered from the input by position at the end.  Its padding
-// carries positions past the row, so it sorts after every real element,
-// +inf keys included, and is never written.  The counting rank needs no
-// padding: ranks of the row's own elements form a permutation of
-// [0, width), so the scatter has no collisions.  The TPU kernel's padding
-// to 128 lanes has no counterpart.
+// Contract: keys are NaN-free (+inf allowed, -0.0 ties with +0.0 as `<`
+// says) and 1 <= width <= 8192.  Each row sorts ascending by key, the
+// payload follows its key, and ties go by input position: the output equals
+// a stable sort and a gather, bit for bit, payloads included.
 //
-// What bounds them on this card: bytes.  Each row is read once and written
-// once (8 bytes per element each way); the network's log2(S)(log2(S)+1)/2
-// stages and the rank's width^2 compares run in shared memory and
-// registers.  Neither is near that bound in this first version: the rank
-// sort does width^2 compares per row (one block per row, each thread
-// holding up to 32 elements in registers and reading the row from shared
-// memory as broadcasts, one compare and one add per pair), the network
-// one __syncthreads per stage.
+// Words.  Element i of a row becomes the 64-bit word
+// (order_bits(key) << 13) | i, distinct within the row, so any sort of the
+// words is the stable sort.  A compare-exchange is one 64-bit compare (two
+// 32-bit ones) and selects, and a word moves as one 64-bit shuffle or
+// shared-memory access.  (The same word held as an exact double sorts
+// slower: sm_90a has no FP64 min or max, so fmin and fmax compile to
+// compares and selects too, with more moves around them.)  The key and the
+// payload are gathered from the input by position at the end (the key row
+// was read at the start and the rescore has just written both: cache
+// hits), so the sorted key keeps its bits, -0.0 included.
+//
+// Design: a register bitonic network per warp, then merge-path merges.
+//   1. A warp sorts 256 words, 8 a lane in registers (lane l ends holding
+//      ranks 8l .. 8l+7), by a bitonic network of 36 stages: the 21 whose
+//      stride is below 8 are compare-exchanges between a lane's own
+//      registers, the 15 with strides 8 to 128 one __shfl_xor_sync per word.
+//      No shared memory and no barrier.  The words are loaded coalesced
+//      (lane l, slot r: element 32r + l of the warp's run): the network does
+//      not care where a word starts.
+//   2. A row of at most 256 is one warp's work: 8 rows per 256-thread block.
+//      Each warp stages its sorted positions in its own slice of shared
+//      memory (a __syncwarp, no block barrier) so that the gather and the
+//      stores run over consecutive output columns.
+//   3. A wider row takes ceil(width / 256) warps, one block per row.  The
+//      warps' sorted runs merge pairwise through shared memory: each thread
+//      finds where its 8 outputs start by a merge-path binary search and
+//      merges them serially from shared memory into its registers.  That is
+//      ceil(log2(warps)) rounds of two barriers each.  A row is padded only
+//      to the next multiple of 256, with words above every real one: 3072
+//      is 12 runs and 4 rounds, not a 4096-wide network.
+//
+// Why a network and not a block radix sort: a radix pass ranks each element
+// among those of its digit, which costs a warp match or shared-memory
+// atomics that serialize where many keys share a digit, and these rows are
+// the distances of one query's nearest candidates, whose top bytes are
+// nearly all alike.  The network's work does not depend on the keys.
+//
+// What bounds it on this card: bytes, 16 per element (key and payload read
+// once and written once).  What the two old kernels lost, and what this
+// does about it: the counting rank did width^2 compare-adds per row, about
+// 40 times the work of a sort, where a row now costs 36 network stages and
+// a few merge rounds per element; the old bitonic network ran every one of
+// its log2(S)(log2(S)+1)/2 stages (66 at 2048) through shared memory with a
+// barrier each, in 1024-thread blocks (two a SM), over rows padded to a
+// power of two, where now 36 stages stay in registers, blocks take 32 to
+// 1024 threads by width and rows pad to a multiple of 256.  Shared memory
+// is 9 words per 8 (one pad word keeps a lane's 8 stores on distinct banks):
+// 18 KB at width 2048, 27 KB at 3072, 72 KB at 8192.
 //
 // The C entry points return cudaGetLastError() right after the launch.
 
@@ -40,141 +72,210 @@
 
 namespace {
 
-constexpr int MAX_WIDTH = 8192;      // 64 KB of packed words per row
-constexpr int RANK_THREADS = 256;
+constexpr int MAX_WIDTH = 8192;          // positions fit 13 bits
+constexpr int POS_BITS = 13;
+constexpr int E = 8;                     // words per lane
+constexpr int LOG_RUN = 8;
+constexpr int RUN = 32 * E;              // one warp's sorted run
+constexpr int WARP_ROWS = 8;             // rows per block at width <= RUN
+constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(RUN == 1 << LOG_RUN, "a warp's run is 32 * E words");
+static_assert(MAX_WIDTH == 1 << POS_BITS, "positions fill POS_BITS");
 
 // f32 -> unsigned with the same order for non-NaN values; -0.0 maps as
-// +0.0 and +inf above every finite value.
+// +0.0 and +inf (0xff800000) below every padding word's 0xffffffff.
 __device__ __forceinline__ unsigned order_bits(float x) {
   const unsigned u = __float_as_uint(x == 0.f ? 0.f : x);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// grid = rows; block = min(S / 2, 1024) threads; S = power of two >= width.
-__global__ void bitonic_sort_kernel(const float* __restrict__ keys,
-                                    const int* __restrict__ vals,
-                                    float* __restrict__ out_k,
-                                    int* __restrict__ out_v, int width,
-                                    int S) {
-  extern __shared__ unsigned long long w[];
-  const long long row = blockIdx.x;
-  const float* kr = keys + row * width;
-  const int* vr = vals + row * width;
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    // padding: +inf above every real key, positions past the row
-    const unsigned kb = i < width ? order_bits(kr[i]) : 0xffffffffu;
-    w[i] = (static_cast<unsigned long long>(kb) << 32) | static_cast<unsigned>(i);
+typedef unsigned long long word_t;
+
+// (kb << 13) | pos: ordered as (kb, pos).
+__device__ __forceinline__ word_t make_word(unsigned kb, int pos) {
+  return (static_cast<word_t>(kb) << POS_BITS) | static_cast<unsigned>(pos);
+}
+
+__device__ __forceinline__ int word_pos(word_t w) {
+  return static_cast<int>(w & (MAX_WIDTH - 1));
+}
+
+// Shared-memory slot of sequence index i: one pad word per E.
+__device__ __forceinline__ int phys(int i) { return i + i / E; }
+
+// Lane `lane` takes elements base + 32 r + lane (r < E) of the row as words;
+// slots at or past `width` take padding words (key bits 0xffffffff, their
+// own index), distinct and above every real word.
+__device__ __forceinline__ void load_words(word_t (&w)[E], const float* kr,
+                                           int width, int base, int lane) {
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = base + 32 * r + lane;
+    w[r] = make_word(i < width ? order_bits(__ldg(kr + i)) : 0xffffffffu, i);
   }
-  __syncthreads();
-  for (int size = 2; size <= S; size <<= 1) {
-    for (int s = size >> 1; s > 0; s >>= 1) {
-      for (int t = threadIdx.x; t < (S >> 1); t += blockDim.x) {
-        const int i = 2 * s * (t / s) + (t % s);
-        const int j = i + s;
-        const unsigned long long a = w[i], b = w[j];
-        const bool asc = (i & size) == 0;
-        if ((b < a) == asc) {
-          w[i] = b;
-          w[j] = a;
+}
+
+// Sort the warp's 32 * E words ascending: lane l ends holding ranks
+// l * E .. l * E + E - 1.  Bitonic network over the index i = l * E + r:
+// size k = 2^m, stride j; the pair (i, i ^ j) ascends where (i & k) == 0.
+__device__ __forceinline__ void warp_sort(word_t (&w)[E], int lane) {
+#pragma unroll
+  for (int m = 1; m <= LOG_RUN; ++m) {
+    const int k = 1 << m;
+    // a fixed trip count, so that every stage unrolls to register indices
+#pragma unroll
+    for (int jb = LOG_RUN - 1; jb >= 0; --jb) {
+      if (jb >= m) continue;
+      const int j = 1 << jb;
+      if (j < E) {
+        // both words in this lane's registers
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          if (r & j) continue;
+          const bool asc =
+              k < E ? (r & k) == 0 : ((lane * E) & k) == 0;
+          const word_t a = w[r], b = w[r | j];
+          const bool swap = (b < a) == asc;
+          w[r] = swap ? b : a;
+          w[r | j] = swap ? a : b;
+        }
+      } else {
+        // the partner is the same register of lane ^ (j / E)
+        const int lj = j / E;
+        const bool keep_min =
+            ((lane & lj) == 0) == (((lane * E) & k) == 0);
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          const word_t o = __shfl_xor_sync(FULL, w[r], lj);
+          w[r] = (o < w[r]) == keep_min ? o : w[r];
         }
       }
-      __syncthreads();
     }
   }
-  float* ok = out_k + row * width;
-  int* ov = out_v + row * width;
-  for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    const int src = static_cast<int>(w[i] & 0xffffffffu);
-    ok[i] = kr[src];
-    ov[i] = vr[src];
-  }
 }
 
-// Add to rank[r] the count of j in [j0, j1) with kb[j] < thr[r].
-template <int PER>
-__device__ __forceinline__ void count_below(const unsigned* kb, int j0,
-                                            int j1, const unsigned (&thr)[PER],
-                                            int (&rank)[PER]) {
-  for (int j = j0; j < j1; ++j) {
-    const unsigned x = kb[j];
+__device__ __forceinline__ void store_words(word_t* sw, const word_t (&w)[E],
+                                            int first) {
 #pragma unroll
-    for (int r = 0; r < PER; ++r) rank[r] += x < thr[r];
+  for (int r = 0; r < E; ++r) sw[phys(first + r)] = w[r];
+}
+
+// One merge round over a sequence of `cap` words in shared memory made of
+// sorted runs of `run` words (the last may be short): the thread whose
+// outputs are sequence indices out0 .. out0 + E - 1 of the merged pair of
+// runs takes them into w.  Words are distinct, so `<` decides every step.
+__device__ __forceinline__ void merge_step(word_t (&w)[E], const word_t* sw,
+                                           int out0, int run, int cap) {
+  const word_t inf = ~0ull;           // above every word
+  const int base = out0 & ~(2 * run - 1);
+  const int diag = out0 - base;
+  const int a0 = base, la = min(run, cap - base);
+  const int b0 = base + run, lb = max(0, min(run, cap - base - run));
+  // merge path: the number of outputs before out0 that come from run A
+  int lo = max(0, diag - lb), hi = min(diag, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sw[phys(a0 + mid)] < sw[phys(b0 + diag - 1 - mid)])
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int ia = lo, ib = diag - lo;
+  word_t va = ia < la ? sw[phys(a0 + ia)] : inf;
+  word_t vb = ib < lb ? sw[phys(b0 + ib)] : inf;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const bool take_a = va < vb;
+    w[r] = take_a ? va : vb;
+    if (take_a) {
+      ++ia;
+      va = ia < la ? sw[phys(a0 + ia)] : inf;
+    } else {
+      ++ib;
+      vb = ib < lb ? sw[phys(b0 + ib)] : inf;
+    }
   }
 }
 
-// grid = rows; block = RANK_THREADS; PER * RANK_THREADS >= width.  Thread
-// t ranks elements i = t + r * RANK_THREADS (r < PER) of the row against
-// the whole row in shared memory, held as order bits, so that
-//     j before i  <=>  kb[j] < kb[i] + (j < i)
-// (kb[i] + 1 cannot wrap: +inf maps below 0xffffffff).  Every thread reads
-// the same kb[j] at once (a broadcast).  Within the row's block rb of
-// RANK_THREADS keys, j < i is fixed for r != rb, and for r == rb it is
-// fixed below and above the thread's own warp: only 32 of every
-// RANK_THREADS keys need the per-thread test.
-template <int PER>
-__global__ void __launch_bounds__(RANK_THREADS)
-rank_sort_kernel(const float* __restrict__ keys, const int* __restrict__ vals,
-                 float* __restrict__ out_k, int* __restrict__ out_v,
-                 int width) {
-  extern __shared__ unsigned kb[];
-  const long long row = blockIdx.x;
-  const float* kr = keys + row * width;
+// Sorted sequence index i of the row goes to output column i: the key and
+// the payload at the word's position.  Thread t of n takes t, t + n, ...
+__device__ __forceinline__ void write_row(const word_t* sw, const float* kr,
+                                          const int* vr, float* ok, int* ov,
+                                          int width, int t, int n) {
+  for (int i = t; i < width; i += n) {
+    const int src = word_pos(sw[phys(i)]);
+    ok[i] = __ldg(kr + src);
+    ov[i] = __ldg(vr + src);
+  }
+}
+
+// WARP_PER_ROW: block = WARP_ROWS warps, warp w sorting row
+// blockIdx.x * WARP_ROWS + w (width <= RUN).  Otherwise: block = the row's
+// ceil(width / RUN) warps, one row per block, dynamic shared memory of
+// phys(cap) words, cap = blockDim.x * E.
+template <bool WARP_PER_ROW>
+__global__ void __launch_bounds__(1024)
+block_sort_kernel(const float* __restrict__ keys, const int* __restrict__ vals,
+                  float* __restrict__ out_k, int* __restrict__ out_v,
+                  long long rows, int width) {
+  extern __shared__ word_t sw[];
   const int tid = threadIdx.x;
-  for (int i = tid; i < width; i += RANK_THREADS) kb[i] = order_bits(kr[i]);
-  __syncthreads();
-  unsigned lo[PER], hi[PER], thr[PER];
-  int rank[PER];
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int i = tid + r * RANK_THREADS;
-    lo[r] = i < width ? kb[i] : 0u;
-    hi[r] = lo[r] + 1u;
-    rank[r] = 0;
-  }
-  const int w0 = tid & ~31;                 // this warp's first thread
-  for (int jb = 0, rb = 0; jb < width; jb += RANK_THREADS, ++rb) {
-    const int jend = min(width, jb + RANK_THREADS);
-    // keys of this block below the warp: j < i unless r < rb
-#pragma unroll
-    for (int r = 0; r < PER; ++r) thr[r] = rb <= r ? hi[r] : lo[r];
-    count_below<PER>(kb, jb, min(jend, jb + w0), thr, rank);
-    // the warp's own 32 keys: per thread where r == rb
-    for (int j = jb + w0; j < min(jend, jb + w0 + 32); ++j) {
-      const unsigned x = kb[j];
-      const bool below = j - jb < tid;
-#pragma unroll
-      for (int r = 0; r < PER; ++r)
-        rank[r] += x < ((rb < r || (rb == r && below)) ? hi[r] : lo[r]);
-    }
-    // keys above the warp: j < i only if r > rb
-#pragma unroll
-    for (int r = 0; r < PER; ++r) thr[r] = rb < r ? hi[r] : lo[r];
-    count_below<PER>(kb, min(jend, jb + w0 + 32), jend, thr, rank);
-  }
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long row =
+      WARP_PER_ROW ? static_cast<long long>(blockIdx.x) * WARP_ROWS + warp
+                   : static_cast<long long>(blockIdx.x);
+  if (WARP_PER_ROW && row >= rows) return;   // whole warps; no block barrier
+  const float* kr = keys + row * width;
+  word_t w[E];
+  load_words(w, kr, width, WARP_PER_ROW ? 0 : warp * RUN, lane);
+  warp_sort(w, lane);
+  const int* vr = vals + row * width;
   float* ok = out_k + row * width;
   int* ov = out_v + row * width;
-  const int* vr = vals + row * width;
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int i = tid + r * RANK_THREADS;
-    if (i < width) {
-      ok[rank[r]] = kr[i];
-      ov[rank[r]] = vr[i];
-    }
+  if (WARP_PER_ROW) {
+    word_t* mine = sw + warp * phys(RUN);
+    store_words(mine, w, lane * E);
+    __syncwarp();
+    write_row(mine, kr, vr, ok, ov, width, lane, 32);
+    return;
   }
+  const int cap = blockDim.x * E;
+  for (int run = RUN; run < cap; run <<= 1) {
+    store_words(sw, w, tid * E);
+    __syncthreads();
+    merge_step(w, sw, tid * E, run, cap);
+    __syncthreads();
+  }
+  store_words(sw, w, tid * E);
+  __syncthreads();
+  write_row(sw, kr, vr, ok, ov, width, tid, blockDim.x);
 }
 
-template <int PER>
-cudaError_t rank_launch(const float* keys, const int* vals, float* out_k,
+cudaError_t sort_launch(const float* keys, const int* vals, float* out_k,
                         int* out_v, long long rows, int width,
                         cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(width) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      rank_sort_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (rows < 1 || width < 1 || width > MAX_WIDTH)
+    return cudaErrorInvalidValue;
+  const int warps = (width + RUN - 1) / RUN;
+  if (warps == 1) {
+    const long long blocks = (rows + WARP_ROWS - 1) / WARP_ROWS;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const size_t smem = sizeof(word_t) * WARP_ROWS * (RUN + RUN / E);
+    block_sort_kernel<true><<<static_cast<unsigned>(blocks), WARP_ROWS * 32,
+                              smem, stream>>>(keys, vals, out_k, out_v, rows,
+                                              width);
+    return cudaGetLastError();
+  }
+  if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int cap = warps * RUN;
+  const size_t smem = sizeof(word_t) * (cap + cap / E);
+  const cudaError_t err = cudaFuncSetAttribute(
+      block_sort_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  rank_sort_kernel<PER><<<static_cast<unsigned>(rows), RANK_THREADS, smem,
-                          stream>>>(keys, vals, out_k, out_v, width);
+  block_sort_kernel<false><<<static_cast<unsigned>(rows), warps * 32, smem,
+                             stream>>>(keys, vals, out_k, out_v, rows, width);
   return cudaGetLastError();
 }
 
@@ -182,44 +283,23 @@ cudaError_t rank_launch(const float* keys, const int* vals, float* out_k,
 
 extern "C" {
 
-// The widest row either sort takes.
+// The widest row either entry point takes.
 int row_sort_max_width() { return MAX_WIDTH; }
 
 // keys (rows, width) float32, vals (rows, width) int32, row-major; outputs
 // of the same shapes, not aliasing the inputs.  1 <= width <= MAX_WIDTH.
-// Returns the launch's cudaError_t (0 on success).
+// Both launch the block sort above; returns the launch's cudaError_t (0 on
+// success).
 int bitonic_sort_launch(const float* keys, const int* vals, float* out_k,
                         int* out_v, long long rows, int width, void* stream) {
-  if (rows < 1 || rows > 0x7fffffffLL || width < 1 || width > MAX_WIDTH)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int S = 2;
-  while (S < width) S <<= 1;
-  const size_t smem = static_cast<size_t>(S) * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      bitonic_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = S / 2 < 32 ? 32 : (S / 2 > 1024 ? 1024 : S / 2);
-  bitonic_sort_kernel<<<static_cast<unsigned>(rows), threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      keys, vals, out_k, out_v, width, S);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sort_launch(keys, vals, out_k, out_v, rows, width,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 int rank_sort_launch(const float* keys, const int* vals, float* out_k,
                      int* out_v, long long rows, int width, void* stream) {
-  if (rows < 1 || rows > 0x7fffffffLL || width < 1 || width > MAX_WIDTH)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // elements per thread: the fewest of 4, 8, 12, 16, 32 that cover the row
-  const int per = (width + RANK_THREADS - 1) / RANK_THREADS;
-  cudaError_t err =
-      per <= 4    ? rank_launch<4>(keys, vals, out_k, out_v, rows, width, s)
-      : per <= 8  ? rank_launch<8>(keys, vals, out_k, out_v, rows, width, s)
-      : per <= 12 ? rank_launch<12>(keys, vals, out_k, out_v, rows, width, s)
-      : per <= 16 ? rank_launch<16>(keys, vals, out_k, out_v, rows, width, s)
-                  : rank_launch<32>(keys, vals, out_k, out_v, rows, width, s);
-  return static_cast<int>(err);
+  return static_cast<int>(sort_launch(keys, vals, out_k, out_v, rows, width,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,14 +1,19 @@
-"""Bitonic row sort of (f32 key, int32 payload) pairs on the card.
+"""Row sort of (f32 key, int32 payload) pairs on the card, in the place of
+the bitonic network.
 
 Counterpart of ``petal_neighbors_tpu/ops/pallas/sort_kernel.py``: the
-re-rank of ``ops.bruteforce._rescore_large`` at widths up to 2048.
-``bitonic_sort_pairs`` launches ``csrc/row_sort.cu`` (the bitonic network,
-one block per row) for CUDA tensors and runs ``bitonic_sort_pairs_reference``
-for CPU tensors; a CUDA tensor launches the kernel or raises.
+re-rank of ``ops.bruteforce._rescore_large`` and ``_bcap_rescore_large`` at
+widths up to 2048.  ``bitonic_sort_pairs`` launches the block sort of
+``csrc/row_sort.cu`` for CUDA tensors: each warp sorts 256 (key, position)
+words in registers by a bitonic network of register compare-exchanges and
+shuffles, and a row wider than 256 merges its warps' runs by merge path in
+shared memory.  CPU tensors run ``bitonic_sort_pairs_reference``; a CUDA
+tensor launches the kernel or raises.
 
-Contract: keys NaN-free (callers map NaN to +inf); each row sorts
-ascending; the payload follows its key; ties keep a deterministic order
-(on the card: input position, as a stable sort).
+Contract: keys NaN-free (callers map NaN to +inf; -0.0 ties with +0.0);
+each row sorts ascending; the payload follows its key; ties go by input
+position, so on the card and on the CPU the output equals a stable sort and
+a gather, bit for bit, payloads included.
 """
 
 from __future__ import annotations
@@ -83,11 +88,11 @@ def launch_sort(entry: str, keys, vals, name: str):
 
 def bitonic_sort_pairs(keys, vals):
     """Sort each row of ``keys`` (R, W) float32 ascending, carrying
-    ``vals`` (R, W) int32; returns arrays of the original shape.  On the
-    card the row is padded to a power of two with (+inf, -1), which stays
-    past the row's own entries; W <= 8192.  CUDA tensors launch the
-    bitonic network (counted in ``bitonic_sort_pairs.launches``); CPU
-    tensors run ``bitonic_sort_pairs_reference``."""
+    ``vals`` (R, W) int32, ties by input position (a stable sort); returns
+    arrays of the original shape.  W <= 8192.  CUDA tensors launch the
+    block sort of ``csrc/row_sort.cu`` (counted in
+    ``bitonic_sort_pairs.launches``); CPU tensors run
+    ``bitonic_sort_pairs_reference``."""
     check_pairs(keys, vals, "bitonic_sort_pairs")
     if keys.device.type == "cpu":
         return bitonic_sort_pairs_reference(keys, vals)

@@ -1,15 +1,20 @@
 """The port's row sorts (bitonic and counting rank), as they run on the CPU
 (their plain version, a stable ``torch.sort``), against the JAX kernels in
-interpret mode, on the same seeded rows: duplicate keys, +inf tails, a
-ragged row count and widths that are not powers of two.
+interpret mode, on the same seeded rows: duplicate keys, +inf tails, a row
+of only +inf, a row of equal keys, negative keys, -0.0 among +0.0, a ragged
+row count and widths from 1 to 3072, powers of two or not.
 
-Tolerance: none.  Keys must match exactly.  The counting rank breaks ties
-by input position in both packages, so its payloads match exactly; the
-JAX bitonic network orders ties arbitrarily, so there payloads match as
-multisets within each run of equal finite keys.  Known difference: the
-JAX bitonic pads a row to a power of two with (+inf, -1), and its padding
-may land among a row's own +inf keys, so in the +inf run its payloads may
-hold -1; the port's payloads there are the row's own."""
+Tolerance: none.  Keys must match the JAX kernels' as numbers, and the
+stable order bit for bit (-0.0 keeps its sign and its place).  The counting
+rank breaks ties by input position in both packages, so its payloads match
+exactly; the JAX bitonic network orders ties arbitrarily, so there payloads
+match as multisets within each run of equal finite keys.  Known
+differences: the JAX bitonic pads a row to a power of two with (+inf, -1),
+and its padding may land among a row's own +inf keys, so in the +inf run
+its payloads may hold -1 where the port's are the row's own; the JAX
+counting rank places keys by a one-hot sum, which turns -0.0 into +0.0.
+On the card both entry points give the stable order as well (held there by
+``chip_smoke.py``)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -32,7 +37,11 @@ def _rows(width, seed):
             .astype(np.float32) * 0.25)
     keys[:, width - width // 5:] = np.inf          # +inf tails
     keys[2, ::7] = np.inf                          # scattered +inf
-    keys[5] = 1.5                                  # one tie run
+    keys[5] = 1.5                                  # all keys equal
+    keys[7] = -(rng.integers(0, max(2, width // 4), width) * 0.5)  # negative
+    keys[8] = rng.choice(np.array([-0.25, -0.0, 0.0, 0.25], np.float32),
+                         width)                    # -0.0 ties with +0.0
+    keys[9] = np.inf                               # only +inf
     vals = rng.permutation(ROWS * width).reshape(ROWS, width).astype(np.int32)
     return keys, vals
 
@@ -44,7 +53,7 @@ def _runs(keys):
     return zip(edges[:-1], edges[1:])
 
 
-@pytest.mark.parametrize("width", [100, 1008, 2176])
+@pytest.mark.parametrize("width", [1, 2, 100, 256, 1008, 2176, 3072])
 @pytest.mark.parametrize("kind", ["bitonic", "rank"])
 def test_row_sort_matches_jax(kind, width):
     keys, vals = _rows(width, width)
@@ -59,6 +68,9 @@ def test_row_sort_matches_jax(kind, width):
     np.testing.assert_array_equal(tk, jk)
     np.testing.assert_array_equal(tk, np.sort(keys, axis=1))
     order = np.argsort(keys, axis=1, kind="stable")
+    # the stable order bit for bit, -0.0 in its place
+    np.testing.assert_array_equal(
+        tk.view(np.int32), np.take_along_axis(keys, order, 1).view(np.int32))
     # the port is a stable sort on the CPU (and on the card)
     np.testing.assert_array_equal(tv, np.take_along_axis(vals, order, 1))
     if kind == "rank":
