@@ -6,15 +6,21 @@ Phases, each printed as one JSON line on stdout:
 
 1. device   — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    — compiles every kernel source under
-              petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc.
+              petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc; then
+              build_ptxas, each kernel's registers, spills and stack frame
+              from ``-Xptxas -v`` (knn_fold.cu, knn_select.cu).
+   tc_probe — the tensor-core tier's integrity probe (knn_kernel.tc_probe):
+              its largest |u - u_f64| over the tier's bound, at most 1.
 3. kernel   — each kernel (fold, fold_lazy, capped, bcap, merge) against
               its plain PyTorch version on the card, with the same launch
               plan: small
               shapes with NaN rows, NaN queries, duplicated rows and ragged
               tails (at the vectorized and the chunked scalar widths, split
               into row ranges or not, working set in shared or global
-              memory), k = 1024 (fold) and 1100 to 4096 (merge), and the
-              main paths' shapes over 1M x 128.  Sorted rdist and
+              memory), k = 1024 (fold) and 1100 to 4096 (merge), merge's
+              edge rows (all rows equal, duplicates, a +inf tail, k above
+              the rows), and the main paths' shapes over 1M x 128 (merge
+              with its radix passes per call).  Sorted rdist and
               thresholds must agree within the stated tolerance, and an id
               may differ only against one of near-equal rdist; fold_lazy
               must also give fold's rdist bit for bit.  The two minima
@@ -62,7 +68,10 @@ Phases, each printed as one JSON line on stdout:
               Chebyshev, and bcap at this shape as a yardstick.
 8. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
-              version's time, its bound and a PyTorch yardstick.
+              version's time, its bound and a PyTorch yardstick; its tier
+              ("tc" for capped and merge, whose bound is the tensor cores'
+              six bf16 products, with the FP32 SIMT bound beside it as
+              simt_bound_ms; "fp32" for the others, with tc_bound_ms).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA card is present or any
@@ -96,7 +105,14 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 #: FP32 instructions per second on the SIMT lanes (one FFMA is 2 FLOP)
 PEAK_FP32_INSTR_S = PEAK_FP32_FLOP_S / 2
+#: bf16 dense on the tensor cores (H100 SXM data sheet)
+PEAK_BF16_FLOP_S = 989e12
+#: the kernels whose u comes from the split-bf16 tensor-core product: six
+#: bf16 products per FP32 product
+TC_SCHEMES = ("capped", "merge")
+TC_PRODUCTS = 6
 KNN_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_fold.cu"
+SELECT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_select.cu"
 SORT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/row_sort.cu"
 LP_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/lp_knn.cu"
 MINIMA_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_minima.cu"
@@ -123,6 +139,28 @@ REPLACES = {"fold": "petal_neighbors_tpu/ops/pallas/knn_kernel.py:186",
             "rank_sort":
                 "petal_neighbors_tpu/ops/pallas/rank_sort_kernel.py:48",
             "lp_knn": "petal_neighbors_tpu/ops/pallas/lp_kernel.py:111"}
+
+
+def ptxas_summary(log: str) -> list:
+    """``-Xptxas -v``'s lines per kernel: [entry, registers, spill stores,
+    spill loads, stack frame bytes] for each compiled entry function."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = [m.group(1), None, None, None, None]
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+            if m:
+                cur[4], cur[2], cur[3] = (int(x) for x in m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur[1] = int(m.group(1))
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -164,6 +202,16 @@ def bound_ms(n: int, q: int, d: int, k: int) -> tuple[float, str]:
     bytes_ = 4 * (n * d + n + q * d) + 8 * q * k + 4 * q
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
     t_ops = 2.0 * q * n * d / PEAK_FP32_FLOP_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tc_bound_ms(n: int, q: int, d: int, k: int) -> tuple[float, str]:
+    """Least time for the same work on the tensor cores at the TPU's
+    "highest" arithmetic: six bf16 products of 2*Q*N*d FLOP at the bf16
+    dense peak, against the bytes of bound_ms; the larger one bounds."""
+    bytes_ = 4 * (n * d + n + q * d) + 8 * q * k + 4 * q
+    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    t_ops = TC_PRODUCTS * 2.0 * q * n * d / PEAK_BF16_FLOP_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -628,11 +676,108 @@ def kernel_args(scheme: str, k_req: int, n_real: int):
     return k_scan, 1, 0
 
 
+def tier_bounds(scheme: str, n: int, q: int, d: int, k: int) -> dict:
+    """A u-domain kernel's bounds: its own tier's (bound_ms, bound_by) and
+    the other tier's beside it (simt_bound_ms for the tensor-core kernels,
+    tc_bound_ms for the FP32 ones), with the peaks they assume."""
+    simt, simt_by = bound_ms(n, q, d, k)
+    tcb, tc_by = tc_bound_ms(n, q, d, k)
+    if scheme in TC_SCHEMES:
+        return dict(tier="tc", bound_ms=tcb, bound_by=tc_by,
+                    simt_bound_ms=simt,
+                    peak="bf16 dense 989 TFLOP/s x 6 products and HBM 3.35 "
+                         "TB/s, H100 SXM data sheet")
+    return dict(tier="fp32", bound_ms=simt, bound_by=simt_by,
+                tc_bound_ms=tcb,
+                peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, H100 SXM "
+                     "data sheet")
+
+
+def phase_tc_probe() -> float:
+    """The tensor-core tier's integrity probe (knn_kernel.tc_probe): the
+    largest |u - u_f64| over its bound, which must stay at or below 1 (the
+    probe raises otherwise)."""
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    ratio = kk.tc_probe()
+    if not ratio <= 1.0:
+        raise AssertionError(f"tc_probe: error {ratio} times the bound")
+    emit("tc_probe", max_err_over_bound=ratio, dims=list(kk._PROBE_DIMS),
+         bound="(4 + 12 ceil(d/16)) 2^-23 (|q|^2 + max |x|^2)",
+         tile=kk.tc_tile(), ok=True)
+    return ratio
+
+
+def merge_edge_inputs(kind: str, rng):
+    """Merge's edge rows: (points, queries, k).  'all equal': one row
+    repeated (every u of a query equal: ids 0..k-1 in order); 'duplicates':
+    integer rows drawn from 50 distinct ones (many exact ties; integers
+    below 16 make every product exact, so u is the same bits in the kernel
+    and the plain version); '+inf tail': 40% NaN rows and k above the
+    finite rows; 'k above n': 1,000 rows at k=4096."""
+    if kind == "all equal":
+        pts = np.repeat(rng.random((1, 64), dtype=np.float32), 6000, 0)
+        return pts, rng.random((70, 64), dtype=np.float32), 4096
+    if kind == "duplicates":
+        base = rng.integers(0, 16, (50, 64)).astype(np.float32)
+        pts = base[rng.integers(0, 50, 20000)]
+        return pts, rng.integers(0, 16, (130, 64)).astype(np.float32), 3000
+    if kind == "+inf tail":
+        pts = rng.random((5000, 128), dtype=np.float32)
+        pts[rng.random(5000) < 0.4] = np.nan
+        return pts, rng.random((70, 128), dtype=np.float32), 4096
+    pts = rng.random((1000, 128), dtype=np.float32)
+    return pts, rng.random((70, 128), dtype=np.float32), 4096
+
+
+MERGE_EDGES = ("all equal", "duplicates", "+inf tail", "k above n")
+
+
+def phase_merge_edges() -> float:
+    """Merge on its edge rows against its plain version on the card
+    (compare_kernel), plus: ids 0..k-1 in order where all rows are equal,
+    ids equal exactly where the products are exact (duplicates), and
+    (+inf, -1) past the finite rows.  Returns the largest error."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    rng = np.random.default_rng(4)
+    worst = 0.0
+    for kind in MERGE_EDGES:
+        pts, qs, k = merge_edge_inputs(kind, rng)
+        spp, spn = bf.pad_for_pallas(torch.from_numpy(pts).cuda(), tn=1)
+        qt = torch.from_numpy(qs).cuda()
+        err, tied, plan = compare_kernel("merge", spp, qt, spn, k)
+        worst = max(worst, err)
+        rd, ids = kk.knn_merge(spp, qt, spn, k=k)
+        passes = list(kk.knn_merge.last_passes)
+        n_fin = int(torch.isfinite(spn).sum())
+        if kind == "all equal" and not torch.equal(
+                ids, torch.arange(k, dtype=torch.int32,
+                                  device=ids.device).expand_as(ids)):
+            raise AssertionError("merge all equal: ids not 0..k-1 in order")
+        if kind == "duplicates":
+            _, want = kk.knn_merge_reference(spp, qt, spn, k=k)
+            if not torch.equal(ids, want):
+                raise AssertionError("merge duplicates: ids differ from the "
+                                     "plain version's (u, id) order")
+        if n_fin < k and not (bool((ids[:, n_fin:] == -1).all())
+                              and bool(torch.isinf(rd[:, n_fin:]).all())
+                              and bool((ids[:, :n_fin] >= 0).all())):
+            raise AssertionError(f"merge {kind}: no (+inf, -1) tail past "
+                                 f"the {n_fin} finite rows")
+        emit("kernel", name="knn_merge", edge=kind, n=spp.shape[0],
+             q=qt.shape[0], k=k, finite_rows=n_fin, max_abs_err=err,
+             tied_rows=tied, radix_passes=passes, plan=plan, ok=True)
+    return worst
+
+
 def phase_kernel(pp, pn, queries_c):
     """Each kernel against its plain version at every listed shape, then at
     the main paths' shapes; returns the main-shape rows by (scheme, k) (the
     minima kernels by (name, None)) and each kernel's largest error."""
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
     from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
 
     rng = np.random.default_rng(1)
@@ -651,6 +796,7 @@ def phase_kernel(pp, pn, queries_c):
         emit("kernel", name=f"knn_{scheme}", n=n, q=q, d=d, k=k, tile=tile,
              passes=passes, max_abs_err=err, tied_rows=tied, plan=plan,
              **extra, ok=True)
+    errs["merge"] = max(errs["merge"], phase_merge_edges())
     errs.update(phase_minima_small(rng))
 
     n_real = N
@@ -666,10 +812,11 @@ def phase_kernel(pp, pn, queries_c):
                                      passes, plan[0]), reps=1, warm=0)
         lib = cuda_ms(lambda: library_topk(
             pp, qt, pn, k, block=16 if scheme == "bcap" else 1), reps=2)
-        bound, by = bound_ms(pp.shape[0], q, DIM, k)
-        extra = {}
+        extra = tier_bounds(scheme, pp.shape[0], q, DIM, k)
         if scheme == "merge":
-            # the same launch at k=16: the tile product with few merges
+            # the collect passes of the timed calls, and the same launch at
+            # k=16
+            extra["radix_passes"] = list(kk.knn_merge.last_passes)
             extra["ms_at_k16"] = cuda_ms(lambda: _run(
                 scheme, False, pp, qt, pn, 16, 1, 0), reps=2)
         if scheme == "fold_lazy":
@@ -678,12 +825,9 @@ def phase_kernel(pp, pn, queries_c):
             extra["fold_ms"] = cuda_ms(lambda: _run(
                 "fold", False, pp, qt, pn, k, 1, 0), reps=3)
         row = dict(k_request=k_req, k=k, tile=tile, passes=passes,
-                   n=pp.shape[0], q=q, d=DIM,
-                   peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, H100 "
-                        "SXM data sheet",
-                   plan=plan, max_abs_err=err, tied_rows=tied, ms=ms,
-                   plain_ms=plain, library_ms=lib, bound_ms=bound,
-                   bound_by=by, **extra)
+                   n=pp.shape[0], q=q, d=DIM, plan=plan, max_abs_err=err,
+                   tied_rows=tied, ms=ms, plain_ms=plain, library_ms=lib,
+                   **extra)
         emit("kernel", name=f"knn_{scheme}", **row, ok=True)
         rows[scheme, k_req] = row
 
@@ -703,7 +847,9 @@ def phase_kernel(pp, pn, queries_c):
                    peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, H100 "
                         "SXM data sheet",
                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                   bound_ms=bound, bound_by=by)
+                   bound_ms=bound, bound_by=by, tier="fp32",
+                   tc_bound_ms=TC_PRODUCTS * 2.0 * N_Q * pp.shape[0] * DIM
+                   / PEAK_BF16_FLOP_S * 1e3)
         emit("kernel", name=name, **row, ok=True)
         rows[name, None] = row
     return rows, errs
@@ -1027,7 +1173,7 @@ def phase_main_generic(wrappers, fold_rows):
     qdev = torch.from_numpy(queries).cuda()
     metrics = {"euclidean": pt.Euclidean(), "cosine": pt.Cosine(),
                "minkowski3": pt.Minkowski(3.0)}
-    lp_row, launches = None, {}
+    lp_row, launches, capped_gist = None, {}, None
     for name, scheme in GENERIC:
         t0 = time.perf_counter()
         index = pt.BruteForce(points, metrics[name])
@@ -1124,12 +1270,13 @@ def phase_main_generic(wrappers, fold_rows):
                 splits=plan[0]), reps=1, warm=0)
             lib = cuda_ms(lambda: library_topk(index._pts, qk, index._norms,
                                                k), reps=1)
-            bound, by = bound_ms(index._pts.shape[0], GIST_Q, GIST_D, k)
             kernel = dict(name="knn_capped", k=k, tile=tile, passes=passes,
                           plan=plan, max_abs_err=err, tied_rows=tied, ms=ms,
-                          plain_ms=plain, library_ms=lib, bound_ms=bound,
-                          bound_by=by)
+                          plain_ms=plain, library_ms=lib,
+                          **tier_bounds("capped", index._pts.shape[0],
+                                        GIST_Q, GIST_D, k))
             if name == "euclidean":
+                capped_gist = kernel
                 # the bcap yardstick at this shape: the reference serves
                 # capped here (no bcap planes over its budget)
                 kb, btile, bpasses = kernel_args("bcap", GIST_K, GIST_N)
@@ -1140,8 +1287,8 @@ def phase_main_generic(wrappers, fold_rows):
                     ms=cuda_ms(lambda: kk.knn_bcap(
                         index._pts, qk, index._norms, k=kb, tile=btile,
                         passes=bpasses), reps=3),
-                    bound_ms=bound_ms(index._pts.shape[0], GIST_Q, GIST_D,
-                                      kb)[0])
+                    **tier_bounds("bcap", index._pts.shape[0], GIST_Q,
+                                  GIST_D, kb))
             if repaired:
                 # the repair's kernel on the repaired count of queries
                 kernel["repair_fold_ms"] = cuda_ms(lambda: kk.knn_fold(
@@ -1158,7 +1305,7 @@ def phase_main_generic(wrappers, fold_rows):
         del index, d, i
         torch.cuda.empty_cache()
     emit("main_generic", launches=launches)
-    return lp_row, launches
+    return lp_row, launches, capped_gist
 
 
 def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
@@ -1244,6 +1391,10 @@ def main() -> int:
                              os.path.dirname(os.path.abspath(__file__))))
     for name, log in logs.items():
         print(f"[nvcc {name}]\n{log}", file=sys.stderr)
+    emit("build_ptxas", **{name: ptxas_summary(log) for name, log in
+                           logs.items() if name in ("knn_fold",
+                                                    "knn_select")})
+    tc_ratio = phase_tc_probe()
 
     rng = np.random.default_rng(SEED)
     points = rng.random((N, DIM), dtype=np.float32) * 255.0
@@ -1288,7 +1439,7 @@ def main() -> int:
              ("capped", "merge", "bitonic_sort", "rank_sort"))):
         for w in wrappers.values():
             w.launches = 0
-        out, per_k, repaired = {}, {}, {}
+        out, per_k, repaired, radix_passes = {}, {}, {}, {}
         for k, scheme in ks.items():
             before = {s: w.launches for s, w in wrappers.items()}
             fold_rows.clear()
@@ -1297,13 +1448,16 @@ def main() -> int:
             if (index.last_backend, index.last_scheme) != ("kernel", scheme):
                 raise AssertionError(f"k={k} served by {index.last_backend} "
                                      f"{index.last_scheme}, not {scheme}")
-            walls = []
+            walls, radix = [], []
             for _ in range(reps):
                 t0 = time.perf_counter()
                 d, i = index.query_batch(qs, k)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
+                if scheme == "merge":
+                    radix.append(list(kk.knn_merge.last_passes))
             out[k] = (d, i, min(walls))
+            radix_passes[k] = radix
             per_k[k] = {s: w.launches - before[s]
                         for s, w in wrappers.items()}
             repaired[k] = list(fold_rows) if scheme != "fold" else []
@@ -1329,6 +1483,8 @@ def main() -> int:
                          for s, k_req in rows
                          if k_req == k and s in (scheme, "fold")}
             extra = {}
+            if radix_passes[k]:
+                extra["radix_passes_per_call"] = radix_passes[k]
             if phase == "main_large_k":
                 kernel_ms.update({kind: row["ms"] for kind, row in
                                   sorts.items()})
@@ -1337,7 +1493,7 @@ def main() -> int:
                 # beside merge on the same work
                 qr = (qs - index._center)[:repaired[k][-1]]
                 k_scan = bf.scan_width(scheme, k, N)
-                extra = {f"repair_{name}_ms": cuda_ms(
+                extra |= {f"repair_{name}_ms": cuda_ms(
                     lambda: run(index._pts, qr, index._norms, k=k_scan),
                     reps=2) for name, run in (("fold", kk.knn_fold),
                                               ("merge", kk.knn_merge))}
@@ -1357,20 +1513,37 @@ def main() -> int:
 
     del index, pdev, qdev
     torch.cuda.empty_cache()
-    lp_row, generic_launches = phase_main_generic(wrappers, fold_rows)
+    lp_row, generic_launches, capped_gist = phase_main_generic(wrappers,
+                                                               fold_rows)
     launches["lp_knn"] = generic_launches["lp_knn"]
 
     kernels = []
     for scheme, k_req in MAIN_ROW.items():
         row = rows[scheme, k_req]
         kernels.append({
-            "name": f"knn_{scheme}", "route": "cuda", "source": KNN_SOURCE,
+            "name": f"knn_{scheme}", "route": "cuda",
+            "source": SELECT_SOURCE if scheme == "merge" else KNN_SOURCE,
             "replaces": REPLACES[scheme], "launches": launches[scheme],
             "max_abs_err": errs[scheme], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "tier": row["tier"],
+            **({"tc_probe_max_err_over_bound": tc_ratio}
+               if row["tier"] == "tc" else {}),
+            **{key: row[key] for key in ("simt_bound_ms", "tc_bound_ms",
+                                         "radix_passes") if key in row},
             "shape": {key: row[key] for key in
                       ("n", "q", "d", "k", "tile", "passes", "plan")}})
+        if scheme == "capped":
+            kernels[-1]["gist"] = {key: capped_gist[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "simt_bound_ms", "k", "passes", "plan")}
+        if scheme == "merge":
+            kernels[-1]["k_scan_2048"] = {key: rows["merge", 2000][key]
+                                          for key in ("ms", "library_ms",
+                                                      "bound_ms",
+                                                      "simt_bound_ms",
+                                                      "radix_passes")}
     for kind, row in sorts.items():
         kernels.append({
             "name": kind, "route": "cuda", "source": SORT_SOURCE,
@@ -1388,6 +1561,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "tier": "fp32", "tc_bound_ms": row["tc_bound_ms"],
             "shape": {key: row[key] for key in ("n", "q", "d", "rows",
                                                 "splits")}})
     kernels.append({

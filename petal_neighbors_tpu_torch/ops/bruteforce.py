@@ -36,7 +36,7 @@ import torch
 from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric
 from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
                               PASSES_MAX, knn_bcap, knn_capped, knn_fold,
-                              knn_fold_lazy, knn_merge)
+                              knn_fold_lazy, knn_merge, tc_proof_err)
 from .cuda.lp_kernel import lp_knn, pad_for_lp
 from .cuda.minima_kernel import SUBCHUNK, bcap_minima, subchunk_minima
 from .cuda.rank_sort_kernel import rank_sort_pairs
@@ -84,7 +84,8 @@ BITONIC_WIDTH_MAX = 2048
 BCAP_TILE = 128
 
 #: pointwise |computed u − true u| bound of the FP32 score product
-#: (ops/bruteforce.py:274, "highest"), with the sequential-sum term
+#: (ops/bruteforce.py:274, "highest"), with the sequential-sum term; the
+#: tensor-core tier has its own (``_proof_err(tier="tc")``)
 PROOF_EPS = 2.0 ** -23
 
 #: entries past the exact k-th cutoff that the large-k bcap compaction
@@ -258,10 +259,36 @@ def scan_width(scheme: str, k_eff: int, n_real: int) -> int:
     return k_scan
 
 
-def _proof_err(dim: int, qn, xn_max):
-    """Pointwise |computed u − true u| bound of the FP32 product
-    (ops/bruteforce.py:277-281 at "highest"): 4x the f32 rounding plus the
-    sequential-sum accumulation term d·2⁻²⁴, times ‖q‖² + max ‖x‖²."""
+def _proof_err(dim: int, qn, xn_max, tier: str = "fp32"):
+    """Pointwise |computed u − true u| bound of the product tier that made
+    the candidates, times ‖q‖² + max ‖x‖².
+
+    ``"fp32"`` (fold, bcap, the minima kernels: the FP32 SIMT product;
+    ops/bruteforce.py:277-281 at "highest"): 4x the f32 rounding plus the
+    sequential-sum accumulation term d·2⁻²⁴.
+
+    ``"tc"`` (capped: the split-bf16 tensor-core product, ``_u_tc``,
+    ``csrc/knn_tc.cuh``), ``(4 + 12·⌈d/16⌉)·2⁻²³``
+    (``knn_kernel.tc_proof_err``).  With S = Σ|q_i x_i| ≤ ‖q‖‖x‖ ≤
+    (‖q‖² + ‖x‖²)/2 and s = 6·⌈d/16⌉ mma steps:
+      * the split: hi + mid + lo == x exactly, |mid| ≤ 2⁻⁸|x|, |lo| ≤
+        2⁻¹⁶|x|, so the dropped ml, lm and ll terms sum to at most
+        (2·2⁻²⁴ + 2⁻³²)·S ≤ 2⁻²³·S;
+      * the accumulation: each of the s mma steps adds 16 exact products
+        of bf16 pieces to the f32 accumulator.  Hopper's mma accumulation
+        is not specified as IEEE round-to-nearest (earlier tensor cores
+        were measured aligning the addends and truncating), so each step
+        is taken at 2⁻²² (two units of 2⁻²³) of the magnitudes it adds,
+        which never exceed S: at most s·2⁻²²·S;
+      * u = ‖x‖² − 2·dot doubles those and rounds once more: 2⁻²⁴·(‖x‖²
+        + 2S) ≤ 2⁻²³·(‖q‖² + ‖x‖²).
+    Together 2·(2⁻²³ + s·2⁻²²)·S + 2⁻²³·(‖q‖² + ‖x‖²) ≤ (2 + 2s)·2⁻²³·
+    (‖q‖² + ‖x‖²) = (2 + 12·⌈d/16⌉)·2⁻²³·(...); the 4 in place of 2 is
+    margin.  ``knn_kernel.tc_probe`` holds the card's product to this
+    bound, f64 against f32 on the reference's probe distribution, before
+    the first tensor-core launch."""
+    if tier == "tc":
+        return tc_proof_err(dim, qn, xn_max)
     return (4.0 * PROOF_EPS + dim * 2.0 ** -24) * (qn + xn_max)
 
 
@@ -468,15 +495,18 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
     that many 16-row blocks, at least 12; two_phase: k_eff 128-row
     subchunks), re-scores them with the direct form and re-ranks:
 
-    * fold, fold_lazy and merge keep the exact FP32 top k_scan; the slack
-      absorbs the product form's rounding, so they need no proof.
+    * fold and fold_lazy keep the exact FP32 top k_scan, merge the exact
+      top k_scan of the tensor-core tier's u (the reference's "highest"
+      six-pass product); the slack absorbs the product form's rounding, so
+      they need no proof.
       fold_lazy raises ValueError beyond ``k_scan = 1024``, as the
       reference's kernel asserts;
     * capped and bcap may skip true members where a tile had more than
       ``passes`` survivors, and bcap2 keeps the blocks of its smallest
       block minima.  Their threshold ``thr`` lower-bounds every
       point left out, so a query is covered when its re-scored k-th
-      distance is at most ``thr − err`` (``_proof_err``); uncovered
+      distance is at most ``thr − err`` (``_proof_err`` of the tier that
+      made the candidates: the tensor-core one for capped); uncovered
       queries are recomputed by the fold kernel (``_prove_repair``);
     * two_phase's threshold is the k-th smallest subchunk minimum.  If the
       proof leaves any query uncovered, the whole batch re-runs the fold
@@ -559,6 +589,8 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
         passes = capped_passes(k_scan, tile, n_real, scheme)
         rd, idx, thr = knn_capped(pts_padded, queries, xn_padded, k=k_scan,
                                   tile=tile, passes=passes)
+        # the tensor-core tier made capped's candidates and threshold
+        err = _proof_err(queries.shape[1], qn, xn_max, tier="tc")
         covers_all = k_scan >= n_real
         # a seed slot may hold a NaN or padding row at +inf: the direct
         # form would score its zeroed copy as finite, so it goes as -1

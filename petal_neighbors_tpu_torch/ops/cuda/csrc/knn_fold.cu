@@ -1,4 +1,4 @@
-// knn_fold.cu — the fold family of streaming top-k kernels, FP32 SIMT.
+// knn_fold.cu — the fold family of streaming top-k kernels.
 //
 // Replaces four kernels of petal_neighbors_tpu/ops/pallas/knn_kernel.py,
 // one template instantiated per mode:
@@ -12,12 +12,10 @@
 //               point outside the working set can lie.
 //   MODE_BCAP   _knn_kernel_bcap (:546): the capped scheme over the minima
 //               of blocks of BLOCK = 16 contiguous rows; returns block ids.
-// and, as a kernel of its own on the same tile product (scan_tiles),
-//   knn_merge_kernel  _knn_kernel_merge + _bitonic_merge_sorted (:336,
-//               :287): the exact k smallest u per query for k up to 4096,
-//               output sorted ascending.
-// scan_tiles and knn_merge_kernel live in knn_tiles.cuh, templated on the
-// score operation (DotScore here); lp_knn.cu instantiates them for Lp.
+// fold, fold_lazy and bcap score on the FP32 SIMT tile product scan_tiles
+// (knn_tiles.cuh); capped on the split-bf16 tensor-core product tc::scan
+// (knn_tc.cuh), the TPU kernel's "highest" arithmetic.  The Euclidean merge
+// (_knn_kernel_merge) lives in knn_select.cu, on the tensor-core product.
 //
 // What they compute: for each query q and every point row x,
 //     u = ||x||^2 - 2 q.x
@@ -36,21 +34,25 @@
 // thr = min(max of the set, miss) + ||q||^2.  Every point outside the set
 // has u >= thr - ||q||^2: the caller's proof certifies the top-k with it.
 //
-// What bounds them on this card: FP32 arithmetic on the SIMT cores,
-// 2*Q*N*d FLOP (one FMA per query, row and feature).  The point set is
-// streamed once per query tile through shared memory: N*d*4 bytes per 64
-// queries, far under the FMA time.  Tensor-core tiers (TF32, split bf16)
-// come in a later change, each with its own proof bound.
+// What bounds them on this card: fold, fold_lazy and bcap, FP32 arithmetic
+// on the SIMT cores, 2*Q*N*d FLOP (one FMA per query, row and feature);
+// capped, six bf16 products on the tensor cores, 6 * 2*Q*N*d FLOP at 989
+// TFLOP/s.  The point set is streamed once per query tile through shared
+// memory: N*d*4 bytes per 64 queries, far under the arithmetic time.
 //
 // Design:
-//   * one block = TQ = 64 queries, 256 threads = 8 warps; warp w owns
+//   * one block = TQ = 64 queries, 256 threads = 8 warps (capped: 128
+//     queries, 512 threads, the tensor-core product's tile); warp w owns
 //     queries 8w..8w+7.  Each half-warp owns 4 of them, and each of its 16
-//     lanes holds a 4 x 4 register tile of scores (4 queries x 4 points:
-//     rows xg, xg+16, xg+32, xg+48 of the tile), so one half-warp holds all
-//     TN = 64 scores of its 4 queries, and row block i (rows 16i..16i+15)
-//     is slot i of the 16 lanes: a bcap block minimum is a half-warp
-//     shuffle reduction.
-//   * a block streams its rows in tiles of TN = 64, staged in shared
+//     lanes holds 4 x 4 scores (4 queries x 4 points: rows xg, xg+16,
+//     xg+32, xg+48 of a 64-row tile), so one half-warp holds all TN = 64
+//     scores of its 4 queries, and row block i (rows 16i..16i+15) is slot i
+//     of the 16 lanes: a bcap block minimum is a half-warp shuffle
+//     reduction.  On the SIMT product the scores are the lane's own
+//     register tile; capped reads them from the tensor-core product's u
+//     tile in shared memory (128 rows, two 64-row tiles of selection),
+//     which decouples the mma fragment layout from the selection.
+//   * the SIMT product streams rows in tiles of TN = 64, staged in shared
 //     memory with their norms, in chunks of DC = 128 features,
 //     double-buffered with cp.async.  Rows are padded to a stride of
 //     DC + 4 floats so that float4 reads of 8 rows hit distinct banks.
@@ -85,39 +87,18 @@
 //     whole index.  One launch, no second kernel.
 //   * the working set lives in shared memory when it still lets two blocks
 //     share an SM, and otherwise in the global scratch part_d / part_i.
-//   * merge (k up to 4096; fold re-scans its k slots for every entrant,
-//     O(k) per survivor): each query's working set is kept SORTED in
-//     global scratch, two slots of k that take turns, with its k-th value
-//     tau in a register (+inf until k entries are in).  A tile's scores
-//     below tau go to the query's MERGE_W = 128 slots in shared memory
-//     (ballot + popc, no atomics).  When a tile's survivors would not fit
-//     in some buffer, every buffer of the block at least half full is
-//     flushed in that tile, so the warps' merges overlap instead of each
-//     stalling the block at the tile barrier in turn: the half-warp sorts
-//     the buffer (bitonic, 16 lanes) and merges it with the set into the
-//     other slot (merge_into: the set streams through once, coalesced,
-//     8 loads per lane per step with the next step's issued ahead; each
-//     buffer entry is ranked in the window it falls in by a half-warp
-//     count, and each set entry goes to its index plus the count of buffer
-//     entries ranked at or below it).  About k (1 + ln(N / (S k)))
-//     survivors per query and range.  Row ranges as above; the last block
-//     merges the ranges' sorted sets on the merge path (merge_path).
-//     Ties: (u, id) order throughout.  Merge is bound by the FP32 SIMT
-//     product like the others; its merges add global-memory traffic of
-//     about 16 k bytes per flush.
 //
 // The C entry points return a cudaError_t; the launch returns
 // cudaGetLastError() right after the launch.
 
-#include "knn_tiles.cuh"
+#include "knn_tc.cuh"
 
 namespace {
 
 constexpr int MODE_FOLD = 0;
 constexpr int MODE_CAPPED = 1;
 constexpr int MODE_BCAP = 2;
-constexpr int MODE_MERGE = 3;
-constexpr int MODE_FOLD_LAZY = 4;
+constexpr int MODE_FOLD_LAZY = 4;   // 3 was merge, now knn_select.cu
 
 // fold and fold_lazy keep the exact top k (no seed, no list, no threshold)
 __host__ __device__ constexpr bool folds(int mode) {
@@ -326,15 +307,28 @@ __device__ __forceinline__ void flush_list(float& lv, int& li, float& tau,
   li = INT_MAX;
 }
 
-// grid = (ceil(q / TQ), splits).  Block (bx, by) scans the rows of range
-// by into the working sets of queries [bx*TQ, bx*TQ + TQ).  part_d/part_i
+// grid = (ceil(q / QT), splits), QT = block_queries(MODE).  Block (bx, by)
+// scans the rows of range by into the working sets of queries
+// [bx*QT, bx*QT + QT).  part_d/part_i
 // (splits, q, k) hold the working sets when they are not in shared memory
 // and receive each range's set when splits > 1; part_m (splits, q) each
-// range's miss (capped, bcap); counters (ceil(q / TQ),), zeroed, elect the
+// range's miss (capped, bcap); counters (ceil(q / QT),), zeroed, elect the
 // last block of each query tile to merge.  Ranges are whole tiles of
 // tile_tiles x TN rows (1 for fold).
+// Queries and threads per block of a mode: capped's tensor-core product
+// takes tc::TQ = 128 queries on 512 threads; the SIMT modes TQ = 64 on 256.
+// Either way a half-warp owns 4 queries.
+__host__ __device__ constexpr int block_queries(int mode) {
+  return mode == MODE_CAPPED ? tc::TQ : TQ;
+}
+__host__ __device__ constexpr int block_threads(int mode) {
+  return mode == MODE_CAPPED ? tc::THREADS : THREADS;
+}
+static_assert(tc::THREADS == 4 * tc::TQ && THREADS == 4 * TQ,
+              "a half-warp owns 4 queries");
+
 template <int MODE, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(block_threads(MODE))
 knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
            const float* __restrict__ norms, float* __restrict__ out_d,
            int* __restrict__ out_i, float* __restrict__ out_t,
@@ -344,16 +338,19 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
            int splits, int ws_in_smem) {
   extern __shared__ float4 smem4[];
   __shared__ int is_last;
-  __shared__ float thr_s[TQ];
+  constexpr int QT = block_queries(MODE);
+  constexpr int NT = block_threads(MODE);
+  __shared__ float thr_s[QT];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int q0 = blockIdx.x * TQ;
+  const int q0 = blockIdx.x * QT;
   const int split = blockIdx.y;
   const long long qk = static_cast<long long>(q) * k;
   float* ws_d;
   int* ws_i;
   if (ws_in_smem) {
-    ws_d = smem + tile_floats(d);           // [TQ][k]
-    ws_i = reinterpret_cast<int*>(ws_d + TQ * k);
+    // [QT][k] after the tile product's own shared memory
+    ws_d = smem + (MODE == MODE_CAPPED ? tc::smem_floats(d) : tile_floats(d));
+    ws_i = reinterpret_cast<int*>(ws_d + QT * k);
   } else {
     ws_d = part_d + split * qk + static_cast<long long>(q0) * k;
     ws_i = part_i + split * qk + static_cast<long long>(q0) * k;
@@ -367,8 +364,8 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   const int rbase = warp * 8 + qg * 4;      // this thread's 4 query rows
 
   // working-set init: (+inf, -1); rows past q are never touched
-  const int valid_rows = min(TQ, q - q0);
-  for (int e = tid; e < valid_rows * k; e += THREADS) {
+  const int valid_rows = min(QT, q - q0);
+  for (int e = tid; e < valid_rows * k; e += NT) {
     ws_d[e] = INFINITY;
     ws_i[e] = -1;
   }
@@ -397,11 +394,9 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   const long long t_begin = min(ntiles, per * split);
   const long long t_end = min(ntiles, t_begin + per);
 
-  const DotScore score{};
-  scan_tiles<VEC>(points, queries, norms, n, q, d, q0, t_begin, t_end, smem,
-                  score,
-                  [&](long long t, const float* xnb, float (&acc)[4][4]) {
-      // ---- the tile's scores into the working sets ----------------------
+  // ---- a 64-row tile's scores into the working sets: uval(j, i) is u of
+  // query rbase + j and row t*TN + xg + 16 i -------------------------------
+  auto tile_body = [&](long long t, auto&& uval) {
       if (MODE == MODE_FOLD_LAZY) {
         // one fused test for the warp's 8 queries: a NaN score fails it, as
         // its +inf stand-in fails fold_query's
@@ -410,7 +405,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            hit |= score.finish(acc[j][i], xnb[xg + 16 * i]) < tau[j];
+            hit |= uval(j, i) < tau[j];
         if (!__any_sync(FULL, hit)) return;
       }
       const int tile0 = static_cast<int>(t * TN);
@@ -423,7 +418,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float u = score.finish(acc[j][i], xnb[xg + 16 * i]);
+          const float u = uval(j, i);
           v[j][i] = (u < INFINITY) ? u : INFINITY;   // NaN -> +inf
           // a NaN query gives NaN at every row, a finite one at none
           if (i == 0) qnan[j] = u != u;
@@ -501,14 +496,38 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
                      passes, live[j], first_flush, xg);
         first_flush = false;
       }
-  });
+  };
+
+  if constexpr (MODE == MODE_CAPPED) {
+    // the tensor-core product: 128-row tiles, each two 64-row tiles of
+    // selection read from its u tile
+    tc::scan<VEC>(points, queries, norms, n, q, d, q0, t_begin * TN,
+                  t_end * TN, smem,
+                  [&](long long row0, int rows, const float* us) {
+      for (int h = 0; h * TN < rows; ++h) {
+        const float* ub = us + (rbase * tc::US + h * TN + xg);
+        tile_body(row0 / TN + h, [&](int j, int i) {
+          return ub[j * tc::US + 16 * i];
+        });
+      }
+    });
+  } else {
+    const DotScore score{};
+    scan_tiles<VEC>(points, queries, norms, n, q, d, q0, t_begin, t_end,
+                    smem, score,
+                    [&](long long t, const float* xnb, float (&acc)[4][4]) {
+      tile_body(t, [&](int j, int i) {
+        return score.finish(acc[j][i], xnb[xg + 16 * i]);
+      });
+    });
+  }
 
   if (splits > 1) {
     // ---- publish this range's working sets; the last block merges -------
     if (ws_in_smem) {
       float* pd = part_d + split * qk + static_cast<long long>(q0) * k;
       int* pi = part_i + split * qk + static_cast<long long>(q0) * k;
-      for (int e = tid; e < valid_rows * k; e += THREADS) {
+      for (int e = tid; e < valid_rows * k; e += NT) {
         pd[e] = ws_d[e];
         pi[e] = ws_i[e];
       }
@@ -601,9 +620,14 @@ cudaError_t set_smem(size_t smem) {
 // Shared memory of one fold, fold_lazy, capped or bcap block, and the
 // attribute that allows it: the tile staging plus the working sets when
 // ws_in_smem.
+// Shared memory of the tile product of `mode` at width d.
+size_t product_smem_bytes(int mode, int d) {
+  return mode == MODE_CAPPED ? tc::smem_bytes(d) : tile_smem_bytes(d);
+}
+
 cudaError_t prepare(int mode, int d, int k, int ws_in_smem, size_t* smem) {
-  *smem = tile_smem_bytes(d) +
-          (ws_in_smem ? static_cast<size_t>(TQ) * k * 8 : 0);
+  *smem = product_smem_bytes(mode, d) +
+          (ws_in_smem ? static_cast<size_t>(block_queries(mode)) * k * 8 : 0);
   switch (mode) {
     case MODE_FOLD: return set_smem<MODE_FOLD>(*smem);
     case MODE_CAPPED: return set_smem<MODE_CAPPED>(*smem);
@@ -617,16 +641,16 @@ cudaError_t occupancy(int mode, int* per_sm, size_t smem) {
   switch (mode) {
     case MODE_FOLD:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          per_sm, knn_kernel<MODE_FOLD, true>, THREADS, smem);
+          per_sm, knn_kernel<MODE_FOLD, true>, block_threads(MODE_FOLD), smem);
     case MODE_CAPPED:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          per_sm, knn_kernel<MODE_CAPPED, true>, THREADS, smem);
+          per_sm, knn_kernel<MODE_CAPPED, true>, block_threads(MODE_CAPPED), smem);
     case MODE_BCAP:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          per_sm, knn_kernel<MODE_BCAP, true>, THREADS, smem);
+          per_sm, knn_kernel<MODE_BCAP, true>, block_threads(MODE_BCAP), smem);
     case MODE_FOLD_LAZY:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          per_sm, knn_kernel<MODE_FOLD_LAZY, true>, THREADS, smem);
+          per_sm, knn_kernel<MODE_FOLD_LAZY, true>, block_threads(MODE_FOLD_LAZY), smem);
   }
   return cudaErrorInvalidValue;
 }
@@ -639,11 +663,11 @@ void launch(bool vec, dim3 grid, size_t smem, cudaStream_t stream,
             int d, int k, int tile_tiles, int passes, int splits,
             int ws_in_smem) {
   if (vec)
-    knn_kernel<MODE, true><<<grid, THREADS, smem, stream>>>(
+    knn_kernel<MODE, true><<<grid, block_threads(MODE), smem, stream>>>(
         points, queries, norms, out_d, out_i, out_t, part_d, part_i, part_m,
         counters, n, q, d, k, tile_tiles, passes, splits, ws_in_smem);
   else
-    knn_kernel<MODE, false><<<grid, THREADS, smem, stream>>>(
+    knn_kernel<MODE, false><<<grid, block_threads(MODE), smem, stream>>>(
         points, queries, norms, out_d, out_i, out_t, part_d, part_i, part_m,
         counters, n, q, d, k, tile_tiles, passes, splits, ws_in_smem);
 }
@@ -654,42 +678,51 @@ extern "C" {
 
 // The kernels' fixed sizes: queries per block (counters are sized by it),
 // rows per tile (capped tiles are multiples of it), rows per bcap block,
-// and the largest passes and k (fold, fold_lazy, capped and bcap; merge).
+// and the largest passes and k.
 void knn_constants(int* tq, int* tn, int* block, int* max_passes,
-                   int* max_k, int* merge_max_k) {
+                   int* max_k) {
   *tq = TQ;
   *tn = TN;
   *block = BLOCK;
   *max_passes = MAX_PASSES;
   *max_k = MAX_K;
-  *merge_max_k = MERGE_MAX_K;
+}
+
+// The tensor-core product's tile: queries and rows per tile, features per
+// staged chunk, bf16 pieces per element and piece products per pair.
+void knn_tc_constants(int* tq, int* tn, int* dc, int* pieces,
+                      int* products) {
+  *tq = tc::TQ;
+  *tn = tc::TN;
+  *dc = tc::DC;
+  *pieces = tc::PIECES;
+  *products = tc::PRODUCTS;
 }
 
 // The launch plan for a problem: where the working set lives (shared
-// memory when two blocks still fit on an SM; always global for merge) and
-// how many row ranges to split into (choose_splits).
-// mode: 0 fold, 1 capped, 2 bcap, 3 merge, 4 fold_lazy (tile_tiles 1 for
-// the folds and merge).
+// memory when two blocks still fit on an SM) and how many row ranges to
+// split into (choose_splits).  mode: 0 fold, 1 capped, 2 bcap, 4 fold_lazy
+// (tile_tiles 1 for the folds).
 int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
              int* splits, int* ws_in_smem) {
-  if (mode < MODE_FOLD || mode > MODE_FOLD_LAZY || tile_tiles < 1)
+  if (mode < MODE_FOLD || mode > MODE_FOLD_LAZY || mode == 3 ||
+      tile_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int optin = 0, sms = 0;
   cudaError_t err = card_limits(&sms, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t ws = static_cast<size_t>(TQ) * k * 8;
-  *ws_in_smem = mode != MODE_MERGE &&
-                tile_smem_bytes(d) + ws + 1024 <= static_cast<size_t>(optin) / 2;
+  // the working sets go to shared memory while the block still fits as
+  // many times on an SM as without them (twice for the SIMT product, once
+  // for the tensor-core one)
+  const size_t ws = static_cast<size_t>(block_queries(mode)) * k * 8;
+  const size_t share = mode == MODE_CAPPED ? optin : optin / 2;
+  *ws_in_smem = product_smem_bytes(mode, d) + ws + 1024 <= share;
   int per_sm = 0;
-  if (mode == MODE_MERGE) {
-    err = merge_occupancy<DotScore>(d, &per_sm);
-  } else {
-    size_t smem = 0;
-    err = prepare(mode, d, k, *ws_in_smem, &smem);
-    if (err == cudaSuccess) err = occupancy(mode, &per_sm, smem);
-  }
+  size_t smem = 0;
+  err = prepare(mode, d, k, *ws_in_smem, &smem);
+  if (err == cudaSuccess) err = occupancy(mode, &per_sm, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *splits = choose_splits(per_sm, sms, n, q, tile_tiles);
+  *splits = choose_splits(per_sm, sms, n, q, tile_tiles, block_queries(mode));
   return 0;
 }
 
@@ -698,7 +731,9 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
 // out_i (q, k) int32 and, for capped and bcap, out_t (q,) float32.
 // Scratch part_d (splits, q, k) float32 and part_i (splits, q, k) int32
 // (unused when splits == 1 and ws_in_smem), part_m (splits, q) float32
-// (capped, bcap) and zeroed counters (ceil(q / TQ),) int32.  1 <= k <=
+// (capped, bcap) and zeroed counters (ceil(q / QT),) int32, QT =
+// block_queries(mode) (knn_constants' tq, or knn_tc_constants' for
+// capped).  1 <= k <=
 // MAX_K, q >= 1, n < 2^31; capped: k <= tile_tiles * TN; bcap: k <=
 // tile_tiles * TN / BLOCK; the folds: tile_tiles 1; 0 <= passes <=
 // MAX_PASSES.  splits and ws_in_smem as knn_plan
@@ -712,7 +747,7 @@ int knn_launch(int mode, const float* points, const float* queries,
   const long long cap = mode == MODE_CAPPED ? static_cast<long long>(tile_tiles) * TN
                         : mode == MODE_BCAP ? static_cast<long long>(tile_tiles) * (TN / BLOCK)
                                             : MAX_K;
-  if (mode < MODE_FOLD || mode == MODE_MERGE || mode > MODE_FOLD_LAZY ||
+  if (mode < MODE_FOLD || mode == 3 || mode > MODE_FOLD_LAZY ||
       k < 1 || k > MAX_K || k > cap || tile_tiles < 1 ||
       (folds(mode) && tile_tiles != 1) ||
       passes < 0 || passes > MAX_PASSES || splits < 1 || splits > MAX_SPLITS)
@@ -723,7 +758,8 @@ int knn_launch(int mode, const float* points, const float* queries,
   const bool vec = d % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(points) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(queries) % 16 == 0;
-  const dim3 grid((q + TQ - 1) / TQ, splits);
+  const int qt = block_queries(mode);
+  const dim3 grid((q + qt - 1) / qt, splits);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case MODE_FOLD:
@@ -748,23 +784,6 @@ int knn_launch(int mode, const float* points, const float* queries,
                         d, k, tile_tiles, passes, splits, ws_in_smem);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The merge kernel.  Inputs as knn_launch; outputs out_d (q, k) float32
-// ascending and out_i (q, k) int32.  Scratch part_d (splits, q, 2, k)
-// float32, part_i (splits, q, 2, k) int32, part_f (splits, q) int32 (unused
-// when splits == 1), bound (q,) uint32 set to all ones, and zeroed
-// counters (ceil(q / TQ),) int32.  1 <= k <= MERGE_MAX_K, q >= 1,
-// n < 2^31; splits as knn_plan returned it for mode 3.  Returns the
-// launch's cudaError_t (0 on success).
-int knn_merge_launch(const float* points, const float* queries,
-                     const float* norms, float* out_d, int* out_i,
-                     float* part_d, int* part_i, int* part_f,
-                     unsigned* bound, int* counters, long long n, int q,
-                     int d, int k, int splits, void* stream) {
-  return static_cast<int>(merge_launch(
-      DotScore{}, points, queries, norms, out_d, out_i, part_d, part_i,
-      part_f, bound, counters, n, q, d, k, splits, stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// knn_tiles.cuh — the FP32 SIMT tile product and the merge selection that
-// knn_fold.cu (the u-domain Euclidean kernels) and lp_knn.cu (the Lp /
-// Chebyshev kernel) share.
+// knn_tiles.cuh — the FP32 SIMT tile product that knn_fold.cu (fold,
+// fold_lazy, bcap), knn_minima.cu and lp_knn.cu (the Lp / Chebyshev kernel)
+// share, the merge selection of lp_knn.cu, and the helpers of the
+// tensor-core kernels (knn_tc.cuh).
 //
 // scan_tiles streams a block's TQ = 64 queries against tiles of TN = 64
 // point rows through shared memory and hands every thread a 4 x 4 register
@@ -11,7 +12,9 @@
 //   the Lp operations (lp_knn.cu): acc += |q - x|^p (or max), score =
 //   acc + mask.
 // knn_merge_kernel keeps each query's exact k smallest scores, sorted, for
-// k up to 4096, over any Score.  See knn_fold.cu for the design of both.
+// k up to 4096, over any Score (lp_knn.cu runs it; the Euclidean merge is
+// knn_select.cu's radix select).  See knn_fold.cu for the design of
+// scan_tiles; the merge's is noted at knn_merge_kernel below.
 
 #pragma once
 
@@ -397,6 +400,25 @@ __device__ __forceinline__ void merge_path(const float* ad, const int* ai,
   }
 }
 
+// Design (k up to 4096; fold re-scans its k slots for every entrant, O(k)
+// per survivor): each query's working set is kept SORTED in global
+// scratch, two slots of k that take turns, with its k-th value tau in a
+// register (+inf until k entries are in).  A tile's scores below tau go to
+// the query's MERGE_W = 128 slots in shared memory (ballot + popc, no
+// atomics).  When a tile's survivors would not fit in some buffer, every
+// buffer of the block at least half full is flushed in that tile, so the
+// warps' merges overlap instead of each stalling the block at the tile
+// barrier in turn: the half-warp sorts the buffer (bitonic, 16 lanes) and
+// merges it with the set into the other slot (merge_into: the set streams
+// through once, coalesced, 8 loads per lane per step with the next step's
+// issued ahead; each buffer entry is ranked in the window it falls in by a
+// half-warp count, and each set entry goes to its index plus the count of
+// buffer entries ranked at or below it).  About k (1 + ln(N / (S k)))
+// survivors per query and range.  Row ranges as knn_fold.cu's; the last
+// block merges the ranges' sorted sets on the merge path (merge_path).
+// Ties: (score, id) order throughout.  The merges add global-memory
+// traffic of about 16 k bytes per flush.
+//
 // grid = (ceil(q / TQ), splits).  Block (bx, by) scans the rows of range
 // by for queries [bx*TQ, bx*TQ + TQ).  Each query keeps a sorted working
 // set of at most k (u, id) in global scratch, two slots that take turns
@@ -655,14 +677,15 @@ cudaError_t card_limits(int* sms, int* optin) {
   return err;
 }
 
-// Row ranges for a launch of ceil(q / TQ) query tiles with per_sm resident
+// Row ranges for a launch of ceil(q / tq) query tiles with per_sm resident
 // blocks per SM: the split minimizes the waves of blocks over the card's
 // resident-block slots per unit of work (within 5% of the best, fewest
 // splits), keeping each range at least MIN_TILES_PER_SPLIT tiles of rows
 // and a whole number of tile_tiles.
-int choose_splits(int per_sm, int sms, long long n, int q, int tile_tiles) {
+int choose_splits(int per_sm, int sms, long long n, int q, int tile_tiles,
+                  int tq = TQ) {
   const long long slots = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
-  const long long qtiles = (q + TQ - 1) / TQ;
+  const long long qtiles = (q + tq - 1) / tq;
   const long long ntiles = (n + TN - 1) / TN;
   const long long units = (ntiles + tile_tiles - 1) / tile_tiles;
   const long long min_units =

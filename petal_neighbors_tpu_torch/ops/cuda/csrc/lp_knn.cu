@@ -14,15 +14,14 @@
 // `m < tau` with tau = +inf.  The caller takes the p-th root.
 //
 // Design: the TPU kernel's batch-merge top-k is the merge scheme, so this
-// file instantiates knn_merge_kernel (knn_tiles.cuh, shared with the
-// Euclidean merge kernel of knn_fold.cu) with an Lp score operation: the
-// tile product scan_tiles accumulates the operation's step over the d
-// features of each (query, row) pair in a 4 x 4 register tile per thread,
-// the score is the sum plus the staged mask, and the sorted working set,
-// survivor buffers, row ranges and shared bound are merge's.  Lp scores
-// are non-negative f32, so merge's order-bits bound holds as it is.  The
-// score has no cancellation (no ||q||^2 + ||x||^2 - 2 q.x form), so the
-// caller needs no rescore and no proof.
+// file instantiates knn_merge_kernel (knn_tiles.cuh) with an Lp score
+// operation: the tile product scan_tiles accumulates the operation's step
+// over the d features of each (query, row) pair in a 4 x 4 register tile
+// per thread, the score is the sum plus the staged mask, and the sorted
+// working set, survivor buffers, row ranges and shared bound are merge's.
+// Lp scores are non-negative f32, so merge's order-bits bound holds as it
+// is.  The score has no cancellation (no ||q||^2 + ||x||^2 - 2 q.x form),
+// so the caller needs no rescore and no proof.
 //
 // Per element (FADD for the difference, then):
 //   LpSum1 (p = 1):   FADD with |.| as an operand modifier            2

@@ -65,9 +65,15 @@
 // is 9 words per 8 (one pad word keeps a lane's 8 stores on distinct banks):
 // 18 KB at width 2048, 27 KB at 3072, 72 KB at 8192.
 //
+// A third entry point, word_sort_launch, sorts the Euclidean merge's lists
+// (knn_select.cu): rows of 64-bit words (order_bits(u) << 32 | id) that are
+// distinct already, so they are sorted as they are, and the first columns
+// are written back as (u, id).
+//
 // The C entry points return cudaGetLastError() right after the launch.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -113,6 +119,18 @@ __device__ __forceinline__ void load_words(word_t (&w)[E], const float* kr,
   for (int r = 0; r < E; ++r) {
     const int i = base + 32 * r + lane;
     w[r] = make_word(i < width ? order_bits(__ldg(kr + i)) : 0xffffffffu, i);
+  }
+}
+
+// The word entry point's words: slot i of a row of `count` list words
+// (the rest padding, key bits 0xffffffff and their own index, above every
+// word of a finite key).
+__device__ __forceinline__ void load_list(word_t (&w)[E], const word_t* wr,
+                                          int count, int base, int lane) {
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = base + 32 * r + lane;
+    w[r] = i < count ? wr[i] : (0xffffffffull << 32) | static_cast<unsigned>(i);
   }
 }
 
@@ -210,15 +228,36 @@ __device__ __forceinline__ void write_row(const word_t* sw, const float* kr,
   }
 }
 
+// The word entry point's output: columns [0, out_cols) of the sorted row as
+// (key, payload) = (the key of the word's order bits, its low 32 bits);
+// padding words give (+inf, -1).
+__device__ __forceinline__ void write_list(const word_t* sw, float* ok,
+                                           int* ov, int out_cols, int t,
+                                           int n) {
+  for (int i = t; i < out_cols; i += n) {
+    const word_t w = sw[phys(i)];
+    const unsigned b = static_cast<unsigned>(w >> 32);
+    const bool pad = b == 0xffffffffu;
+    ok[i] = pad ? INFINITY
+                : __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
+    ov[i] = pad ? -1 : static_cast<int>(w & 0xffffffffu);
+  }
+}
+
 // WARP_PER_ROW: block = WARP_ROWS warps, warp w sorting row
 // blockIdx.x * WARP_ROWS + w (width <= RUN).  Otherwise: block = the row's
 // ceil(width / RUN) warps, one row per block, dynamic shared memory of
 // phys(cap) words, cap = blockDim.x * E.
-template <bool WARP_PER_ROW>
+// WORDS: the rows are list words (words, row stride `stride`, counts[row]
+// of them; the rest padding) and the output keeps out_cols columns
+// (write_list); otherwise keys and vals of `width` columns (write_row).
+template <bool WARP_PER_ROW, bool WORDS>
 __global__ void __launch_bounds__(1024)
 block_sort_kernel(const float* __restrict__ keys, const int* __restrict__ vals,
+                  const word_t* __restrict__ words,
+                  const int* __restrict__ counts, long long stride,
                   float* __restrict__ out_k, int* __restrict__ out_v,
-                  long long rows, int width) {
+                  long long rows, int width, int out_cols) {
   extern __shared__ word_t sw[];
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -228,16 +267,23 @@ block_sort_kernel(const float* __restrict__ keys, const int* __restrict__ vals,
   if (WARP_PER_ROW && row >= rows) return;   // whole warps; no block barrier
   const float* kr = keys + row * width;
   word_t w[E];
-  load_words(w, kr, width, WARP_PER_ROW ? 0 : warp * RUN, lane);
+  if (WORDS)
+    load_list(w, words + row * stride, counts[row],
+              WARP_PER_ROW ? 0 : warp * RUN, lane);
+  else
+    load_words(w, kr, width, WARP_PER_ROW ? 0 : warp * RUN, lane);
   warp_sort(w, lane);
   const int* vr = vals + row * width;
-  float* ok = out_k + row * width;
-  int* ov = out_v + row * width;
+  float* ok = out_k + row * (WORDS ? out_cols : width);
+  int* ov = out_v + row * (WORDS ? out_cols : width);
   if (WARP_PER_ROW) {
     word_t* mine = sw + warp * phys(RUN);
     store_words(mine, w, lane * E);
     __syncwarp();
-    write_row(mine, kr, vr, ok, ov, width, lane, 32);
+    if (WORDS)
+      write_list(mine, ok, ov, out_cols, lane, 32);
+    else
+      write_row(mine, kr, vr, ok, ov, width, lane, 32);
     return;
   }
   const int cap = blockDim.x * E;
@@ -249,11 +295,17 @@ block_sort_kernel(const float* __restrict__ keys, const int* __restrict__ vals,
   }
   store_words(sw, w, tid * E);
   __syncthreads();
-  write_row(sw, kr, vr, ok, ov, width, tid, blockDim.x);
+  if (WORDS)
+    write_list(sw, ok, ov, out_cols, tid, blockDim.x);
+  else
+    write_row(sw, kr, vr, ok, ov, width, tid, blockDim.x);
 }
 
-cudaError_t sort_launch(const float* keys, const int* vals, float* out_k,
-                        int* out_v, long long rows, int width,
+template <bool WORDS>
+cudaError_t sort_launch(const float* keys, const int* vals,
+                        const word_t* words, const int* counts,
+                        long long stride, float* out_k, int* out_v,
+                        long long rows, int width, int out_cols,
                         cudaStream_t stream) {
   if (rows < 1 || width < 1 || width > MAX_WIDTH)
     return cudaErrorInvalidValue;
@@ -262,20 +314,23 @@ cudaError_t sort_launch(const float* keys, const int* vals, float* out_k,
     const long long blocks = (rows + WARP_ROWS - 1) / WARP_ROWS;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
     const size_t smem = sizeof(word_t) * WARP_ROWS * (RUN + RUN / E);
-    block_sort_kernel<true><<<static_cast<unsigned>(blocks), WARP_ROWS * 32,
-                              smem, stream>>>(keys, vals, out_k, out_v, rows,
-                                              width);
+    block_sort_kernel<true, WORDS><<<static_cast<unsigned>(blocks),
+                                     WARP_ROWS * 32, smem, stream>>>(
+        keys, vals, words, counts, stride, out_k, out_v, rows, width,
+        out_cols);
     return cudaGetLastError();
   }
   if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int cap = warps * RUN;
   const size_t smem = sizeof(word_t) * (cap + cap / E);
   const cudaError_t err = cudaFuncSetAttribute(
-      block_sort_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_sort_kernel<false, WORDS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  block_sort_kernel<false><<<static_cast<unsigned>(rows), warps * 32, smem,
-                             stream>>>(keys, vals, out_k, out_v, rows, width);
+  block_sort_kernel<false, WORDS><<<static_cast<unsigned>(rows), warps * 32,
+                                    smem, stream>>>(
+      keys, vals, words, counts, stride, out_k, out_v, rows, width, out_cols);
   return cudaGetLastError();
 }
 
@@ -292,14 +347,32 @@ int row_sort_max_width() { return MAX_WIDTH; }
 // success).
 int bitonic_sort_launch(const float* keys, const int* vals, float* out_k,
                         int* out_v, long long rows, int width, void* stream) {
-  return static_cast<int>(sort_launch(keys, vals, out_k, out_v, rows, width,
-                                      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(sort_launch<false>(
+      keys, vals, nullptr, nullptr, width, out_k, out_v, rows, width, width,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int rank_sort_launch(const float* keys, const int* vals, float* out_k,
                      int* out_v, long long rows, int width, void* stream) {
-  return static_cast<int>(sort_launch(keys, vals, out_k, out_v, rows, width,
-                                      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(sort_launch<false>(
+      keys, vals, nullptr, nullptr, width, out_k, out_v, rows, width, width,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The Euclidean merge's lists (knn_select.cu): words (rows, stride)
+// uint64 (order_bits(u) << 32 | id), counts (rows,) int32 <= width of them
+// real; sorts each row's first `width` slots (the rest of the count
+// padding) and writes columns [0, out_cols) of it, out_cols <= width, to
+// out_k (rows, out_cols) float32 and out_v (rows, out_cols) int32, padding
+// as (+inf, -1).
+int word_sort_launch(const unsigned long long* words, const int* counts,
+                     long long stride, float* out_k, int* out_v,
+                     long long rows, int width, int out_cols, void* stream) {
+  if (out_cols < 1 || out_cols > width || stride < width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sort_launch<true>(
+      nullptr, nullptr, words, counts, stride, out_k, out_v, rows, width,
+      out_cols, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

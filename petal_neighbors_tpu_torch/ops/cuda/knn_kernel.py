@@ -18,9 +18,20 @@ order-identical in u; ``‖q‖²`` is added back once at the output.
 * ``knn_merge``: the exact k smallest u per query for k up to 4096,
   sorted (``_knn_kernel_merge`` + ``_bitonic_merge_sorted``).
 
-Each launches a hand-written CUDA kernel of ``csrc/knn_fold.cu`` (one
-template with a mode each for the first four, a kernel of its own on the
-same tile product for merge) for CUDA tensors and runs its plain PyTorch
+Two precision tiers.  fold, fold_lazy and bcap compute u in FP32 on the
+SIMT cores (``_u``).  capped and merge compute it as the TPU kernels do at
+``precision="highest"``, a six-pass bf16 product: each operand element is
+split into three bf16 pieces (``split_bf16x3``) and the six products hh,
+hm, mh, hl, lh and mm are summed in f32 (``_u_tc``), on the card by the
+tensor cores (``csrc/knn_tc.cuh``).  ``tc_proof_err`` is that tier's
+pointwise error bound, and ``tc_probe`` holds the card's product to it once
+per process and device before the first tensor-core launch, raising
+``RuntimeError`` on a breach.
+
+fold, fold_lazy, capped and bcap launch one template of ``csrc/knn_fold.cu``
+(a mode each); merge launches the radix-select passes of
+``csrc/knn_select.cu`` and the word sort of ``csrc/row_sort.cu``.  Each
+wrapper launches its kernels for CUDA tensors and runs its plain PyTorch
 version for CPU tensors.  Nothing else selects between them: a CUDA tensor
 launches the kernel or raises.
 
@@ -33,14 +44,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
+import numpy as np
 import torch
 
 __all__ = ["knn_fold", "knn_fold_reference", "knn_fold_lazy",
            "knn_fold_lazy_reference", "knn_capped",
            "knn_capped_reference", "knn_bcap", "knn_bcap_reference",
-           "knn_merge", "knn_merge_reference", "kernel_plan", "FOLD_K_MAX",
-           "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK"]
+           "knn_merge", "knn_merge_reference", "kernel_plan", "tc_tile",
+           "split_bf16x3", "tc_proof_err", "tc_probe", "check_tc_product",
+           "merge_layout",
+           "FOLD_K_MAX", "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK"]
 
 #: largest working set the kernels take (knn_kernel.py:1011-1012)
 FOLD_K_MAX = 1024
@@ -105,6 +120,40 @@ def _u(points, queries, point_norms, s: int, e: int):
     return point_norms[s:e][None, :] - 2.0 * (queries @ points[s:e].T)
 
 
+def split_bf16x3(x):
+    """(hi, mid, lo) bf16 pieces of float32 ``x``, each rounded to nearest
+    and returned as float32: hi = bf16(x), mid = bf16(x − hi), lo =
+    bf16(x − hi − mid).  For a normal float32 (exponent >= −110)
+    hi + mid + lo == x exactly; both remainders are exact in float32."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    lo = (r - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def _u_tc(points, queries, point_norms, s: int, e: int):
+    """u of the tensor-core tier: the six products hh, hm, mh, hl, lh and
+    mm of the operands' three bf16 pieces, each an exact-product float32
+    matmul, summed in float32 (the card's kernel accumulates them per 16
+    features, so the two agree within ``tc_proof_err``, not bit for
+    bit)."""
+    if points.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    qh, qm, ql = split_bf16x3(queries)
+    xh, xm, xl = split_bf16x3(points[s:e])
+    dot = (qh @ xh.T + qh @ xm.T + qm @ xh.T + qh @ xl.T + ql @ xh.T
+           + qm @ xm.T)
+    return point_norms[s:e][None, :] - 2.0 * dot
+
+
+def tc_proof_err(dim: int, qn, xn_max):
+    """Pointwise |computed u − true u| bound of the tensor-core tier,
+    ``(4 + 12·⌈d/16⌉)·2⁻²³·(‖q‖² + max ‖x‖²)``; derived in
+    ``ops.bruteforce._proof_err``."""
+    return (4.0 + 12.0 * math.ceil(dim / 16)) * 2.0 ** -23 * (qn + xn_max)
+
+
 def knn_fold_reference(points, queries, point_norms, *, k: int):
     """Plain PyTorch version of the fold kernel: a chunked
     ``u = xn − 2·q·xᵀ`` with a running top-k.
@@ -127,21 +176,22 @@ def knn_fold_lazy_reference(points, queries, point_norms, *, k: int):
 
 
 def knn_merge_reference(points, queries, point_norms, *, k: int):
-    """Plain PyTorch version of the merge kernel: the fold kernel's plain
-    version (the same exact top-k) at k up to ``MERGE_K_MAX``.  Its output
-    is sorted ascending, ties in id order, as the kernel's."""
+    """Plain PyTorch version of the merge kernel: the running top-k of the
+    fold kernel's plain version, on the tensor-core tier's u (``_u_tc``),
+    at k up to ``MERGE_K_MAX``.  Its output is sorted ascending, ties in id
+    order, as the kernel's."""
     _check(points, queries, point_norms, k, "knn_merge", MERGE_K_MAX)
-    return _running_topk(points, queries, point_norms, k)
+    return _running_topk(points, queries, point_norms, k, _u_tc)
 
 
-def _running_topk(points, queries, point_norms, k: int):
+def _running_topk(points, queries, point_norms, k: int, u_of=_u):
     nq = queries.shape[0]
     best_u = torch.full((nq, k), torch.inf, dtype=torch.float32,
                         device=queries.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=queries.device)
     chunk = 4096
     for s in range(0, points.shape[0], chunk):
-        u = _u(points, queries, point_norms, s, s + chunk)
+        u = u_of(points, queries, point_norms, s, s + chunk)
         u = torch.where(torch.isnan(u), torch.inf, u)
         ids = torch.arange(s, s + u.shape[1], dtype=torch.int32,
                            device=queries.device).expand(nq, -1)
@@ -222,13 +272,14 @@ def _capped_out(queries, bd, bi, thr):
 
 def knn_capped_reference(points, queries, point_norms, *, k: int, tile: int,
                          passes: int, splits: int = 1):
-    """Plain PyTorch version of the capped kernel (see ``knn_capped``);
-    ``splits`` reproduces a launch plan's row ranges."""
+    """Plain PyTorch version of the capped kernel (see ``knn_capped``) on
+    the tensor-core tier's u (``_u_tc``); ``splits`` reproduces a launch
+    plan's row ranges."""
     _check(points, queries, point_norms, k, "knn_capped")
     _check_capped(k, tile, passes, "knn_capped")
 
     def scores(s, e):
-        return _u(points, queries, point_norms, s, e)
+        return _u_tc(points, queries, point_norms, s, e)
 
     bd, bi, thr = _capped_select(scores, points.shape[0], queries.shape[0],
                                  queries.device, k=k, tile=tile,
@@ -266,8 +317,10 @@ def _lib():
 
     lib = load("knn_fold")
     p = ctypes.POINTER(ctypes.c_int)
-    lib.knn_constants.argtypes = [p] * 6
+    lib.knn_constants.argtypes = [p] * 5
     lib.knn_constants.restype = None
+    lib.knn_tc_constants.argtypes = [p] * 5
+    lib.knn_tc_constants.restype = None
     lib.knn_plan.argtypes = [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, p, p]
@@ -275,33 +328,82 @@ def _lib():
     lib.knn_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.knn_launch.restype = ctypes.c_int
-    lib.knn_merge_launch.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.knn_merge_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _select_lib():
+    from ._build import load
+
+    lib = load("knn_select")
+    p = ctypes.POINTER(ctypes.c_int)
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    sigs = {
+        "knn_select_constants": [p, p],
+        "knn_select_plan": [ll, i, i, p],
+        "knn_select_minima_launch": [vp] * 4 + [ll] + [i] * 5 + [vp],
+        "knn_select_bound_launch": [vp, i, i, i] + [vp] * 6 + [vp],
+        "knn_select_collect_launch": [vp] * 10 + [ll] + [i] * 4 + [vp],
+        "knn_select_pick_launch": [vp] * 8 + [i, i, i, vp],
+        "knn_tc_u_launch": [vp] * 4 + [ll, i, i, vp],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = None if name == "knn_select_constants" else ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _word_sort_lib():
+    from ._build import load
+
+    lib = load("row_sort")
+    lib.word_sort_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.word_sort_launch.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _constants() -> dict[str, int]:
-    """The kernels' fixed sizes, as the CUDA source defines them."""
-    vals = [ctypes.c_int(0) for _ in range(6)]
+    """The kernels' fixed sizes, as the CUDA sources define them."""
+    vals = [ctypes.c_int(0) for _ in range(5)]
     _lib().knn_constants(*(ctypes.byref(v) for v in vals))
-    out = dict(zip(("tq", "tn", "block", "max_passes", "max_k",
-                    "merge_max_k"), (v.value for v in vals)))
-    if (out["block"], out["max_passes"], out["max_k"],
-            out["merge_max_k"]) != (BCAP_BLOCK, PASSES_MAX, FOLD_K_MAX,
-                                    MERGE_K_MAX):
-        raise RuntimeError(f"csrc/knn_fold.cu disagrees with this module: "
-                           f"{out}")
+    out = dict(zip(("tq", "tn", "block", "max_passes", "max_k"),
+                   (v.value for v in vals)))
+    sel = [ctypes.c_int(0) for _ in range(2)]
+    _select_lib().knn_select_constants(*(ctypes.byref(v) for v in sel))
+    out["bins"], out["max_list"] = (v.value for v in sel)
+    # merge_layout's lists reach 2 * MERGE_K_MAX words
+    if ((out["block"], out["max_passes"], out["max_k"])
+            != (BCAP_BLOCK, PASSES_MAX, FOLD_K_MAX)
+            or out["max_list"] < 2 * MERGE_K_MAX):
+        raise RuntimeError(f"csrc/knn_fold.cu or csrc/knn_select.cu "
+                           f"disagrees with this module: {out}")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def tc_tile() -> dict[str, int]:
+    """The tensor-core product's tile on the card (``csrc/knn_tc.cuh``):
+    queries and point rows per tile, features per staged chunk, bf16 pieces
+    per element and piece products per pair."""
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    _lib().knn_tc_constants(*(ctypes.byref(v) for v in vals))
+    return dict(zip(("tq", "tn", "dc", "pieces", "products"),
+                    (v.value for v in vals)))
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(device_index: int, mode: int, n: int, q: int, d: int, k: int,
           tile_tiles: int) -> tuple[int, bool]:
     splits, ws_smem = ctypes.c_int(1), ctypes.c_int(0)
-    err = _lib().knn_plan(mode, n, q, d, k, tile_tiles, ctypes.byref(splits),
-                          ctypes.byref(ws_smem))
+    if mode == _MODES["merge"]:
+        err = _select_lib().knn_select_plan(n, q, d, ctypes.byref(splits))
+    else:
+        err = _lib().knn_plan(mode, n, q, d, k, tile_tiles,
+                              ctypes.byref(splits), ctypes.byref(ws_smem))
     if err != 0:
         raise RuntimeError(f"knn kernel planning failed: cudaError {err}")
     return splits.value, bool(ws_smem.value)
@@ -322,9 +424,94 @@ def kernel_plan(scheme: str, n: int, q: int, d: int, k: int,
                 tile: int = 1) -> tuple[int, bool]:
     """The CUDA kernel's launch plan on the current card: (row-range
     splits, working set in shared memory).  ``tile`` as the scheme's
-    wrapper takes it (rows for capped, blocks for bcap)."""
+    wrapper takes it (rows for capped, blocks for bcap).  capped's and
+    merge's ranges split the tensor-core product (``tc_tile``)."""
     return _plan(torch.cuda.current_device(), _MODES[scheme], n, q, d, k,
                  _tile_tiles(scheme, tile))
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+#: the probe's widths and the largest |u − u_f64| / bound seen, per device
+_PROBE_DIMS = (128, 960)
+_probed: dict[int, float] = {}
+
+
+def _probe_inputs(d: int):
+    """The integrity probe's points and queries at width d: the reference's
+    ``standard_normal × exp(uniform(−8, 8))`` (knn_kernel.py:937-938),
+    and rows where ‖x‖² is far above q·x (large rows against small
+    queries), where the product's cancellation is the bound's whole
+    margin."""
+    rng = np.random.default_rng(d)
+    def draw(rows):
+        return (rng.standard_normal((rows, d))
+                * np.exp(rng.uniform(-8, 8, (rows, d)))).astype(np.float32)
+    pts = np.concatenate([draw(192),
+                          (rng.standard_normal((64, d)) * 1e3).astype(
+                              np.float32)])
+    qs = np.concatenate([draw(48),
+                         (rng.standard_normal((16, d)) * 1e-2).astype(
+                             np.float32)])
+    return pts, qs
+
+
+def check_tc_product(u_of, device) -> float:
+    """Push the probe (``_probe_inputs``, d = 128 and 960) through
+    ``u_of(points, queries, norms) -> u (Q, N)`` on ``device`` and hold
+    every |u − u_f64| to ``tc_proof_err`` of its query.  Raises
+    ``RuntimeError`` on a breach; returns the largest error over its
+    bound."""
+    worst = 0.0
+    for d in _PROBE_DIMS:
+        pts, qs = _probe_inputs(d)
+        p = torch.from_numpy(pts).to(device)
+        q = torch.from_numpy(qs).to(device)
+        xn = torch.sum(p * p, dim=1)
+        u = u_of(p, q, xn)
+        u64 = xn.double()[None, :] - 2.0 * (q.double() @ p.double().T)
+        qn = torch.sum(q * q, dim=1).double()
+        bound = tc_proof_err(d, qn, xn.double().max())[:, None]
+        ratio = float(((u.double() - u64).abs() / bound).max())
+        if not ratio <= 1.0:
+            raise RuntimeError(
+                f"the tensor-core product breaks its proof bound: |u - "
+                f"u_f64| is {ratio:.3g} times tc_proof_err at d={d}; the "
+                "capped and merge kernels' results cannot be certified here")
+        worst = max(worst, ratio)
+    return worst
+
+
+def tc_probe(device=None) -> float:
+    """Hold the card's tensor-core product to ``tc_proof_err`` once per
+    process and device, before the first tensor-core launch there
+    (``check_tc_product`` over ``knn_tc_u_launch``, the tile product of
+    the capped and merge kernels).  Raises ``RuntimeError`` on a breach:
+    an unsound bound would certify wrong answers.  Returns the largest
+    error over its bound (cached after the first call)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = _device_index(dev)
+    if idx not in _probed:
+        with torch.cuda.device(idx):
+            _probed[idx] = check_tc_product(_tc_u, torch.device("cuda", idx))
+    return _probed[idx]
+
+
+def _tc_u(points, queries, point_norms):
+    """u (Q, N) of the tensor-core product on the card (the probe's entry
+    point; not a route of the index)."""
+    n, d = points.shape
+    nq = queries.shape[0]
+    out = torch.empty((nq, n), dtype=torch.float32, device=points.device)
+    err = _select_lib().knn_tc_u_launch(
+        points.contiguous().data_ptr(), queries.contiguous().data_ptr(),
+        point_norms.contiguous().data_ptr(), out.data_ptr(), n, nq, d,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"knn_tc_u kernel launch failed: cudaError {err}")
+    return out
 
 
 def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
@@ -357,8 +544,9 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
         part_i = torch.empty(part, dtype=torch.int32, device=dev)
         part_m = torch.empty((s, nq) if scheme not in _FOLDS and s > 1
                              else (0,), dtype=torch.float32, device=dev)
-        counters = torch.zeros((-(-nq // _constants()["tq"]),),
-                               dtype=torch.int32, device=dev)
+        tq = tc_tile()["tq"] if scheme == "capped" else _constants()["tq"]
+        counters = torch.zeros((-(-nq // tq),), dtype=torch.int32,
+                               device=dev)
         err = _lib().knn_launch(
             _MODES[scheme], points.data_ptr(), queries.data_ptr(),
             point_norms.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
@@ -418,7 +606,8 @@ def knn_capped(points, queries, point_norms, *, k: int, tile: int,
     knn_kernel.py:429): each tile of ``tile`` rows folds at most
     ``passes`` of its candidates into the working set, so true top-k
     members may be skipped; ``thr`` lower-bounds every point outside the
-    set.
+    set.  u is the tensor-core tier's (``_u_tc``; ``tc_probe`` runs before
+    the first launch on a device).
 
     Inputs as ``knn_fold``; ``k <= tile`` (the first tile seeds the set),
     ``0 <= passes <= 15``; on the card ``tile`` is a multiple of 64 rows.
@@ -432,6 +621,7 @@ def knn_capped(points, queries, point_norms, *, k: int, tile: int,
     if points.device.type == "cpu":
         return knn_capped_reference(points, queries, point_norms, k=k,
                                     tile=tile, passes=passes)
+    tc_probe(points.device)
     out = _launch("capped", points, queries, point_norms, k, tile, passes)
     knn_capped.launches += 1
     return out
@@ -463,17 +653,104 @@ def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
     return out
 
 
+def merge_layout(n: int, k: int) -> tuple[int, int]:
+    """(glog, width) of the merge's passes over n rows: groups of 2^glog
+    rows, the largest of 128, 64, 32 and 16 that still makes at least
+    1.5 k groups (16 where none does), and lists of width
+    ``min(8192, k + max(k, 1024))``."""
+    glog = 4
+    for g in (7, 6, 5):
+        if -(-n // (1 << g)) >= 1.5 * k:
+            glog = g
+            break
+    return glog, min(8192, k + max(k, 1024))
+
+
+#: collect passes after which the select has ended on every query: the
+#: bound's interval spans at most 2^64 words, each pass cuts it by 2^8
+#: and a one-word interval is done on the next
+_MAX_COLLECT_PASSES = 9
+
+#: scratch bytes (group minima and lists) a merge launch keeps per chunk
+#: of queries
+_MERGE_SCRATCH_BYTES = 512 << 20
+
+
+def _merge_chunk(points, queries, point_norms, k: int, splits: int,
+                 glog: int, width: int):
+    """The merge's passes (``csrc/knn_select.cu``) and its word sort on one
+    chunk of queries.  Returns (u (Q, k), ids (Q, k), collect passes)."""
+    lib = _select_lib()
+    n, d = points.shape
+    nq = queries.shape[0]
+    dev = queries.device
+    stream = torch.cuda.current_stream().cuda_stream
+    groups = -(-n // (1 << glog))
+    minima = torch.empty((nq, groups), dtype=torch.int64, device=dev)
+    lo = torch.empty((nq,), dtype=torch.int64, device=dev)
+    hi = torch.empty_like(lo)
+    shift, below, done, cnt = (torch.empty((nq,), dtype=torch.int32,
+                                           device=dev) for _ in range(4))
+    hist = torch.zeros((nq, _constants()["bins"]), dtype=torch.int32,
+                       device=dev)
+    words = torch.empty((nq, width), dtype=torch.int64, device=dev)
+    flags = torch.zeros((2,), dtype=torch.int32, device=dev)
+    ptr = (points.data_ptr(), queries.data_ptr(), point_norms.data_ptr())
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"knn_merge {what} launch failed: "
+                               f"cudaError {err}")
+
+    check(lib.knn_select_minima_launch(*ptr, minima.data_ptr(), n, nq, d,
+                                       groups, glog, splits, stream),
+          "minima")
+    check(lib.knn_select_bound_launch(
+        minima.data_ptr(), nq, groups, k, lo.data_ptr(), hi.data_ptr(),
+        shift.data_ptr(), below.data_ptr(), done.data_ptr(), cnt.data_ptr(),
+        stream), "bound")
+    del minima
+    passes = 0
+    while True:
+        check(lib.knn_select_collect_launch(
+            *ptr, lo.data_ptr(), hi.data_ptr(), shift.data_ptr(),
+            done.data_ptr(), hist.data_ptr(), cnt.data_ptr(),
+            words.data_ptr(), n, nq, d, width, splits, stream), "collect")
+        flags[0] = 0
+        check(lib.knn_select_pick_launch(
+            hist.data_ptr(), cnt.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            shift.data_ptr(), below.data_ptr(), done.data_ptr(),
+            flags.data_ptr(), nq, k, width, stream), "pick")
+        passes += 1
+        still_open, longest = flags.tolist()
+        if not still_open:
+            break
+        if passes > _MAX_COLLECT_PASSES:
+            raise RuntimeError("knn_merge: the radix select did not end "
+                               f"within {_MAX_COLLECT_PASSES} passes")
+    sort_w = max(k, longest)
+    out_u = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    check(_word_sort_lib().word_sort_launch(
+        words.data_ptr(), cnt.data_ptr(), width, out_u.data_ptr(),
+        out_i.data_ptr(), nq, sort_w, k, stream), "word sort")
+    return out_u, out_i, passes
+
+
 def knn_merge(points, queries, point_norms, *, k: int):
     """Exact streaming top-k of u for ``1 <= k <= 4096``, sorted
     (``_knn_kernel_merge``, knn_kernel.py:336, as ``knn_pallas(scheme=
-    "merge")`` serves it).
+    "merge")`` serves it), on the tensor-core tier's u (``_u_tc``).
 
     Inputs as ``knn_fold``.  Returns ``(rdist (Q, k) float32 ascending,
-    ids (Q, k) int32)``: rdist is ``u + ‖q‖²`` clamped at 0; empty slots
-    and NaN query rows are (+inf, -1); ids of +inf-norm rows never
-    appear.  CUDA tensors launch ``csrc/knn_fold.cu``'s merge kernel
-    (counted in ``knn_merge.launches``); CPU tensors run
-    ``knn_merge_reference``.
+    ids (Q, k) int32)``: rdist is ``u + ‖q‖²`` clamped at 0, ties in id
+    order; empty slots and NaN query rows are (+inf, -1); ids of +inf-norm
+    rows never appear.  CUDA tensors launch ``csrc/knn_select.cu``'s radix
+    select (group minima, bound, collect and pick passes) and
+    ``csrc/row_sort.cu``'s word sort, after ``tc_probe`` (counted once per
+    call in ``knn_merge.launches``; ``knn_merge.last_passes`` holds the
+    collect passes of each chunk of queries of the last call); CPU tensors
+    run ``knn_merge_reference``.
     """
     _check(points, queries, point_norms, k, "knn_merge", MERGE_K_MAX)
     if points.device.type == "cpu":
@@ -486,37 +763,36 @@ def knn_merge(points, queries, point_norms, *, k: int):
     queries = queries.contiguous()
     point_norms = point_norms.contiguous()
     dev = queries.device
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
-        return out_d, out_i
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
+    tc_probe(dev)
+    glog, width = merge_layout(n, k)
+    per_q = 8 * (-(-n // (1 << glog)) + width)
+    step = max(64, _MERGE_SCRATCH_BYTES // per_q // 64 * 64)
+    us, ids, passes = [], [], []
     with torch.cuda.device(dev):
-        s, _ = _plan(dev.index if dev.index is not None
-                     else torch.cuda.current_device(), _MODES["merge"], n,
-                     nq, d, k, 1)
-        # scratch: each range's sorted working set, two slots that take
-        # turns; each range's fill and slot; the ranges' shared bound per
-        # query (all ones: none yet); one arrival counter per query tile
-        part_d = torch.empty((s, nq, 2, k), dtype=torch.float32, device=dev)
-        part_i = torch.empty((s, nq, 2, k), dtype=torch.int32, device=dev)
-        part_f = torch.empty((s, nq), dtype=torch.int32, device=dev)
-        bound = torch.full((nq,), -1, dtype=torch.int32, device=dev)
-        counters = torch.zeros((-(-nq // _constants()["tq"]),),
-                               dtype=torch.int32, device=dev)
-        err = _lib().knn_merge_launch(
-            points.data_ptr(), queries.data_ptr(), point_norms.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), part_d.data_ptr(),
-            part_i.data_ptr(), part_f.data_ptr(), bound.data_ptr(),
-            counters.data_ptr(), n, nq,
-            d, k, s, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"knn_merge kernel launch failed: cudaError {err}")
+        for s in range(0, nq, step):
+            qc = queries[s:s + step]
+            splits, _ = _plan(_device_index(dev), _MODES["merge"], n,
+                              qc.shape[0], d, k, 1)
+            u, i, p = _merge_chunk(points, qc, point_norms, k, splits, glog,
+                                   width)
+            us.append(u)
+            ids.append(i)
+            passes.append(p)
+    u = torch.cat(us) if len(us) > 1 else us[0]
+    i = torch.cat(ids) if len(ids) > 1 else ids[0]
+    qn = torch.sum(queries * queries, dim=1, keepdim=True)
+    rd = torch.where(i < 0, torch.inf, torch.clamp_min(u + qn, 0.0))
     knn_merge.launches += 1
-    return out_d, out_i
+    knn_merge.last_passes = passes
+    return rd, i
 
 
 #: kernel launches made by each wrapper (plain-version calls do not count)
 knn_merge.launches = 0
+knn_merge.last_passes = []
 knn_fold.launches = 0
 knn_fold_lazy.launches = 0
 knn_capped.launches = 0

@@ -912,3 +912,26 @@ def test_bruteforce_from_jax_arrays_lp_and_cosine():
                                    metric=tpn.Manhattan(), device="cpu")
     with pytest.raises(ValueError):
         bruteforce_from_jax_arrays(arrays, metric="haversine", device="cpu")
+
+
+def test_capped_route_proves_on_the_tc_bound(monkeypatch):
+    """The capped route's proof uses the tensor-core tier's bound: a query
+    is covered only when its k-th rescored distance is at most thr minus
+    that bound, and the answers equal the scan's (exact) on data without
+    near ties."""
+    rng = np.random.default_rng(9)
+    pts = torch.from_numpy(rng.random((8192, 48), dtype=np.float32))
+    qs = torch.from_numpy(rng.random((40, 48), dtype=np.float32))
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(pts)
+    tiers = []
+    real = tbf._proof_err
+
+    def spy(dim, qn, xn_max, tier="fp32"):
+        tiers.append(tier)
+        return real(dim, qn, xn_max, tier)
+    monkeypatch.setattr(tbf, "_proof_err", spy)
+    d, i = tbf.knn_prepadded(pp, pn, qs, 10, 8192, mu, scheme="capped")
+    assert tiers[-1] == "tc"
+    sd, si = tbf.knn(pts - mu, qs - mu, 10)
+    assert torch.equal(torch.sort(i, 1).values, torch.sort(si, 1).values)
+    np.testing.assert_allclose(d.numpy(), sd.numpy(), rtol=1e-5)

@@ -370,17 +370,84 @@ def test_merge_matches_jax(k):
 
 def test_merge_k_above_n_and_limits():
     """Fewer finite rows than k: the real rows ascending, then (+inf, -1);
-    k outside 1..4096 raises; the CPU counts no launch."""
+    its first 1000 columns are merge's own at k=1000 bit for bit, and
+    fold's (the FP32 tier) within rtol 2e-4 with the same ids but at
+    boundary ties; k outside 1..4096 raises; the CPU counts no launch."""
     pts, qs = _inputs(12, 300, nan_rows=(5,))
     pp, pn = pad_for_pallas(torch.from_numpy(pts))
     before = kk.knn_merge.launches
     rd, ids = kk.knn_merge(pp, torch.from_numpy(qs), pn, k=4096)
     assert kk.knn_merge.launches == before
+    m_rd, m_ids = kk.knn_merge(pp, torch.from_numpy(qs), pn, k=1000)
+    assert torch.equal(rd[:, :1000], m_rd)
+    assert torch.equal(ids[:, :1000], m_ids)
     fold_rd, fold_ids = kk.knn_fold(pp, torch.from_numpy(qs), pn, k=1000)
-    assert torch.equal(rd[:, :1000], fold_rd)
-    assert torch.equal(ids[:, :1000], fold_ids)
+    fin = torch.isfinite(fold_rd)
+    assert torch.equal(fin, torch.isfinite(m_rd))
+    np.testing.assert_allclose(m_rd[fin].numpy(), fold_rd[fin].numpy(),
+                               rtol=2e-4)
+    for r in range(qs.shape[0]):
+        if not _boundary_tied(pts, qs[r].astype(np.float64), 1000):
+            assert (set(m_ids[r].tolist())
+                    == set(fold_ids[r].tolist())), r
     assert (ids[:, :299] >= 0).all() and (ids[:, 299:] == -1).all()
     assert torch.isinf(rd[:, 299:]).all()
     for k in (0, 4097):
         with pytest.raises(ValueError):
             kk.knn_merge(pp, torch.from_numpy(qs), pn, k=k)
+
+
+# ---- merge's edge rows against a stable sort ------------------------------
+
+def _stable_topk(points, queries, norms, k):
+    """The k smallest (u, id) of the tier's u by one stable sort of each
+    whole row (ties in id order); +inf and NaN u never count."""
+    u = kk._u_tc(points, queries, norms, 0, points.shape[0])
+    u = torch.where(torch.isnan(u), torch.inf, u)
+    su, pos = torch.sort(u, dim=1, stable=True)
+    su, pos = su[:, :k], pos[:, :k].to(torch.int32)
+    if su.shape[1] < k:
+        fill = k - su.shape[1]
+        su = torch.nn.functional.pad(su, (0, fill), value=float("inf"))
+        pos = torch.nn.functional.pad(pos, (0, fill), value=-1)
+    ids = torch.where(torch.isinf(su), -1, pos)
+    qn = torch.sum(queries * queries, dim=1, keepdim=True)
+    return torch.where(ids < 0, torch.inf, torch.clamp_min(su + qn, 0.0)), ids
+
+
+def _edge(kind):
+    rng = np.random.default_rng(5)
+    if kind == "all equal":
+        pts = np.repeat(rng.random((1, 32), dtype=np.float32), 5000, 0)
+        return pts, rng.random((6, 32), dtype=np.float32), 4096
+    if kind == "duplicates":
+        base = rng.integers(0, 16, (40, 32)).astype(np.float32)
+        return (base[rng.integers(0, 40, 6000)],
+                rng.integers(0, 16, (6, 32)).astype(np.float32), 3000)
+    if kind == "+inf tail":
+        pts = rng.random((5000, 32), dtype=np.float32)
+        pts[rng.random(5000) < 0.4] = np.nan
+        return pts, rng.random((6, 32), dtype=np.float32), 4096
+    pts = rng.random((900, 32), dtype=np.float32)
+    return pts, rng.random((6, 32), dtype=np.float32), 1024
+
+
+@pytest.mark.parametrize("kind", ["all equal", "duplicates", "+inf tail",
+                                  "k above n"])
+def test_merge_edge_rows_match_stable_sort(kind):
+    """Merge at k up to 4096 on its edge rows equals one stable sort of the
+    whole row bit for bit: all keys equal gives ids 0..k-1, duplicates tie
+    in id order, NaN rows and rows past the finite ones give (+inf, -1)."""
+    pts, qs, k = _edge(kind)
+    pp, pn = pad_for_pallas(torch.from_numpy(pts))
+    q = torch.from_numpy(qs)
+    rd, ids = kk.knn_merge(pp, q, pn, k=k)
+    want_rd, want_ids = _stable_topk(pp, q, pn, k)
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(rd, want_rd)
+    if kind == "all equal":
+        assert torch.equal(ids, torch.arange(k, dtype=torch.int32)
+                           .expand_as(ids))
+    n_fin = int(torch.isfinite(pn).sum())
+    if n_fin < k:
+        assert (ids[:, n_fin:] == -1).all() and (ids[:, :n_fin] >= 0).all()
