@@ -38,11 +38,25 @@ Phases, each printed as one JSON line on stdout:
               k=100, captured and timed beside them.  The Lp kernel
               against its plain version at d = 33, 48, 64, 130 and 960,
               p = 1, 2.5, 3, 4 and Chebyshev, k = 1 to 4096, with NaN rows,
-              NaN queries and ragged tails.
+              NaN queries and ragged tails.  fold's two paths (the radix
+              select over its FP32 product, and the streaming kernel),
+              each forced, at FOLD_PATH_CASES: q = 1 to 300 on both sides
+              of the cutover, k = 1 to 1024, ragged rows, NaN rows and
+              queries, k above the finite rows, integer rows with many
+              exact ties (the select's ids equal the plain version's;
+              collect narrows over several passes), the two paths' rdist
+              equal bit for bit and fold_lazy equal to both.
+   fold_paths — both fold paths timed in turns over the SIFT index (and,
+              in main_generic, the GIST one) at FOLD_TABLE's queries x
+              k_scan, beside the path ``fold_path`` picks; at the route's
+              repair shapes also the plain version, the library call and
+              the bound.  knn_kernel.FOLD_SELECT_Q was read from it.
 4. main     — ``BruteForce.euclidean`` over 1M x 128 f32 points (seed 7,
               as bench.py makes them) answering 10,240 queries at k=10
               (bcap), k=100 and k=200 (capped); every kernel's launches in
-              that run and the queries each fold repair carried; every
+              that run (fold's by path) and the queries each fold repair
+              carried, the repair's time on its path and on the streaming
+              kernel; every
               query's ids against a chunked f64 oracle on the card, where
               an id may differ only by a swap that f32 direct-form
               distances cannot order.
@@ -68,7 +82,10 @@ Phases, each printed as one JSON line on stdout:
               Chebyshev, and bcap at this shape as a yardstick.
 8. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
-              version's time, its bound and a PyTorch yardstick; its tier
+              version's time, its bound and a PyTorch yardstick (fold: at
+              its main path's largest repair, with the whole batch, its
+              launches by path, the cutover and every repair shape beside
+              it); its tier
               ("tc" for capped and merge, whose bound is the tensor cores'
               six bf16 products, with the FP32 SIMT bound beside it as
               simt_bound_ms; "fp32" for the others, with tc_bound_ms).
@@ -387,6 +404,10 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
          passes: int, splits: int = 1):
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
+    if scheme in FOLD_PATHS:
+        if plain:
+            return kk.knn_fold_reference(pp, qt, pn, k=k) + (None,)
+        return kk.knn_fold(pp, qt, pn, k=k, path=FOLD_PATHS[scheme]) + (None,)
     if scheme in ("fold", "fold_lazy", "merge"):
         run = {("fold", True): kk.knn_fold_reference,
                ("fold", False): kk.knn_fold,
@@ -418,12 +439,13 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
     bcap schemes also at a pass's `u < tau` test."""
     from petal_neighbors_tpu_torch.ops.cuda.knn_kernel import kernel_plan
 
-    plan = kernel_plan(scheme, pp.shape[0], qt.shape[0], pp.shape[1], k,
-                       tile)
+    plan = kernel_plan("fold" if scheme == "fold_stream" else scheme,
+                       pp.shape[0], qt.shape[0], pp.shape[1], k, tile)
     rd_k, id_k, t_k = _run(scheme, False, pp, qt, pn, k, tile, passes)
     torch.cuda.synchronize()
-    if scheme == "merge" and not bool((rd_k[:, 1:] >= rd_k[:, :-1]).all()):
-        raise AssertionError(f"merge k={k}: rows not ascending")
+    if scheme in ("merge", "fold_select") and not bool(
+            (rd_k[:, 1:] >= rd_k[:, :-1]).all()):
+        raise AssertionError(f"{scheme} k={k}: rows not ascending")
     rd_p, id_p, t_p = _run(scheme, True, pp, qt, pn, k, tile, passes,
                            plan[0])
     rd_k, ord_k = torch.sort(rd_k, dim=1)
@@ -474,16 +496,18 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
     return err, tied_rows, plan
 
 
-def lazy_is_fold(pp, qt, pn, k: int) -> int:
-    """fold_lazy against fold on the same card tensors: sorted rdist equal
+def lazy_is_fold(pp, qt, pn, k: int, path=None) -> int:
+    """fold_lazy against fold (its ``path``, "select" or "stream", or the
+    one ``fold_path`` picks) on the same card tensors: sorted rdist equal
     bit for bit, and ids equal as sets except for ids at a row's largest
     rdist (the last block of a query tile to arrive folds the other row
-    ranges in, so exact ties at the k-th value may fall either way in
-    either kernel).  Returns the rows whose ids differ at such a tie."""
+    ranges in, and the select keeps the smaller ids, so exact ties at the
+    k-th value may fall either way).  Returns the rows whose ids differ at
+    such a tie."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
     rd_l, id_l = kk.knn_fold_lazy(pp, qt, pn, k=k)
-    rd_f, id_f = kk.knn_fold(pp, qt, pn, k=k)
+    rd_f, id_f = kk.knn_fold(pp, qt, pn, k=k, path=path)
     torch.cuda.synchronize()
     if not torch.equal(torch.sort(rd_l, 1).values, torch.sort(rd_f, 1).values):
         raise AssertionError(f"fold_lazy k={k}: rdist differ from fold's")
@@ -634,6 +658,39 @@ SMALL_CASES = (
     ("merge", 70001, 300, 128, 1, 3000, 1, 0),
 )
 
+#: fold's two paths, forced, as compare_kernel's schemes
+FOLD_PATHS = {"fold_select": "select", "fold_stream": "stream"}
+#: fold's two paths against the plain version and each other at small
+#: shapes, on both sides of the cutover: (n, q, d, pad rows, k, points).
+#: "uniform" as small_inputs makes them (NaN rows, NaN queries from q = 8,
+#: ten duplicated rows; 700 rows at k=1008: k above the finite rows);
+#: "duplicates" 50 distinct integer rows and "five rows" 5
+#: (duplicate_inputs); on five rows about a fifth of the rows share the
+#: least u, so collect narrows over several passes
+FOLD_PATH_CASES = (
+    (5003, 1, 128, 1, 18, "uniform"),
+    (5003, 5, 128, 1, 1, "uniform"),
+    (4099, 64, 130, 1, 108, "uniform"),
+    (70001, 65, 128, 1, 1008, "uniform"),
+    (70001, 300, 64, 64, 1024, "uniform"),
+    (3001, 5, 17, 1, 1024, "uniform"),
+    (700, 64, 128, 1, 1008, "uniform"),
+    (20000, 65, 64, 1, 108, "duplicates"),
+    (20000, 5, 64, 1, 1008, "five rows"),
+)
+#: the table both fold paths are timed on, from which
+#: knn_kernel.FOLD_SELECT_Q was read: (queries, k_scan values) per shape
+FOLD_TABLE = {"SIFT": ((1, 5, 47, 56, 187, 512, 2048, 10240),
+                       (18, 108, 208, 1008)),
+              "GIST": ((1, 2, 8, 64), (18, 108, 208, 1008))}
+#: the route's fold repairs (repaired queries, k_scan; PERF.md §5), with
+#: the library call and the bound beside both paths
+REPAIR_SHAPES = (("SIFT", 5, 18), ("SIFT", 187, 108), ("SIFT", 47, 208),
+                 ("SIFT", 56, 1008), ("GIST", 1, 18), ("GIST", 2, 18))
+#: the repair the kernels line reports for fold: the largest of the main
+#: phase's (k=100)
+FOLD_MAIN_REPAIR = ("SIFT", 187, 108)
+
 #: the main paths' kernel calls: (scheme, k requested, queries).  fold at
 #: k=200 is the repair kernel of the main path, timed on the whole batch
 MAIN_CALLS = (("bcap", 10, N_Q), ("capped", 100, N_Q), ("capped", 200, N_Q),
@@ -772,6 +829,121 @@ def phase_merge_edges() -> float:
     return worst
 
 
+def duplicate_inputs(rng, n, q, d, distinct: int = 50):
+    """Points drawn from ``distinct`` integer rows below 16 and integer
+    queries (every product exact, so u is the same bits in the kernels and
+    the plain version, and each u value is shared by about n / distinct
+    rows), with two NaN rows and, from q = 8, a NaN query."""
+    base = rng.integers(0, 16, (distinct, d)).astype(np.float32)
+    pts = base[rng.integers(0, distinct, n)]
+    qs = rng.integers(0, 16, (q, d)).astype(np.float32)
+    pts[[3, n - 2]] = np.nan
+    if q >= 8:
+        qs[q - 1] = np.nan
+    return pts, qs
+
+
+def phase_fold_paths_small(rng) -> float:
+    """fold's two paths, each forced, against the plain version
+    (compare_kernel) at every FOLD_PATH_CASES shape, and against each
+    other: sorted rdist equal bit for bit (the same u and the same ‖q‖²
+    sum); on integer rows the select's ids equal the plain version's (both
+    keep ties in id order); fold_lazy equal to both (lazy_is_fold).
+    Prints the select's collect passes.  Returns the largest error."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for n, q, d, tn, k, kind in FOLD_PATH_CASES:
+        if kind == "uniform":
+            pts, qs = small_inputs(rng, n, q, d)
+        else:
+            pts, qs = duplicate_inputs(rng, n, q, d,
+                                       50 if kind == "duplicates" else 5)
+        spp, spn = bf.pad_for_pallas(torch.from_numpy(pts).to(dev), tn=tn)
+        qt = torch.from_numpy(qs).to(dev)
+        found = {}
+        for scheme in FOLD_PATHS:
+            err, tied, plan = compare_kernel(scheme, spp, qt, spn, k)
+            worst = max(worst, err)
+            found[scheme] = dict(max_abs_err=err, tied_rows=tied, plan=plan)
+        rd_s, id_s = kk.knn_fold(spp, qt, spn, k=k, path="select")
+        passes = list(kk.knn_fold.last_passes)
+        rd_t, _ = kk.knn_fold(spp, qt, spn, k=k, path="stream")
+        if not torch.equal(rd_s, torch.sort(rd_s, 1).values) or \
+                not torch.equal(rd_s, torch.sort(rd_t, 1).values):
+            raise AssertionError(f"fold n={n} q={q} k={k}: the select's "
+                                 "rdist differ from the stream's")
+        if kind != "uniform":
+            _, want = kk.knn_fold_reference(spp, qt, spn, k=k)
+            if not torch.equal(id_s, want):
+                raise AssertionError(f"fold select n={n} q={q} k={k}: ids "
+                                     "differ from the plain version's")
+        lazy = {p: lazy_is_fold(spp, qt, spn, k, p)
+                for p in ("select", "stream")}
+        emit("kernel", name="knn_fold", paths_case=kind, n=n, q=q, d=d, k=k,
+             rule=kk.fold_path(q, k, d), collect_passes=passes,
+             finite_rows=int(torch.isfinite(spn).sum()),
+             tied_rows_lazy_vs_fold=lazy, **found, ok=True)
+    return worst
+
+
+def fold_table(pp, pn, qc, shape: str) -> list:
+    """Both fold paths, forced, timed in turns (three rounds, the least
+    mean of each) on the first q of the centered queries ``qc`` at every
+    FOLD_TABLE point of ``shape``, beside the path ``fold_path`` picks and
+    the other path's time over the picked one's (``margin``, above 1 where
+    the rule picked the faster); at the REPAIR_SHAPES points also the
+    plain version's time, the library call and the bound, the rule's path
+    held to the plain version (compare_kernel) and the two paths' sorted
+    rdist held equal bit for bit.  Returns the rows."""
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    n, d = pp.shape
+    qs_, ks_ = FOLD_TABLE[shape]
+    rows = []
+    for k in ks_:
+        for q in qs_:
+            qt = qc[:q]
+            reps = 10 if q <= 512 else 1
+            ms, passes = {}, None
+            for path in ("select", "stream") * 3:
+                t = cuda_ms(lambda: kk.knn_fold(pp, qt, pn, k=k, path=path),
+                            reps=reps)
+                ms[path] = min(ms.get(path, t), t)
+                if path == "select":
+                    passes = list(kk.knn_fold.last_passes)
+            rule = kk.fold_path(q, k, d)
+            faster = min(ms, key=ms.get)
+            row = dict(shape=shape, q=q, k=k, n=n, d=d,
+                       select_ms=ms["select"], stream_ms=ms["stream"],
+                       rule=rule, faster=faster, rule_is_faster=rule == faster,
+                       margin=ms["stream" if rule == "select" else "select"]
+                       / ms[rule],
+                       collect_passes=passes,
+                       plan_select=kk.kernel_plan("fold_select", n, q, d, k),
+                       plan_stream=kk.kernel_plan("fold", n, q, d, k))
+            if (shape, q, k) in REPAIR_SHAPES:
+                rd_s, _ = kk.knn_fold(pp, qt, pn, k=k, path="select")
+                rd_t, _ = kk.knn_fold(pp, qt, pn, k=k, path="stream")
+                if not torch.equal(rd_s, torch.sort(rd_t, 1).values):
+                    raise AssertionError(f"fold {shape} q={q} k={k}: the "
+                                         "paths' rdist differ")
+                err, tied, _ = compare_kernel(f"fold_{rule}", pp, qt, pn, k)
+                bound, by = bound_ms(n, q, d, k)
+                row.update(repair=True, ms=ms[rule], max_abs_err=err,
+                           tied_rows=tied,
+                           plain_ms=cuda_ms(lambda: kk.knn_fold_reference(
+                               pp, qt, pn, k=k), reps=1, warm=0),
+                           library_ms=cuda_ms(lambda: library_topk(
+                               pp, qt, pn, k), reps=2),
+                           bound_ms=bound, bound_by=by)
+            emit("fold_paths", **row, ok=True)
+            rows.append(row)
+    return rows
+
+
 def phase_kernel(pp, pn, queries_c):
     """Each kernel against its plain version at every listed shape, then at
     the main paths' shapes; returns the main-shape rows by (scheme, k) (the
@@ -796,6 +968,7 @@ def phase_kernel(pp, pn, queries_c):
         emit("kernel", name=f"knn_{scheme}", n=n, q=q, d=d, k=k, tile=tile,
              passes=passes, max_abs_err=err, tied_rows=tied, plan=plan,
              **extra, ok=True)
+    errs["fold"] = max(errs["fold"], phase_fold_paths_small(rng))
     errs["merge"] = max(errs["merge"], phase_merge_edges())
     errs.update(phase_minima_small(rng))
 
@@ -1173,7 +1346,7 @@ def phase_main_generic(wrappers, fold_rows):
     qdev = torch.from_numpy(queries).cuda()
     metrics = {"euclidean": pt.Euclidean(), "cosine": pt.Cosine(),
                "minkowski3": pt.Minkowski(3.0)}
-    lp_row, launches, capped_gist = None, {}, None
+    lp_row, launches, capped_gist, gist_fold = None, {}, None, []
     for name, scheme in GENERIC:
         t0 = time.perf_counter()
         index = pt.BruteForce(points, metrics[name])
@@ -1290,10 +1463,18 @@ def phase_main_generic(wrappers, fold_rows):
                     **tier_bounds("bcap", index._pts.shape[0], GIST_Q,
                                   GIST_D, kb))
             if repaired:
-                # the repair's kernel on the repaired count of queries
+                # the repair's kernel on the repaired count of queries, on
+                # the path fold_path picks, beside the streaming kernel
+                qr = qk[:repaired[-1]]
                 kernel["repair_fold_ms"] = cuda_ms(lambda: kk.knn_fold(
-                    index._pts, qk[:repaired[-1]], index._norms, k=k),
-                    reps=2)
+                    index._pts, qr, index._norms, k=k), reps=2)
+                kernel["repair_fold_stream_ms"] = cuda_ms(
+                    lambda: kk.knn_fold(index._pts, qr, index._norms, k=k,
+                                        path="stream"), reps=2)
+                kernel["repair_fold_path"] = kk.fold_path(qr.shape[0], k,
+                                                          GIST_D)
+            if name == "euclidean":
+                gist_fold = fold_table(index._pts, index._norms, qk, "GIST")
         emit("main_generic", index=name, scheme=scheme, k=GIST_K,
              queries=GIST_Q, qps=GIST_Q / min(walls), batch_s=min(walls),
              kernel_ms=ms, launches_in_calls={s: c for s, c in got.items()
@@ -1305,7 +1486,7 @@ def phase_main_generic(wrappers, fold_rows):
         del index, d, i
         torch.cuda.empty_cache()
     emit("main_generic", launches=launches)
-    return lp_row, launches, capped_gist
+    return lp_row, launches, capped_gist, gist_fold
 
 
 def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
@@ -1408,6 +1589,8 @@ def main() -> int:
 
     # ---- kernel vs plain (launches here are not the main paths') -------
     rows, errs = phase_kernel(index._pts, index._norms, qdev - index._center)
+    fold_rows_sift = fold_table(index._pts, index._norms,
+                                qdev - index._center, "SIFT")
     sorts = phase_sorts(index, qdev)
     errs["lp_knn"] = phase_lp_small()
 
@@ -1425,20 +1608,25 @@ def main() -> int:
     # the route's fold calls, with their query counts: under bcap and
     # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
+    # the path each of the route's fold calls took, per phase
+    fold_paths = {"select": 0, "stream": 0}
 
     def counted_fold(points, queries, norms, *, k):
         fold_rows.append(queries.shape[0])
-        return kk.knn_fold(points, queries, norms, k=k)
+        out = kk.knn_fold(points, queries, norms, k=k)
+        fold_paths[kk.knn_fold.last_path] += 1
+        return out
 
     bf.knn_fold = counted_fold
     pdev = torch.from_numpy(points).cuda()
-    launches = {}
+    launches, fold_by_path = {}, {}
     for phase, ks, qs, reps, need in (
             ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap")),
             ("main_large_k", LARGE_K, qdev[:N_Q_LARGE], 2,
              ("capped", "merge", "bitonic_sort", "rank_sort"))):
         for w in wrappers.values():
             w.launches = 0
+        fold_paths.update(select=0, stream=0)
         out, per_k, repaired, radix_passes = {}, {}, {}, {}
         for k, scheme in ks.items():
             before = {s: w.launches for s, w in wrappers.items()}
@@ -1467,6 +1655,11 @@ def main() -> int:
                 raise AssertionError(f"{phase} launched no {s} kernel")
             # a kernel's count comes from the path of its kernels-line row
             launches.setdefault(s, got[s])
+        fold_by_path[phase] = dict(fold_paths)
+        if not fold_paths["select"]:
+            # the repairs at k=100 and 200, and at k=1000, are small batches
+            raise AssertionError(f"{phase}: no fold repair took the select "
+                                 "path")
 
         _, oi = f64_oracle(pdev, qs, max(ks))
         if phase == "main":
@@ -1488,15 +1681,22 @@ def main() -> int:
             if phase == "main_large_k":
                 kernel_ms.update({kind: row["ms"] for kind, row in
                                   sorts.items()})
-            if phase == "main_large_k" and repaired[k]:
-                # the repair's kernel on the repaired count of queries,
-                # beside merge on the same work
+            if repaired[k]:
+                # the repair's kernel on the repaired count of queries, on
+                # the path fold_path picks, beside the streaming kernel
+                # (and merge, at large k) on the same work
                 qr = (qs - index._center)[:repaired[k][-1]]
                 k_scan = bf.scan_width(scheme, k, N)
+                runs = {"fold": kk.knn_fold,
+                        "fold_stream": lambda *a, **kw: kk.knn_fold(
+                            *a, **kw, path="stream")}
+                if phase == "main_large_k":
+                    runs["merge"] = kk.knn_merge
                 extra |= {f"repair_{name}_ms": cuda_ms(
                     lambda: run(index._pts, qr, index._norms, k=k_scan),
-                    reps=2) for name, run in (("fold", kk.knn_fold),
-                                              ("merge", kk.knn_merge))}
+                    reps=2) for name, run in runs.items()}
+                extra["repair_fold_path"] = kk.fold_path(
+                    qr.shape[0], k_scan, DIM)
             emit(phase, k=k, scheme=scheme, queries=qs.shape[0],
                  qps=qs.shape[0] / wall, batch_s=wall, kernel_ms=kernel_ms,
                  launches_in_calls={s: c for s, c in per_k[k].items() if c},
@@ -1504,7 +1704,7 @@ def main() -> int:
                  recall=recall, oracle_queries=qs.shape[0],
                  boundary_swaps=swaps, worst_swap_gap_over_band=worst,
                  backend=index.last_backend, build_s=build_s, **extra)
-        emit(phase, launches=got)
+        emit(phase, launches=got, fold_launches_by_path=fold_by_path[phase])
 
     for s, c in phase_main_opt_in(index, pdev, qdev, main_oracle, rows,
                                   wrappers, fold_rows).items():
@@ -1513,8 +1713,8 @@ def main() -> int:
 
     del index, pdev, qdev
     torch.cuda.empty_cache()
-    lp_row, generic_launches, capped_gist = phase_main_generic(wrappers,
-                                                               fold_rows)
+    lp_row, generic_launches, capped_gist, fold_rows_gist = (
+        phase_main_generic(wrappers, fold_rows))
     launches["lp_knn"] = generic_launches["lp_knn"]
 
     kernels = []
@@ -1534,6 +1734,38 @@ def main() -> int:
                                          "radix_passes") if key in row},
             "shape": {key: row[key] for key in
                       ("n", "q", "d", "k", "tile", "passes", "plan")}})
+        if scheme == "fold":
+            # the main path's fold calls are its repairs: the line reports
+            # the largest (SIFT k=100, 187 queries at k_scan 108), and the
+            # whole batch on the streaming kernel beside it
+            table = fold_rows_sift + fold_rows_gist
+            repair = next(r for r in table if r.get("repair") and (
+                r["shape"], r["q"], r["k"]) == FOLD_MAIN_REPAIR)
+            kernels[-1].update(
+                {key: repair[key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+                path=repair["rule"],
+                tc_bound_ms=tc_bound_ms(repair["n"], repair["q"],
+                                        repair["d"], repair["k"])[0],
+                shape={key: repair[key] for key in ("n", "q", "d", "k")}
+                | {"plan": repair[f"plan_{repair['rule']}"]},
+                full_batch={"path": kk.fold_path(row["q"], row["k"],
+                                                 row["d"]),
+                            **{key: row[key] for key in (
+                                "q", "k", "ms", "plain_ms", "bound_ms",
+                                "library_ms", "plan")}},
+                select_source=SELECT_SOURCE,
+                launches_by_path=fold_by_path,
+                cutover={"select_q_by_d_and_k": kk.FOLD_SELECT_Q,
+                         "rule_is_faster_at": sum(r["rule_is_faster"]
+                                                  for r in table),
+                         "least_margin": min(r["margin"] for r in table),
+                         "table_points": len(table)},
+                repairs=[{key: r[key] for key in (
+                    "shape", "q", "k", "rule", "ms", "select_ms",
+                    "stream_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err", "collect_passes")}
+                    for r in table if r.get("repair")])
         if scheme == "capped":
             kernels[-1]["gist"] = {key: capped_gist[key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",

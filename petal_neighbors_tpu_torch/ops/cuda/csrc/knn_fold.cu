@@ -16,6 +16,9 @@
 // (knn_tiles.cuh); capped on the split-bf16 tensor-core product tc::scan
 // (knn_tc.cuh), the TPU kernel's "highest" arithmetic.  The Euclidean merge
 // (_knn_kernel_merge) lives in knn_select.cu, on the tensor-core product.
+// MODE_FOLD serves fold's large batches; small ones (the route's repairs)
+// run knn_select.cu's radix select over the same u (fold_pass_kernel), as
+// knn_kernel.py's fold_path decides.
 //
 // What they compute: for each query q and every point row x,
 //     u = ||x||^2 - 2 q.x

@@ -1,6 +1,21 @@
 // knn_select.cu — the Euclidean merge: the exact k smallest (u, id) per
 // query for k up to 4096, sorted, by radix select on the split-bf16
-// tensor-core product (knn_tc.cuh).  Also the product's probe entry.
+// tensor-core product (knn_tc.cuh).  Also the product's probe entry, and
+// fold's select path: the same passes on fold's FP32 SIMT product.
+//
+// fold's select path replaces _knn_kernel (+ _fold_min) of
+// petal_neighbors_tpu/ops/pallas/knn_kernel.py (:186, :97) for the batches
+// the route gives fold at 1M rows: the repair of a few queries over the
+// whole index.  knn_fold.cu's streaming fold runs them as one or three
+// query tiles over at most 64 row ranges (64 blocks on 132 SMs), re-finds
+// a working set's maximum after every insertion, and folds the ranges'
+// sets in one block per query tile: 72.04 ms for 56 queries at k = 1008
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py), 340 times its bound.  Here the same u (fold_pass_kernel:
+// scan_tiles with DotScore, bit for bit knn_fold.cu's) goes through the
+// radix select below over up to FP32_MAX_SPLITS ranges, and
+// fold_out_kernel adds ||q||^2 as knn_fold.cu does.  The host
+// (knn_kernel.py's fold_path) sends large batches to the streaming kernel,
+// where two product passes cost more than fold's one.
 //
 // Replaces _knn_kernel_merge + _bitonic_merge_sorted of
 // petal_neighbors_tpu/ops/pallas/knn_kernel.py (:336, :287), as
@@ -74,6 +89,9 @@ constexpr int MAX_LIST = 8192;       // row_sort.cu's widest row
 constexpr word_t NONE = ~0ull;       // above every word
 constexpr int PASS_MINIMA = 0;
 constexpr int PASS_COLLECT = 1;
+// fold's select path splits a batch of few query tiles over up to about
+// four times the card's 132 SMs (MIN_TILES_PER_SPLIT still holds)
+constexpr int FP32_MAX_SPLITS = 512;
 
 __device__ __forceinline__ word_t make_word(float u, long long row) {
   return (static_cast<word_t>(order_bits(u == 0.f ? 0.f : u)) << 32) |
@@ -235,6 +253,144 @@ select_pass_kernel(const float* __restrict__ points,
   });
 }
 
+// The same two passes on fold's FP32 SIMT product (scan_tiles with
+// DotScore, knn_tiles.cuh): TQ = 64 queries x TN = 64 rows a tile on
+// THREADS = 256, u = ||x||^2 - 2 acc as knn_fold.cu's MODE_FOLD makes it,
+// so every pass, and fold's streaming kernel, see the same u bits.  The
+// passes read u straight from each thread's 4 x 4 register tile: lane xg of
+// a half-warp holds rows xg + 16 i (i < 4) of its 4 queries rbase + j, so
+// a group of G = 16, 32 or 64 rows (never more here: a group stays inside
+// one 64-row tile, and so inside one block's range) is slot i, slots
+// {0, 1} / {2, 3}, or all four slots of the half-warp's 16 lanes: its
+// minimum is a shuffle reduction and its first row a ballot.  In collect a
+// half-warp's appends for one query share one atomic.
+// grid = (ceil(q / TQ), splits); ranges of whole 64-row tiles.
+template <int PASS, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+fold_pass_kernel(const float* __restrict__ points,
+                 const float* __restrict__ queries,
+                 const float* __restrict__ norms, long long n, int q, int d,
+                 int splits, word_t* __restrict__ minima, int groups,
+                 int glog, const word_t* __restrict__ lo,
+                 const word_t* __restrict__ hi, const int* __restrict__ shift,
+                 const int* __restrict__ done, int* __restrict__ hist,
+                 int* __restrict__ cnt, word_t* __restrict__ list,
+                 int width) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int q0 = blockIdx.x * TQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int qg = lane >> 4, xg = lane & 15;
+  const int rbase = warp * 8 + qg * 4;
+  const unsigned below = (1u << xg) - 1u;   // lanes under xg in its half
+
+  // collect: this thread's 4 queries' intervals; a done query or a row
+  // past q gets the empty interval (nothing <= hi)
+  word_t lo_r[4], hi_r[4];
+  int sh_r[4];
+  float uhi_r[4];   // the largest u a word <= hi can have
+  if (PASS == PASS_COLLECT) {
+    bool open_any = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gq = q0 + rbase + j;
+      const bool open = gq < q && !done[gq];
+      lo_r[j] = open ? lo[gq] : NONE;
+      hi_r[j] = open ? hi[gq] : 0;
+      sh_r[j] = open ? shift[gq] : 0;
+      const unsigned hb = static_cast<unsigned>(hi_r[j] >> 32);
+      uhi_r[j] = !open ? -INFINITY
+                 : hb >= order_bits(INFINITY) ? INFINITY
+                                              : from_order_bits(hb);
+      open_any |= open;
+    }
+    if (!__syncthreads_or(open_any)) return;
+  }
+
+  const long long ntiles = (n + TN - 1) / TN;
+  const long long per = (ntiles + splits - 1) / splits;
+  const long long t_begin = min(ntiles, per * blockIdx.y);
+  const long long t_end = min(ntiles, t_begin + per);
+  const int gsz = 1 << glog;
+  const int span = gsz / 16;   // slots a group takes: 1, 2 or 4
+
+  const DotScore score{};
+  scan_tiles<VEC>(points, queries, norms, n, q, d, q0, t_begin, t_end, smem,
+                  score,
+                  [&](long long t, const float* xnb, float (&acc)[4][4]) {
+    const long long row0 = t * TN;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long gq = q0 + rbase + j;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float u = score.finish(acc[j][i], xnb[xg + 16 * i]);
+        v[i] = u < INFINITY ? u : INFINITY;   // NaN and +inf: no word
+      }
+      if (PASS == PASS_MINIMA) {
+        float m[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[i] = v[i];
+        if (span >= 2) {
+          m[0] = fminf(m[0], m[1]);
+          m[2] = fminf(m[2], m[3]);
+        }
+        if (span >= 4) m[0] = fminf(m[0], m[2]);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (i % span == 0)
+              m[i] = fminf(m[i], __shfl_xor_sync(FULL, m[i], o));
+        // the group's first row at its minimum: slots in order, then lanes
+#pragma unroll
+        for (int i0 = 0; i0 < 4; ++i0) {
+          if (i0 % span) continue;
+          const float gm = m[i0];
+          int first = -1;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (i < i0 || i >= i0 + span) continue;
+            const unsigned mine =
+                (__ballot_sync(FULL, v[i] < INFINITY && v[i] == gm) >>
+                 (qg * 16)) & 0xffffu;
+            if (first < 0 && mine) first = 16 * i + __ffs(mine) - 1;
+          }
+          const long long g = (row0 + 16 * i0) >> glog;
+          if (xg == 0 && gq < q && g < groups)
+            minima[gq * groups + g] =
+                first < 0 ? NONE : make_word(gm, row0 + first);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool cand = v[i] <= uhi_r[j] && v[i] < INFINITY;
+          if (!__any_sync(FULL, cand)) continue;
+          word_t w = NONE;
+          bool take = false;
+          if (cand) {
+            w = make_word(v[i], row0 + xg + 16 * i);
+            take = w <= hi_r[j];
+          }
+          if (take && w >= lo_r[j])
+            atomicAdd(hist + gq * BINS +
+                          static_cast<int>((w - lo_r[j]) >> sh_r[j]),
+                      1);
+          const unsigned mine =
+              (__ballot_sync(FULL, take) >> (qg * 16)) & 0xffffu;
+          int base = 0;
+          if (xg == 0 && mine) base = atomicAdd(cnt + gq, __popc(mine));
+          base = __shfl_sync(FULL, base, 0, 16);
+          const int pos = base + __popc(mine & below);
+          if (take && pos < width) list[gq * width + pos] = w;
+        }
+      }
+    }
+  });
+}
+
 // One block per query: lo = its least group minimum, hi = its k-th
 // smallest (NONE when fewer than k groups), by radix select over the row
 // of minima, 8 digits of 8 bits; shift spans [lo, hi] with 256 bins.  A
@@ -346,6 +502,30 @@ pick_kernel(int* __restrict__ hist, int* __restrict__ cnt,
   hq[tid] = 0;
 }
 
+// fold's output from the FP32 select's sorted (u, id): rd = max(u +
+// ||q||^2, 0), ||q||^2 summed as knn_fold.cu's output sums it (lane-strided
+// fmaf, then an xor-shuffle sum), so the select and the streaming kernel
+// give the same rdist bits; (+inf, -1) slots stay.  One warp per query.
+__global__ void __launch_bounds__(256)
+fold_out_kernel(const float* __restrict__ queries, int q, int d, int k,
+                float* __restrict__ out_d, const int* __restrict__ out_i) {
+  const long long gq = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (gq >= q) return;   // whole warps
+  const float* qrow = queries + gq * d;
+  float qn = 0.f;
+  for (int f = lane; f < d; f += 32) qn = fmaf(qrow[f], qrow[f], qn);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(FULL, qn, off);
+  float* od = out_d + gq * k;
+  const int* oi = out_i + gq * k;
+  for (int e = lane; e < k; e += 32) {
+    const float rd = od[e] + qn;
+    od[e] = oi[e] < 0 ? INFINITY : (rd < 0.f ? 0.f : rd);
+  }
+}
+
 // The product alone: out (q, n) <- u, for the integrity probe.
 template <bool VEC>
 __global__ void __launch_bounds__(tc::THREADS)
@@ -401,6 +581,34 @@ cudaError_t pass_launch(const float* points, const float* queries,
         shift, done, hist, cnt, list, width);
   else
     select_pass_kernel<PASS, false><<<grid, tc::THREADS, smem, s>>>(
+        points, queries, norms, n, q, d, splits, minima, groups, glog, lo, hi,
+        shift, done, hist, cnt, list, width);
+  return cudaGetLastError();
+}
+
+// The FP32 passes (fold's select path) over up to FP32_MAX_SPLITS ranges.
+template <int PASS>
+cudaError_t fp32_pass_launch(const float* points, const float* queries,
+                             const float* norms, long long n, int q, int d,
+                             int splits, word_t* minima, int groups, int glog,
+                             const word_t* lo, const word_t* hi,
+                             const int* shift, const int* done, int* hist,
+                             int* cnt, word_t* list, int width, void* stream) {
+  if (q < 1 || n < 1 || splits < 1 || splits > FP32_MAX_SPLITS)
+    return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(d);
+  const bool vec = vec_ok(points, queries, d);
+  cudaError_t err = vec ? allow_smem(fold_pass_kernel<PASS, true>, smem)
+                        : allow_smem(fold_pass_kernel<PASS, false>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q + TQ - 1) / TQ, splits);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    fold_pass_kernel<PASS, true><<<grid, THREADS, smem, s>>>(
+        points, queries, norms, n, q, d, splits, minima, groups, glog, lo, hi,
+        shift, done, hist, cnt, list, width);
+  else
+    fold_pass_kernel<PASS, false><<<grid, THREADS, smem, s>>>(
         points, queries, norms, n, q, d, splits, minima, groups, glog, lo, hi,
         shift, done, hist, cnt, list, width);
   return cudaGetLastError();
@@ -478,6 +686,61 @@ int knn_select_pick_launch(int* hist, int* cnt, word_t* lo, word_t* hi,
   if (q < 1) return static_cast<int>(cudaErrorInvalidValue);
   pick_kernel<<<q, BINS, 0, static_cast<cudaStream_t>(stream)>>>(
       hist, cnt, lo, hi, shift, below, done, flags, k, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fold's select path: the same passes on the FP32 SIMT product.  Row
+// ranges for n rows and q queries at width d, up to FP32_MAX_SPLITS.
+int knn_select_fp32_plan(long long n, int q, int d, int* splits) {
+  int optin = 0, sms = 0, per_sm = 0;
+  cudaError_t err = card_limits(&sms, &optin);
+  const size_t smem = tile_smem_bytes(d);
+  if (err == cudaSuccess)
+    err = allow_smem(fold_pass_kernel<PASS_COLLECT, true>, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fold_pass_kernel<PASS_COLLECT, true>, THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *splits = choose_splits(per_sm, sms, n, q, 1, TQ, FP32_MAX_SPLITS);
+  return 0;
+}
+
+// Pass 1 on the FP32 product, as knn_select_minima_launch; 4 <= glog <= 6.
+int knn_select_fp32_minima_launch(const float* points, const float* queries,
+                                  const float* norms, word_t* minima,
+                                  long long n, int q, int d, int groups,
+                                  int glog, int splits, void* stream) {
+  if (glog < 4 || glog > 6 || groups != (n + (1LL << glog) - 1) >> glog)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fp32_pass_launch<PASS_MINIMA>(
+      points, queries, norms, n, q, d, splits, minima, groups, glog, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, stream));
+}
+
+// Pass 3 on the FP32 product, as knn_select_collect_launch.
+int knn_select_fp32_collect_launch(const float* points, const float* queries,
+                                   const float* norms, const word_t* lo,
+                                   const word_t* hi, const int* shift,
+                                   const int* done, int* hist, int* cnt,
+                                   word_t* list, long long n, int q, int d,
+                                   int width, int splits, void* stream) {
+  if (width < 1 || width > MAX_LIST)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fp32_pass_launch<PASS_COLLECT>(
+      points, queries, norms, n, q, d, splits, nullptr, 0, 0, lo, hi, shift,
+      done, hist, cnt, list, width, stream));
+}
+
+// fold's rdist in place: out_d (q, k) float32 u -> max(u + ||q||^2, 0), and
+// +inf where out_i (q, k) int32 is -1; queries (q, d) float32.
+int knn_select_fold_out_launch(const float* queries, float* out_d,
+                               const int* out_i, int q, int d, int k,
+                               void* stream) {
+  if (q < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (static_cast<long long>(q) + 7) / 8;
+  fold_out_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(queries, q, d, k,
+                                                         out_d, out_i);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -681,9 +681,9 @@ cudaError_t card_limits(int* sms, int* optin) {
 // blocks per SM: the split minimizes the waves of blocks over the card's
 // resident-block slots per unit of work (within 5% of the best, fewest
 // splits), keeping each range at least MIN_TILES_PER_SPLIT tiles of rows
-// and a whole number of tile_tiles.
+// and a whole number of tile_tiles, and at most `cap` ranges.
 int choose_splits(int per_sm, int sms, long long n, int q, int tile_tiles,
-                  int tq = TQ) {
+                  int tq = TQ, int cap = MAX_SPLITS) {
   const long long slots = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
   const long long qtiles = (q + tq - 1) / tq;
   const long long ntiles = (n + TN - 1) / TN;
@@ -691,17 +691,15 @@ int choose_splits(int per_sm, int sms, long long n, int q, int tile_tiles,
   const long long min_units =
       (MIN_TILES_PER_SPLIT + tile_tiles - 1) / tile_tiles;
   long long max_splits = units / min_units;
-  max_splits = max_splits < 1 ? 1 : (max_splits > MAX_SPLITS ? MAX_SPLITS
-                                                              : max_splits);
+  max_splits = max_splits < 1 ? 1 : (max_splits > cap ? cap : max_splits);
+  auto cost = [&](long long s) {
+    return static_cast<double>((qtiles * s + slots - 1) / slots) / s;
+  };
   double best = 1e30;
-  double cost[MAX_SPLITS + 1];
-  for (long long s = 1; s <= max_splits; ++s) {
-    const long long waves = (qtiles * s + slots - 1) / slots;
-    cost[s] = static_cast<double>(waves) / s;
-    if (cost[s] < best) best = cost[s];
-  }
   for (long long s = 1; s <= max_splits; ++s)
-    if (cost[s] <= 1.05 * best) return static_cast<int>(s);
+    if (cost(s) < best) best = cost(s);
+  for (long long s = 1; s <= max_splits; ++s)
+    if (cost(s) <= 1.05 * best) return static_cast<int>(s);
   return 1;
 }
 

@@ -30,7 +30,10 @@ per process and device before the first tensor-core launch, raising
 
 fold, fold_lazy, capped and bcap launch one template of ``csrc/knn_fold.cu``
 (a mode each); merge launches the radix-select passes of
-``csrc/knn_select.cu`` and the word sort of ``csrc/row_sort.cu``.  Each
+``csrc/knn_select.cu`` and the word sort of ``csrc/row_sort.cu``.  fold
+takes one of two paths by shape (``fold_path``): small batches (the
+route's repairs) run those radix-select passes on fold's own FP32 product,
+larger ones the streaming kernel.  Each
 wrapper launches its kernels for CUDA tensors and runs its plain PyTorch
 version for CPU tensors.  Nothing else selects between them: a CUDA tensor
 launches the kernel or raises.
@@ -54,7 +57,7 @@ __all__ = ["knn_fold", "knn_fold_reference", "knn_fold_lazy",
            "knn_capped_reference", "knn_bcap", "knn_bcap_reference",
            "knn_merge", "knn_merge_reference", "kernel_plan", "tc_tile",
            "split_bf16x3", "tc_proof_err", "tc_probe", "check_tc_product",
-           "merge_layout",
+           "merge_layout", "fold_path", "FOLD_SELECT_Q",
            "FOLD_K_MAX", "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK"]
 
 #: largest working set the kernels take (knn_kernel.py:1011-1012)
@@ -71,7 +74,8 @@ PASSES_MAX = 15
 #: granule of 2048 rows over 128 lanes of the TPU kernel (bcap_tile_n)
 BCAP_BLOCK = 16
 
-_MODES = {"fold": 0, "capped": 1, "bcap": 2, "merge": 3, "fold_lazy": 4}
+_MODES = {"fold": 0, "capped": 1, "bcap": 2, "merge": 3, "fold_lazy": 4,
+          "fold_select": 5}
 
 #: the schemes that keep the exact top k (no seed, no threshold)
 _FOLDS = ("fold", "fold_lazy")
@@ -345,6 +349,10 @@ def _select_lib():
         "knn_select_bound_launch": [vp, i, i, i] + [vp] * 6 + [vp],
         "knn_select_collect_launch": [vp] * 10 + [ll] + [i] * 4 + [vp],
         "knn_select_pick_launch": [vp] * 8 + [i, i, i, vp],
+        "knn_select_fp32_plan": [ll, i, i, p],
+        "knn_select_fp32_minima_launch": [vp] * 4 + [ll] + [i] * 5 + [vp],
+        "knn_select_fp32_collect_launch": [vp] * 10 + [ll] + [i] * 4 + [vp],
+        "knn_select_fold_out_launch": [vp] * 3 + [i] * 3 + [vp],
         "knn_tc_u_launch": [vp] * 4 + [ll, i, i, vp],
     }
     for name, args in sigs.items():
@@ -401,6 +409,9 @@ def _plan(device_index: int, mode: int, n: int, q: int, d: int, k: int,
     splits, ws_smem = ctypes.c_int(1), ctypes.c_int(0)
     if mode == _MODES["merge"]:
         err = _select_lib().knn_select_plan(n, q, d, ctypes.byref(splits))
+    elif mode == _MODES["fold_select"]:
+        err = _select_lib().knn_select_fp32_plan(n, q, d,
+                                                 ctypes.byref(splits))
     else:
         err = _lib().knn_plan(mode, n, q, d, k, tile_tiles,
                               ctypes.byref(splits), ctypes.byref(ws_smem))
@@ -410,7 +421,7 @@ def _plan(device_index: int, mode: int, n: int, q: int, d: int, k: int,
 
 
 def _tile_tiles(scheme: str, tile: int) -> int:
-    if scheme in _FOLDS + ("merge",):
+    if scheme in _FOLDS + ("merge", "fold_select"):
         return 1
     rows = tile * BCAP_BLOCK if scheme == "bcap" else tile
     tn = _constants()["tn"]
@@ -425,7 +436,9 @@ def kernel_plan(scheme: str, n: int, q: int, d: int, k: int,
     """The CUDA kernel's launch plan on the current card: (row-range
     splits, working set in shared memory).  ``tile`` as the scheme's
     wrapper takes it (rows for capped, blocks for bcap).  capped's and
-    merge's ranges split the tensor-core product (``tc_tile``)."""
+    merge's ranges split the tensor-core product (``tc_tile``);
+    "fold_select" is fold's select path (``fold_path``), whose ranges may
+    exceed the streaming kernels' 64."""
     return _plan(torch.cuda.current_device(), _MODES[scheme], n, q, d, k,
                  _tile_tiles(scheme, tile))
 
@@ -559,8 +572,44 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
     return out_d, out_i, out_t
 
 
-def knn_fold(points, queries, point_norms, *, k: int):
-    """Exact streaming top-k of u over padded points (the fold contract,
+#: fold's select path by width and k_scan: {widest d: ((k_scan, fewest
+#: queries, most queries or None), ...)}.  A call takes the tier of the
+#: narrowest width at or above its d (the widest past them all) and the row
+#: of the largest k_scan at or below its k (the first row below them all),
+#: and runs the select for fewest <= Q <= most, the streaming kernel
+#: otherwise.  Read from chip_smoke.py's table of both paths (phase
+#: fold_paths: SIFT 1M x 128 and GIST 1M x 960) on an NVIDIA H100 80GB HBM3
+#: at 700 W: the select's two product passes fill the card where the
+#: streaming kernel's few query tiles do not, and its cost does not grow
+#: with k; the streaming kernel's one pass wins for large batches at small
+#: k, and ties it for a few queries at k_scan 18 (the select's device time
+#: is lower, its host's launches and one read per pass are not; PERF.md §6).
+#: Past the 64 queries measured at d = 960 the streaming kernel stays.
+FOLD_SELECT_Q = {
+    128: ((18, 8, 64), (108, 1, 384), (208, 1, 768), (1008, 1, None)),
+    960: ((18, 3, 64), (108, 1, 64), (208, 1, 64), (1008, 1, 64)),
+}
+
+
+def fold_path(q: int, k: int, d: int) -> str:
+    """The path ``knn_fold`` takes on the card for Q queries, k and width
+    d (``FOLD_SELECT_Q``): "select", the radix select over fold's FP32
+    product (two product passes over row ranges that fill the card), or
+    "stream", the streaming kernel (one product pass).  A rule on the shape
+    alone; nothing is timed at run time."""
+    if not 1 <= k <= FOLD_K_MAX:
+        raise ValueError(f"knn_fold takes 1 <= k <= {FOLD_K_MAX}, got {k}")
+    tier = min((t for t in FOLD_SELECT_Q if d <= t),
+               default=max(FOLD_SELECT_Q))
+    rows = FOLD_SELECT_Q[tier]
+    _, fewest, most = max((r for r in rows if r[0] <= k), default=rows[0])
+    return "select" if fewest <= q and (most is None or q <= most) \
+        else "stream"
+
+
+def knn_fold(points, queries, point_norms, *, k: int,
+             path: str | None = None):
+    """Exact top-k of u over padded points (the fold contract,
     knn_kernel.py:969-991).
 
     ``points`` (N, d), ``point_norms`` (N,) as made by ``pad_for_pallas``
@@ -570,15 +619,51 @@ def knn_fold(points, queries, point_norms, *, k: int):
     order: rdist is ``u + ‖q‖²`` clamped at 0; empty slots and NaN query
     rows are (+inf, -1); ids of +inf-norm rows never appear.
 
-    CUDA tensors launch ``csrc/knn_fold.cu`` (counted in
-    ``knn_fold.launches``); CPU tensors run ``knn_fold_reference``.
+    CUDA tensors take one of two paths by shape (``fold_path``): the
+    streaming kernel of ``csrc/knn_fold.cu``, or the radix select of
+    ``csrc/knn_select.cu`` over the same FP32 u (rows sorted); ``path``
+    ("select" or "stream") forces one, for measurement.  Both give the
+    same u and rdist bits; at a tie at the k-th value they may keep
+    different ids.  ``knn_fold.launches`` counts one per call,
+    ``knn_fold.last_path`` names the path of the last call and
+    ``knn_fold.last_passes`` holds the select's collect passes per chunk of
+    queries (empty for the stream).  CPU tensors run
+    ``knn_fold_reference``.
     """
     _check(points, queries, point_norms, k, "knn_fold")
+    if path not in (None, "select", "stream"):
+        raise ValueError(f"knn_fold path is 'select' or 'stream', got "
+                         f"{path!r}")
     if points.device.type == "cpu":
         return knn_fold_reference(points, queries, point_norms, k=k)
-    out_d, out_i, _ = _launch("fold", points, queries, point_norms, k)
+    if path is None:
+        path = fold_path(queries.shape[0], k, points.shape[1])
+    if path == "select":
+        out_d, out_i, passes = _fold_select(points, queries, point_norms, k)
+    else:
+        out_d, out_i, _ = _launch("fold", points, queries, point_norms, k)
+        passes = []
     knn_fold.launches += 1
+    knn_fold.last_path = path
+    knn_fold.last_passes = passes
     return out_d, out_i
+
+
+def _fold_select(points, queries, point_norms, k: int):
+    """fold's select path on the card: the radix-select passes on the FP32
+    product, then rdist by ``knn_select_fold_out_launch`` (‖q‖² summed as
+    the streaming kernel sums it).  Returns (rdist, ids, passes)."""
+    queries = queries.contiguous()
+    u, ids, passes = _select(points, queries, point_norms, k, "fp32")
+    if u.shape[0]:
+        with torch.cuda.device(u.device):
+            err = _select_lib().knn_select_fold_out_launch(
+                queries.data_ptr(), u.data_ptr(), ids.data_ptr(), u.shape[0],
+                queries.shape[1], k, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"knn_fold rdist launch failed: cudaError "
+                               f"{err}")
+    return u, ids, passes
 
 
 def knn_fold_lazy(points, queries, point_norms, *, k: int):
@@ -653,13 +738,15 @@ def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
     return out
 
 
-def merge_layout(n: int, k: int) -> tuple[int, int]:
-    """(glog, width) of the merge's passes over n rows: groups of 2^glog
-    rows, the largest of 128, 64, 32 and 16 that still makes at least
-    1.5 k groups (16 where none does), and lists of width
-    ``min(8192, k + max(k, 1024))``."""
+def merge_layout(n: int, k: int, tier: str = "tc") -> tuple[int, int]:
+    """(glog, width) of the radix-select passes over n rows: groups of
+    2^glog rows, the largest of 128, 64, 32 and 16 that still makes at
+    least 1.5 k groups (16 where none does), and lists of width
+    ``min(8192, k + max(k, 1024))``.  On the FP32 product (``tier``
+    "fp32", fold's select path) a group stays inside one 64-row tile, so
+    the largest is 64."""
     glog = 4
-    for g in (7, 6, 5):
+    for g in ((7, 6, 5) if tier == "tc" else (6, 5)):
         if -(-n // (1 << g)) >= 1.5 * k:
             glog = g
             break
@@ -677,10 +764,16 @@ _MERGE_SCRATCH_BYTES = 512 << 20
 
 
 def _merge_chunk(points, queries, point_norms, k: int, splits: int,
-                 glog: int, width: int):
-    """The merge's passes (``csrc/knn_select.cu``) and its word sort on one
+                 glog: int, width: int, tier: str = "tc"):
+    """The radix-select passes (``csrc/knn_select.cu``) on the product of
+    ``tier`` ("tc": merge's; "fp32": fold's) and the word sort on one
     chunk of queries.  Returns (u (Q, k), ids (Q, k), collect passes)."""
     lib = _select_lib()
+    name = "knn_merge" if tier == "tc" else "knn_fold"
+    minima_launch, collect_launch = (
+        (lib.knn_select_minima_launch, lib.knn_select_collect_launch)
+        if tier == "tc" else (lib.knn_select_fp32_minima_launch,
+                              lib.knn_select_fp32_collect_launch))
     n, d = points.shape
     nq = queries.shape[0]
     dev = queries.device
@@ -699,12 +792,11 @@ def _merge_chunk(points, queries, point_norms, k: int, splits: int,
 
     def check(err, what):
         if err != 0:
-            raise RuntimeError(f"knn_merge {what} launch failed: "
+            raise RuntimeError(f"{name} {what} launch failed: "
                                f"cudaError {err}")
 
-    check(lib.knn_select_minima_launch(*ptr, minima.data_ptr(), n, nq, d,
-                                       groups, glog, splits, stream),
-          "minima")
+    check(minima_launch(*ptr, minima.data_ptr(), n, nq, d, groups, glog,
+                        splits, stream), "minima")
     check(lib.knn_select_bound_launch(
         minima.data_ptr(), nq, groups, k, lo.data_ptr(), hi.data_ptr(),
         shift.data_ptr(), below.data_ptr(), done.data_ptr(), cnt.data_ptr(),
@@ -712,7 +804,7 @@ def _merge_chunk(points, queries, point_norms, k: int, splits: int,
     del minima
     passes = 0
     while True:
-        check(lib.knn_select_collect_launch(
+        check(collect_launch(
             *ptr, lo.data_ptr(), hi.data_ptr(), shift.data_ptr(),
             done.data_ptr(), hist.data_ptr(), cnt.data_ptr(),
             words.data_ptr(), n, nq, d, width, splits, stream), "collect")
@@ -726,7 +818,7 @@ def _merge_chunk(points, queries, point_norms, k: int, splits: int,
         if not still_open:
             break
         if passes > _MAX_COLLECT_PASSES:
-            raise RuntimeError("knn_merge: the radix select did not end "
+            raise RuntimeError(f"{name}: the radix select did not end "
                                f"within {_MAX_COLLECT_PASSES} passes")
     sort_w = max(k, longest)
     out_u = torch.empty((nq, k), dtype=torch.float32, device=dev)
@@ -735,6 +827,42 @@ def _merge_chunk(points, queries, point_norms, k: int, splits: int,
         words.data_ptr(), cnt.data_ptr(), width, out_u.data_ptr(),
         out_i.data_ptr(), nq, sort_w, k, stream), "word sort")
     return out_u, out_i, passes
+
+
+def _select(points, queries, point_norms, k: int, tier: str):
+    """The radix select of ``csrc/knn_select.cu`` on the product of
+    ``tier`` over chunks of queries (each chunk's scratch within
+    ``_MERGE_SCRATCH_BYTES``), each chunk with its own launch plan.
+    Returns (u (Q, k) ascending, ids (Q, k), collect passes per chunk)."""
+    name = "knn_merge" if tier == "tc" else "knn_fold"
+    n, d = points.shape
+    nq = queries.shape[0]
+    if n >= 2 ** 31 or nq >= 2 ** 31:
+        raise ValueError(f"{name} ids are int32: N and Q must be < 2^31")
+    points = points.contiguous()
+    queries = queries.contiguous()
+    point_norms = point_norms.contiguous()
+    dev = queries.device
+    if nq == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev), [])
+    glog, width = merge_layout(n, k, tier)
+    per_q = 8 * (-(-n // (1 << glog)) + width)
+    step = max(64, _MERGE_SCRATCH_BYTES // per_q // 64 * 64)
+    mode = _MODES["merge" if tier == "tc" else "fold_select"]
+    us, ids, passes = [], [], []
+    with torch.cuda.device(dev):
+        for s in range(0, nq, step):
+            qc = queries[s:s + step]
+            splits, _ = _plan(_device_index(dev), mode, n, qc.shape[0], d, k,
+                              1)
+            u, i, p = _merge_chunk(points, qc, point_norms, k, splits, glog,
+                                   width, tier)
+            us.append(u)
+            ids.append(i)
+            passes.append(p)
+    return (torch.cat(us) if len(us) > 1 else us[0],
+            torch.cat(ids) if len(ids) > 1 else ids[0], passes)
 
 
 def knn_merge(points, queries, point_norms, *, k: int):
@@ -755,34 +883,9 @@ def knn_merge(points, queries, point_norms, *, k: int):
     _check(points, queries, point_norms, k, "knn_merge", MERGE_K_MAX)
     if points.device.type == "cpu":
         return knn_merge_reference(points, queries, point_norms, k=k)
-    n, d = points.shape
-    nq = queries.shape[0]
-    if n >= 2 ** 31 or nq >= 2 ** 31:
-        raise ValueError("knn_merge ids are int32: N and Q must be < 2^31")
-    points = points.contiguous()
-    queries = queries.contiguous()
-    point_norms = point_norms.contiguous()
-    dev = queries.device
-    if nq == 0:
-        return (torch.empty((0, k), dtype=torch.float32, device=dev),
-                torch.empty((0, k), dtype=torch.int32, device=dev))
-    tc_probe(dev)
-    glog, width = merge_layout(n, k)
-    per_q = 8 * (-(-n // (1 << glog)) + width)
-    step = max(64, _MERGE_SCRATCH_BYTES // per_q // 64 * 64)
-    us, ids, passes = [], [], []
-    with torch.cuda.device(dev):
-        for s in range(0, nq, step):
-            qc = queries[s:s + step]
-            splits, _ = _plan(_device_index(dev), _MODES["merge"], n,
-                              qc.shape[0], d, k, 1)
-            u, i, p = _merge_chunk(points, qc, point_norms, k, splits, glog,
-                                   width)
-            us.append(u)
-            ids.append(i)
-            passes.append(p)
-    u = torch.cat(us) if len(us) > 1 else us[0]
-    i = torch.cat(ids) if len(ids) > 1 else ids[0]
+    if queries.shape[0]:
+        tc_probe(queries.device)
+    u, i, passes = _select(points, queries, point_norms, k, "tc")
     qn = torch.sum(queries * queries, dim=1, keepdim=True)
     rd = torch.where(i < 0, torch.inf, torch.clamp_min(u + qn, 0.0))
     knn_merge.launches += 1
@@ -794,6 +897,8 @@ def knn_merge(points, queries, point_norms, *, k: int):
 knn_merge.launches = 0
 knn_merge.last_passes = []
 knn_fold.launches = 0
+knn_fold.last_path = None
+knn_fold.last_passes = []
 knn_fold_lazy.launches = 0
 knn_capped.launches = 0
 knn_bcap.launches = 0

@@ -1,5 +1,5 @@
 """The port stands alone: no module of petal_neighbors_tpu_torch, nor
-chip_smoke.py, imports jax or the JAX package."""
+chip_smoke.py or fold_profile.py, imports jax or the JAX package."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "petal_neighbors_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "fold_profile.py"]
 FORBIDDEN = ("jax", "jaxlib", "petal_neighbors_tpu")
 
 
@@ -42,10 +42,11 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"knn_kernel.py", "lp_kernel.py", "minima_kernel.py",
             "sort_kernel.py", "rank_sort_kernel.py", "bruteforce.py",
-            "topk.py", "convert.py", "chip_smoke.py"} <= names
+            "topk.py", "convert.py", "chip_smoke.py",
+            "fold_profile.py"} <= names
     csrc = ROOT / "petal_neighbors_tpu_torch" / "ops" / "cuda" / "csrc"
     assert {"knn_fold.cu", "knn_minima.cu", "knn_tiles.cuh", "lp_knn.cu",
-            "row_sort.cu"} <= {
+            "row_sort.cu", "knn_select.cu", "knn_tc.cuh"} <= {
         p.name for p in csrc.iterdir()}
 
 
