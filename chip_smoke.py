@@ -8,7 +8,8 @@ Phases, each printed as one JSON line on stdout:
 2. build    — compiles every kernel source under
               petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc; then
               build_ptxas, each kernel's registers, spills and stack frame
-              from ``-Xptxas -v`` (knn_fold.cu, knn_select.cu).
+              from ``-Xptxas -v`` (knn_fold.cu, knn_select.cu,
+              knn_minima.cu).
    tc_probe — the tensor-core tier's integrity probe (knn_kernel.tc_probe):
               its largest |u - u_f64| over the tier's bound, at most 1.
 3. kernel   — each kernel (fold, fold_lazy, capped, bcap, merge) against
@@ -23,12 +24,18 @@ Phases, each printed as one JSON line on stdout:
               with its radix passes per call).  Sorted rdist and
               thresholds must agree within the stated tolerance, and an id
               may differ only against one of near-equal rdist; fold_lazy
-              must also give fold's rdist bit for bit.  The two minima
-              kernels (subchunk, block) against their plain versions at
-              ragged row counts, d = 17 to 130, NaN rows and queries, 1 and
-              several row ranges, and at the SIFT shape.  The two row
-              sorts (bitonic, rank; one block sort on the card) against a
-              stable ``torch.sort``, keys bit for bit and payloads exact:
+              must also give fold's rdist bit for bit, and bcap's
+              block-min rdist at its ids must equal the rdist made from
+              the block-minima kernel's columns at the same ids, bit for
+              bit (bcap_is_minima: one tensor-core epilogue).  The two
+              minima kernels (subchunk, block) against their plain
+              versions at ragged row counts, d = 17 to 130 and 960, NaN
+              rows and queries, 1 and several row ranges, and at the SIFT
+              shape; the block minima with the query planes resident and
+              streamed, the same bits, both timed at the SIFT shape.  The
+              two row sorts (bitonic, rank; one block sort on the card)
+              against a stable ``torch.sort``, keys bit for bit and
+              payloads exact:
               both entry points on the edge rows (all keys equal, only
               +inf, negative keys, -0.0 among +0.0) at widths 1 to 8192;
               rows with duplicate keys and +inf tails at the path's
@@ -55,8 +62,9 @@ Phases, each printed as one JSON line on stdout:
               as bench.py makes them) answering 10,240 queries at k=10
               (bcap), k=100 and k=200 (capped); every kernel's launches in
               that run (fold's by path) and the queries each fold repair
-              carried, the repair's time on its path and on the streaming
-              kernel; every
+              carried (under the proof's tier, "tc" for bcap and capped),
+              the repair's time on its path and on the streaming kernel;
+              every
               query's ids against a chunked f64 oracle on the card, where
               an id may differ only by a swap that f32 direct-form
               distances cannot order.
@@ -86,9 +94,10 @@ Phases, each printed as one JSON line on stdout:
               its main path's largest repair, with the whole batch, its
               launches by path, the cutover and every repair shape beside
               it); its tier
-              ("tc" for capped and merge, whose bound is the tensor cores'
-              six bf16 products, with the FP32 SIMT bound beside it as
-              simt_bound_ms; "fp32" for the others, with tc_bound_ms).
+              ("tc" for capped, bcap, merge and the block minima, whose
+              bound is the tensor cores' six bf16 products, with the FP32
+              SIMT bound beside it as simt_bound_ms; "fp32" for the
+              others, with tc_bound_ms).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA card is present or any
@@ -126,7 +135,7 @@ PEAK_FP32_INSTR_S = PEAK_FP32_FLOP_S / 2
 PEAK_BF16_FLOP_S = 989e12
 #: the kernels whose u comes from the split-bf16 tensor-core product: six
 #: bf16 products per FP32 product
-TC_SCHEMES = ("capped", "merge")
+TC_SCHEMES = ("capped", "merge", "bcap")
 TC_PRODUCTS = 6
 KNN_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_fold.cu"
 SELECT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_select.cu"
@@ -232,13 +241,17 @@ def tc_bound_ms(n: int, q: int, d: int, k: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def minima_bound_ms(n: int, q: int, d: int, rows: int) -> tuple[float, str]:
+def minima_bound_ms(n: int, q: int, d: int, rows: int,
+                    tier: str = "fp32") -> tuple[float, str]:
     """Least time for a minima kernel's work: points, norms and queries
     read once and the (Q, ceil(N / rows)) minima written once over the
-    memory rate, against 2*Q*N*d FP32 FLOP over the SIMT peak."""
+    memory rate, against 2*Q*N*d FP32 FLOP over the SIMT peak (tier
+    "fp32"), or six bf16 products of it over the tensor cores' (tier
+    "tc")."""
     bytes_ = 4 * (n * d + n + q * d) + 4 * q * -(-n // rows)
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
-    t_ops = 2.0 * q * n * d / PEAK_FP32_FLOP_S * 1e3
+    t_ops = 2.0 * q * n * d * (TC_PRODUCTS / PEAK_BF16_FLOP_S
+                               if tier == "tc" else 1 / PEAK_FP32_FLOP_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -578,9 +591,11 @@ def library_minima(points, queries, norms, rows: int):
 
 #: (n, q, d, pad rows) of the minima kernels' small shapes: row counts no
 #: multiple of 16 or 128 (tn=1: no padding), d = 17 and 130 on the scalar
-#: loads (130 in two feature chunks), 70,001 rows split into row ranges
+#: loads (130 in two feature chunks), d = 960 (the block minima stream
+#: their query planes), 70,001 rows split into row ranges
 MINIMA_CASES = ((5003, 301, 128, 1), (4099, 130, 130, 1), (3001, 70, 17, 1),
-                (70001, 300, 64, 64), (70001, 200, 128, 1), (1, 3, 8, 1))
+                (70001, 300, 64, 64), (70001, 200, 128, 1), (1, 3, 8, 1),
+                (4099, 130, 960, 1))
 
 
 def phase_minima_small(rng):
@@ -602,6 +617,36 @@ def phase_minima_small(rng):
                  max_abs_err=err,
                  splits=minima_plan(kind, spp.shape[0], q, d), ok=True)
     return worst
+
+
+def bcap_is_minima(pp, qt, pn, k: int, tile: int, passes: int) -> int:
+    """bcap's block-min rdist at its returned ids against the rdist made
+    from the block-minima kernel's columns at the same ids (‖q‖² added by
+    csrc/knn_select.cu's fold_out kernel, as csrc/knn_fold.cu adds it):
+    equal bit for bit, both from one tensor-core epilogue.  Returns the
+    ids compared."""
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+    from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
+
+    rd, ids, _ = kk.knn_bcap(pp, qt, pn, k=k, tile=tile, passes=passes)
+    minima = mk.bcap_minima(pp, qt, pn)
+    got = ids >= 0
+    u = torch.where(got, torch.gather(minima, 1, ids.clamp_min(0).long()),
+                    torch.inf).contiguous()
+    ids = ids.contiguous()
+    qt = qt.contiguous()
+    err = kk._select_lib().knn_select_fold_out_launch(
+        qt.data_ptr(), u.data_ptr(), ids.data_ptr(), qt.shape[0],
+        qt.shape[1], k, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"fold_out launch failed: cudaError {err}")
+    if not torch.equal(rd[got].view(torch.int32), u[got].view(torch.int32)):
+        bad = int((rd[got].view(torch.int32) != u[got].view(torch.int32))
+                  .sum())
+        raise AssertionError(f"bcap k={k}: {bad} block-min rdist differ "
+                             "from the block minima's")
+    return int(got.sum())
 
 
 def small_inputs(rng, n, q, d):
@@ -652,6 +697,7 @@ SMALL_CASES = (
     ("bcap", 700, 64, 5, 1, 9, 12, 1),
     ("bcap", 70001, 300, 128, 1, 18, 128, 2),
     ("bcap", 70001, 200, 128, 64, 256, 256, 4),
+    ("bcap", 4099, 130, 960, 1, 18, 128, 2),
     ("merge", 1203, 301, 128, 1, 1100, 1, 0),
     ("merge", 2100, 130, 130, 1, 2048, 1, 0),
     ("merge", 4200, 70, 64, 64, 4096, 1, 0),
@@ -965,6 +1011,9 @@ def phase_kernel(pp, pn, queries_c):
         extra = {}
         if scheme == "fold_lazy":
             extra["tied_rows_vs_fold"] = lazy_is_fold(spp, qt, spn, k)
+        if scheme == "bcap":
+            extra["ids_equal_to_minima"] = bcap_is_minima(spp, qt, spn, k,
+                                                          tile, passes)
         emit("kernel", name=f"knn_{scheme}", n=n, q=q, d=d, k=k, tile=tile,
              passes=passes, max_abs_err=err, tied_rows=tied, plan=plan,
              **extra, ok=True)
@@ -992,6 +1041,9 @@ def phase_kernel(pp, pn, queries_c):
             extra["radix_passes"] = list(kk.knn_merge.last_passes)
             extra["ms_at_k16"] = cuda_ms(lambda: _run(
                 scheme, False, pp, qt, pn, 16, 1, 0), reps=2)
+        if scheme == "bcap":
+            extra["ids_equal_to_minima"] = bcap_is_minima(pp, qt, pn, k,
+                                                          tile, passes)
         if scheme == "fold_lazy":
             # fold on the same work, in the same call, and the two equal
             extra["tied_rows_vs_fold"] = lazy_is_fold(pp, qt, pn, k)
@@ -1004,25 +1056,32 @@ def phase_kernel(pp, pn, queries_c):
         emit("kernel", name=f"knn_{scheme}", **row, ok=True)
         rows[scheme, k_req] = row
 
-    # the minima kernels at the SIFT shape: all 10,240 queries
-    for kind, name, fn, width in (("subchunk", "subchunk_minima",
-                                   mk.subchunk_minima, mk.SUBCHUNK),
-                                  ("block", "bcap_minima", mk.bcap_minima,
-                                   mk.BCAP_BLOCK)):
+    # the minima kernels at the SIFT shape: all 10,240 queries; the block
+    # minima on the tensor-core tier, also with the query planes streamed
+    for kind, name, fn, width, tier in (
+            ("subchunk", "subchunk_minima", mk.subchunk_minima, mk.SUBCHUNK,
+             "fp32"),
+            ("block", "bcap_minima", mk.bcap_minima, mk.BCAP_BLOCK, "tc")):
         err, plain = compare_minima(kind, pp, queries_c, pn)
         errs[name] = max(errs[name], err)
         ms = cuda_ms(lambda: fn(pp, queries_c, pn), reps=3)
         lib = cuda_ms(lambda: library_minima(pp, queries_c, pn, width),
                       reps=2)
-        bound, by = minima_bound_ms(pp.shape[0], N_Q, DIM, width)
+        bound, by = minima_bound_ms(pp.shape[0], N_Q, DIM, width, tier)
+        other = minima_bound_ms(pp.shape[0], N_Q, DIM, width,
+                                "fp32" if tier == "tc" else "tc")[0]
         row = dict(n=pp.shape[0], q=N_Q, d=DIM, rows=width,
                    splits=mk.minima_plan(kind, pp.shape[0], N_Q, DIM),
-                   peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, H100 "
-                        "SXM data sheet",
                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                   bound_ms=bound, bound_by=by, tier="fp32",
-                   tc_bound_ms=TC_PRODUCTS * 2.0 * N_Q * pp.shape[0] * DIM
-                   / PEAK_BF16_FLOP_S * 1e3)
+                   bound_ms=bound, bound_by=by, tier=tier)
+        if tier == "tc":
+            row.update(simt_bound_ms=other,
+                       peak="bf16 dense 989 TFLOP/s x 6 products and HBM "
+                            "3.35 TB/s, H100 SXM data sheet")
+        else:
+            row.update(tc_bound_ms=other,
+                       peak="FP32 non-tensor 67 TFLOP/s and HBM 3.35 TB/s, "
+                            "H100 SXM data sheet")
         emit("kernel", name=name, **row, ok=True)
         rows[name, None] = row
     return rows, errs
@@ -1520,6 +1579,7 @@ def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
                 walls.append(time.perf_counter() - t0)
             if scheme == "two_phase":
                 fallbacks.append(bf.last_two_phase_fallback)
+        tier = bf.last_proof_tier
         got = {s: w.launches - before[s] for s, w in wrappers.items()}
         if d.shape != (N_Q, k) or not bool(torch.isfinite(d).all()):
             raise AssertionError(f"{scheme} k={k}: bad output "
@@ -1528,7 +1588,7 @@ def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
             raise AssertionError(f"{scheme} k={k}: distances not ascending")
         recall, swaps, worst = check_vs_oracle(index, pdev, qdev, i,
                                                oracle_ids[:, :k])
-        extra = {}
+        extra = {"proof_tier": tier} if tier is not None else {}
         if scheme == "bcap2":
             extra["repaired_queries_per_call"] = list(fold_rows)
         if scheme == "two_phase":
@@ -1574,7 +1634,8 @@ def main() -> int:
         print(f"[nvcc {name}]\n{log}", file=sys.stderr)
     emit("build_ptxas", **{name: ptxas_summary(log) for name, log in
                            logs.items() if name in ("knn_fold",
-                                                    "knn_select")})
+                                                    "knn_select",
+                                                    "knn_minima")})
     tc_ratio = phase_tc_probe()
 
     rng = np.random.default_rng(SEED)
@@ -1627,7 +1688,7 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         fold_paths.update(select=0, stream=0)
-        out, per_k, repaired, radix_passes = {}, {}, {}, {}
+        out, per_k, repaired, radix_passes, tiers = {}, {}, {}, {}, {}
         for k, scheme in ks.items():
             before = {s: w.launches for s, w in wrappers.items()}
             fold_rows.clear()
@@ -1649,6 +1710,7 @@ def main() -> int:
             per_k[k] = {s: w.launches - before[s]
                         for s, w in wrappers.items()}
             repaired[k] = list(fold_rows) if scheme != "fold" else []
+            tiers[k] = bf.last_proof_tier
         got = {s: w.launches for s, w in wrappers.items()}
         for s in need:
             if got[s] == 0:
@@ -1676,6 +1738,9 @@ def main() -> int:
                          for s, k_req in rows
                          if k_req == k and s in (scheme, "fold")}
             extra = {}
+            if tiers[k] is not None:
+                # the bound the repaired counts were proved under
+                extra["proof_tier"] = tiers[k]
             if radix_passes[k]:
                 extra["radix_passes_per_call"] = radix_passes[k]
             if phase == "main_large_k":
@@ -1793,7 +1858,11 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "tier": "fp32", "tc_bound_ms": row["tc_bound_ms"],
+            "tier": row["tier"],
+            **({"tc_probe_max_err_over_bound": tc_ratio}
+               if row["tier"] == "tc" else {}),
+            **{key: row[key] for key in ("simt_bound_ms", "tc_bound_ms")
+               if key in row},
             "shape": {key: row[key] for key in ("n", "q", "d", "rows",
                                                 "splits")}})
     kernels.append({

@@ -99,6 +99,10 @@ _INF_BITS = 0x7F800000
 #: its whole batch (some query's proof failed)
 last_two_phase_fallback = False
 
+#: the tier whose bound the most recent proof-gated call proved its
+#: queries on ("fp32" or "tc"); None after a call on the fold route
+last_proof_tier: str | None = None
+
 
 def center_of(points: torch.Tensor) -> torch.Tensor:
     """Dataset mean for centering (NaN rows ignored; all-NaN columns -> 0).
@@ -263,12 +267,13 @@ def _proof_err(dim: int, qn, xn_max, tier: str = "fp32"):
     """Pointwise |computed u − true u| bound of the product tier that made
     the candidates, times ‖q‖² + max ‖x‖².
 
-    ``"fp32"`` (fold, bcap, the minima kernels: the FP32 SIMT product;
-    ops/bruteforce.py:277-281 at "highest"): 4x the f32 rounding plus the
-    sequential-sum accumulation term d·2⁻²⁴.
+    ``"fp32"`` (fold, fold_lazy and the subchunk minima of two_phase: the
+    FP32 SIMT product; ops/bruteforce.py:277-281 at "highest"): 4x the f32
+    rounding plus the sequential-sum accumulation term d·2⁻²⁴.
 
-    ``"tc"`` (capped: the split-bf16 tensor-core product, ``_u_tc``,
-    ``csrc/knn_tc.cuh``), ``(4 + 12·⌈d/16⌉)·2⁻²³``
+    ``"tc"`` (capped, bcap and the block minima of bcap2: the split-bf16
+    tensor-core product, ``_u_tc``, ``csrc/knn_tc.cuh``),
+    ``(4 + 12·⌈d/16⌉)·2⁻²³``
     (``knn_kernel.tc_proof_err``).  With S = Σ|q_i x_i| ≤ ‖q‖‖x‖ ≤
     (‖q‖² + ‖x‖²)/2 and s = 6·⌈d/16⌉ mma steps:
       * the split: hi + mid + lo == x exactly, |mid| ≤ 2⁻⁸|x|, |lo| ≤
@@ -506,16 +511,19 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
       block minima.  Their threshold ``thr`` lower-bounds every
       point left out, so a query is covered when its re-scored k-th
       distance is at most ``thr − err`` (``_proof_err`` of the tier that
-      made the candidates: the tensor-core one for capped); uncovered
+      made the candidates: the tensor-core one for all three); uncovered
       queries are recomputed by the fold kernel (``_prove_repair``);
     * two_phase's threshold is the k-th smallest subchunk minimum.  If the
       proof leaves any query uncovered, the whole batch re-runs the fold
       route (fold up to k_scan 1024, merge above), as the reference does;
       ``last_two_phase_fallback`` records whether the last call did.
 
+    ``last_proof_tier`` records the tier of the last call's proof.
+
     Returns (distances, ids), (Q, k_eff), ascending; NaN queries and
     missing slots are (+inf, -1)."""
-    global last_two_phase_fallback
+    global last_two_phase_fallback, last_proof_tier
+    last_proof_tier = None
     if center is not None:
         queries = queries - center
     if normalize_q:
@@ -542,7 +550,10 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
         return to_out(best_rd), best_i
     qn = torch.sum(queries * queries, dim=1)
     xn_max = torch.max(torch.where(torch.isfinite(xn_padded), xn_padded, 0.0))
-    err = _proof_err(queries.shape[1], qn, xn_max)
+    # the tier that made the candidates and thr: two_phase's subchunk minima
+    # are FP32 SIMT, capped, bcap and bcap2's the tensor-core product
+    last_proof_tier = "fp32" if scheme == "two_phase" else "tc"
+    err = _proof_err(queries.shape[1], qn, xn_max, tier=last_proof_tier)
     if scheme == "two_phase":
         # ops/bruteforce.py:955-981: one uncovered query sends the whole
         # batch to the fold route; with the k nearest points in k different
@@ -589,8 +600,6 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
         passes = capped_passes(k_scan, tile, n_real, scheme)
         rd, idx, thr = knn_capped(pts_padded, queries, xn_padded, k=k_scan,
                                   tile=tile, passes=passes)
-        # the tensor-core tier made capped's candidates and threshold
-        err = _proof_err(queries.shape[1], qn, xn_max, tier="tc")
         covers_all = k_scan >= n_real
         # a seed slot may hold a NaN or padding row at +inf: the direct
         # form would score its zeroed copy as finite, so it goes as -1

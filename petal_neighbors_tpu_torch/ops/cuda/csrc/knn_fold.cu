@@ -12,9 +12,11 @@
 //               point outside the working set can lie.
 //   MODE_BCAP   _knn_kernel_bcap (:546): the capped scheme over the minima
 //               of blocks of BLOCK = 16 contiguous rows; returns block ids.
-// fold, fold_lazy and bcap score on the FP32 SIMT tile product scan_tiles
-// (knn_tiles.cuh); capped on the split-bf16 tensor-core product tc::scan
-// (knn_tc.cuh), the TPU kernel's "highest" arithmetic.  The Euclidean merge
+// fold and fold_lazy score on the FP32 SIMT tile product scan_tiles
+// (knn_tiles.cuh); capped and bcap on the split-bf16 tensor-core product
+// (knn_tc.cuh), the TPU kernels' "highest" arithmetic: capped reads its u
+// tile (tc::scan), bcap only the 16-row block minima reduced in the mma
+// registers (tc::scan_minima), bit for bit knn_minima.cu's.  The Euclidean merge
 // (_knn_kernel_merge) lives in knn_select.cu, on the tensor-core product.
 // MODE_FOLD serves fold's large batches; small ones (the route's repairs)
 // run knn_select.cu's radix select over the same u (fold_pass_kernel), as
@@ -37,24 +39,25 @@
 // thr = min(max of the set, miss) + ||q||^2.  Every point outside the set
 // has u >= thr - ||q||^2: the caller's proof certifies the top-k with it.
 //
-// What bounds them on this card: fold, fold_lazy and bcap, FP32 arithmetic
-// on the SIMT cores, 2*Q*N*d FLOP (one FMA per query, row and feature);
-// capped, six bf16 products on the tensor cores, 6 * 2*Q*N*d FLOP at 989
+// What bounds them on this card: fold and fold_lazy, FP32 arithmetic on
+// the SIMT cores, 2*Q*N*d FLOP (one FMA per query, row and feature); capped
+// and bcap, six bf16 products on the tensor cores, 6 * 2*Q*N*d FLOP at 989
 // TFLOP/s.  The point set is streamed once per query tile through shared
 // memory: N*d*4 bytes per 64 queries, far under the arithmetic time.
 //
 // Design:
-//   * one block = TQ = 64 queries, 256 threads = 8 warps (capped: 128
-//     queries, 512 threads, the tensor-core product's tile); warp w owns
-//     queries 8w..8w+7.  Each half-warp owns 4 of them, and each of its 16
-//     lanes holds 4 x 4 scores (4 queries x 4 points: rows xg, xg+16,
-//     xg+32, xg+48 of a 64-row tile), so one half-warp holds all TN = 64
-//     scores of its 4 queries, and row block i (rows 16i..16i+15) is slot i
-//     of the 16 lanes: a bcap block minimum is a half-warp shuffle
-//     reduction.  On the SIMT product the scores are the lane's own
-//     register tile; capped reads them from the tensor-core product's u
-//     tile in shared memory (128 rows, two 64-row tiles of selection),
-//     which decouples the mma fragment layout from the selection.
+//   * one block = TQ = 64 queries, 256 threads = 8 warps (capped and bcap:
+//     128 queries, 512 threads, the tensor-core product's tile); warp w
+//     owns queries 8w..8w+7.  Each half-warp owns 4 of them, and each of
+//     its 16 lanes holds 4 x 4 scores (4 queries x 4 points: rows xg,
+//     xg+16, xg+32, xg+48 of a 64-row tile), so one half-warp holds all
+//     TN = 64 scores of its 4 queries.  On the SIMT product the scores are
+//     the lane's own register tile; capped reads them from the tensor-core
+//     product's u tile in shared memory (128 rows, two 64-row tiles of
+//     selection), which decouples the mma fragment layout from the
+//     selection.  bcap reads the 4 block minima of each 64-row half of the
+//     product's 128 x 8 block-minima array (every lane of a half-warp the
+//     same 4 of its query).
 //   * the SIMT product streams rows in tiles of TN = 64, staged in shared
 //     memory with their norms, in chunks of DC = 128 features,
 //     double-buffered with cp.async.  Rows are padded to a stride of
@@ -77,7 +80,13 @@
 //     smallest candidates of the current tile, one entry per lane of its
 //     half-warp (insertion = ballot + shuffle-up); at the tile's end its
 //     first `passes` entries are folded into the set and entry `passes`
-//     lowers miss.
+//     lowers miss.  bcap with passes < LANE_LIST (the route's k=10 runs 2)
+//     fills that list only at the tile's end: until then each lane keeps
+//     its own sorted list of LANE_LIST candidates in registers, of one
+//     query and every fourth block, with no vote or shuffle per candidate,
+//     and the four lanes of a query merge theirs.  Either way the list
+//     holds the tile's passes+1 smallest (value, id), whatever the order
+//     the candidates came in.
 //   * the TPU runs its grid in order on one core; this card runs blocks in
 //     parallel on 132 SMs, and Q/64 query tiles rarely fill them evenly
 //     (10,240 queries make 160 tiles).  So the host may split the rows into
@@ -110,6 +119,8 @@ __host__ __device__ constexpr bool folds(int mode) {
 
 constexpr int BLOCK = 16;     // rows per bcap block
 constexpr int MAX_PASSES = 15;  // the list of passes+1 entries spans 16 lanes
+// bcap with passes < LANE_LIST keeps a list in each lane's registers
+constexpr int LANE_LIST = 4;
 constexpr int MAX_K = 1024;
 
 // The smallest of the half-warp's candidates (v, cid), ties to the smaller
@@ -318,17 +329,30 @@ __device__ __forceinline__ void flush_list(float& lv, int& li, float& tau,
 // range's miss (capped, bcap); counters (ceil(q / QT),), zeroed, elect the
 // last block of each query tile to merge.  Ranges are whole tiles of
 // tile_tiles x TN rows (1 for fold).
-// Queries and threads per block of a mode: capped's tensor-core product
-// takes tc::TQ = 128 queries on 512 threads; the SIMT modes TQ = 64 on 256.
-// Either way a half-warp owns 4 queries.
+// Queries and threads per block of a mode: capped's and bcap's tensor-core
+// product takes tc::TQ = 128 queries on 512 threads; the SIMT modes TQ = 64
+// on 256.  Either way a half-warp owns 4 queries.
+__host__ __device__ constexpr bool on_tc(int mode) {
+  return mode == MODE_CAPPED || mode == MODE_BCAP;
+}
 __host__ __device__ constexpr int block_queries(int mode) {
-  return mode == MODE_CAPPED ? tc::TQ : TQ;
+  return on_tc(mode) ? tc::TQ : TQ;
 }
 __host__ __device__ constexpr int block_threads(int mode) {
-  return mode == MODE_CAPPED ? tc::THREADS : THREADS;
+  return on_tc(mode) ? tc::THREADS : THREADS;
 }
 static_assert(tc::THREADS == 4 * tc::TQ && THREADS == 4 * TQ,
               "a half-warp owns 4 queries");
+static_assert(tc::BLOCK == BLOCK && tc::TN == 2 * TN,
+              "a tensor-core tile is two 64-row tiles of selection");
+
+// Floats of shared memory the tile product of `mode` takes at width d
+// (bcap keeps the query planes resident where it can).
+__host__ __device__ __forceinline__ int product_floats(int mode, int d) {
+  return mode == MODE_CAPPED ? tc::smem_floats(d)
+         : mode == MODE_BCAP ? tc::minima_smem_floats(d, tc::hoists(d))
+                             : tile_floats(d);
+}
 
 template <int MODE, bool VEC>
 __global__ void __launch_bounds__(block_threads(MODE))
@@ -352,7 +376,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   int* ws_i;
   if (ws_in_smem) {
     // [QT][k] after the tile product's own shared memory
-    ws_d = smem + (MODE == MODE_CAPPED ? tc::smem_floats(d) : tile_floats(d));
+    ws_d = smem + product_floats(MODE, d);
     ws_i = reinterpret_cast<int*>(ws_d + QT * k);
   } else {
     ws_d = part_d + split * qk + static_cast<long long>(q0) * k;
@@ -376,6 +400,15 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   float tau[4], miss[4], lv[4];
   int amax[4], fill[4], li[4];
   bool live[4];
+  // bcap, passes < LANE_LIST: this lane's sorted (value, id) list of the
+  // LANE_LIST smallest candidates it read in the current tile
+  float own_v[LANE_LIST];
+  int own_i[LANE_LIST];
+#pragma unroll
+  for (int e = 0; e < LANE_LIST; ++e) {
+    own_v[e] = INFINITY;
+    own_i[e] = INT_MAX;
+  }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     live[j] = q0 + rbase + j < q;
@@ -397,8 +430,62 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   const long long t_begin = min(ntiles, per * split);
   const long long t_end = min(ntiles, t_begin + per);
 
-  // ---- a 64-row tile's scores into the working sets: uval(j, i) is u of
-  // query rbase + j and row t*TN + xg + 16 i -------------------------------
+  // ---- capped, bcap: at the end of each tile of tile_tiles x TN rows, or
+  // of the range, the lists fold into the working sets ---------------------
+  auto tile_end = [&](long long t) {
+    if ((t - t_begin + 1) % tile_tiles == 0 || t + 1 == t_end) {
+      if (MODE == MODE_BCAP && passes < LANE_LIST) {
+        // the four lanes of query j (lanes 4j .. 4j+3 of the half-warp)
+        // merge their lists: entry e, the least of their heads, goes to
+        // lane e of the half-warp's list, and its lane pops it
+        for (int e = 0; e <= passes; ++e) {
+          float m = own_v[0];
+          int id = own_i[0];
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            const float om = __shfl_xor_sync(FULL, m, off);
+            const int oid = __shfl_xor_sync(FULL, id, off);
+            if (lex_less(om, oid, m, id)) {
+              m = om;
+              id = oid;
+            }
+          }
+          if (own_v[0] == m && own_i[0] == id) {
+#pragma unroll
+            for (int f = 0; f + 1 < LANE_LIST; ++f) {
+              own_v[f] = own_v[f + 1];
+              own_i[f] = own_i[f + 1];
+            }
+            own_v[LANE_LIST - 1] = INFINITY;
+            own_i[LANE_LIST - 1] = INT_MAX;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float vj = __shfl_sync(FULL, m, 4 * j, 16);
+            const int ij = __shfl_sync(FULL, id, 4 * j, 16);
+            if (xg == e) {
+              lv[j] = vj;
+              li[j] = ij;
+            }
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < LANE_LIST; ++f) {
+          own_v[f] = INFINITY;
+          own_i[f] = INT_MAX;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        flush_list(lv[j], li[j], tau[j], amax[j], miss[j],
+                   ws_d + (rbase + j) * k, ws_i + (rbase + j) * k, k,
+                   passes, live[j], first_flush, xg);
+      first_flush = false;
+    }
+  };
+
+  // ---- fold, fold_lazy, capped: a 64-row tile's scores into the working
+  // sets; uval(j, i) is u of query rbase + j and row t*TN + xg + 16 i ------
   auto tile_body = [&](long long t, auto&& uval) {
       if (MODE == MODE_FOLD_LAZY) {
         // one fused test for the warp's 8 queries: a NaN score fails it, as
@@ -432,7 +519,7 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
         for (int j = 0; j < 4; ++j)
           fold_query(v[j], cid, tau[j], amax[j], fill[j],
                      ws_d + (rbase + j) * k, ws_i + (rbase + j) * k, k, xg);
-      } else if (MODE == MODE_CAPPED) {
+      } else {   // MODE_CAPPED
         const long long rel0 = (t - t_begin) * TN;   // row offset in range
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -452,53 +539,77 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
           }
           capped_insert(v[j], cid, lv[j], li[j], passes, xg, qg);
         }
-      } else {   // MODE_BCAP
-        const long long relb0 = (t - t_begin) * (TN / BLOCK);
-        const int bid0 = static_cast<int>(t * (TN / BLOCK));
+        tile_end(t);
+      }
+  };
+
+  // ---- bcap: a 64-row tile's 4 block minima into the lists.  bb[j * tc::BS
+  // + i] is the least u of query rbase + j over rows t*TN + 16 i .. + 15
+  // (NaN for a NaN query).  The range's first k blocks seed the working
+  // set.  With passes < LANE_LIST lane xg takes query xg / 4's block xg % 4
+  // into its own list (no vote, no shuffle); the lists merge at the tile's
+  // end (tile_end).  Otherwise each query's blocks enter the half-warp's
+  // list one by one, as capped's candidates do. --------------------------
+  auto bcap_body = [&](long long t, const float* bb) {
+    const long long relb0 = (t - t_begin) * (TN / BLOCK);
+    const int bid0 = static_cast<int>(t * (TN / BLOCK));
+    if (relb0 < k && xg == 0) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float bm[4];
+      for (int j = 0; j < 4; ++j) {
+        // a NaN query's minima are all NaN, a finite one's none
+        const bool qnan = bb[j * tc::BS] != bb[j * tc::BS];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float b = v[j][i];
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1) {
-              const float o = __shfl_xor_sync(FULL, b, off);
-              b = o < b ? o : b;
-            }
-            bm[i] = b;
-          }
-          float thv = __shfl_sync(FULL, lv[j], passes, 16);
-          int thi = __shfl_sync(FULL, li[j], passes, 16);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int bid = bid0 + i;
-            if (relb0 + i < k) {
-              if (xg == 0 && live[j] &&
-                  static_cast<long long>(bid) * BLOCK < n) {
-                ws_d[(rbase + j) * k + relb0 + i] =
-                    qnan[j] ? INFINITY : bm[i];
-                ws_i[(rbase + j) * k + relb0 + i] = qnan[j] ? -1 : bid;
-              }
-              continue;
-            }
-            const bool ins = bm[i] < INFINITY && lex_less(bm[i], bid, thv, thi);
-            if (!__any_sync(FULL, ins)) continue;
-            list_insert(lv[j], li[j], bm[i], bid, ins, xg, qg);
-            thv = __shfl_sync(FULL, lv[j], passes, 16);
-            thi = __shfl_sync(FULL, li[j], passes, 16);
+        for (int i = 0; i < 4; ++i) {
+          const int bid = bid0 + i;
+          const float b = bb[j * tc::BS + i];
+          if (relb0 + i < k && live[j] &&
+              static_cast<long long>(bid) * BLOCK < n) {
+            ws_d[(rbase + j) * k + relb0 + i] =
+                qnan || !(b < INFINITY) ? INFINITY : b;
+            ws_i[(rbase + j) * k + relb0 + i] = qnan ? -1 : bid;
           }
         }
       }
-      if (!folds(MODE) &&
-          ((t - t_begin + 1) % tile_tiles == 0 || t + 1 == t_end)) {
+    }
+    if (passes < LANE_LIST) {
+      const int i = xg & 3;
+      const float c = bb[(xg >> 2) * tc::BS + i];
+      const int id = bid0 + i;
+      // NaN and +inf never enter
+      if (relb0 + i >= k && c < INFINITY &&
+          lex_less(c, id, own_v[LANE_LIST - 1], own_i[LANE_LIST - 1])) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          flush_list(lv[j], li[j], tau[j], amax[j], miss[j],
-                     ws_d + (rbase + j) * k, ws_i + (rbase + j) * k, k,
-                     passes, live[j], first_flush, xg);
-        first_flush = false;
+        for (int e = LANE_LIST - 1; e > 0; --e) {
+          const bool before = lex_less(c, id, own_v[e - 1], own_i[e - 1]);
+          if (before || lex_less(c, id, own_v[e], own_i[e])) {
+            own_v[e] = before ? own_v[e - 1] : c;
+            own_i[e] = before ? own_i[e - 1] : id;
+          }
+        }
+        if (lex_less(c, id, own_v[0], own_i[0])) {
+          own_v[0] = c;
+          own_i[0] = id;
+        }
       }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float thv = __shfl_sync(FULL, lv[j], passes, 16);
+        int thi = __shfl_sync(FULL, li[j], passes, 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int bid = bid0 + i;
+          const float b = bb[j * tc::BS + i];
+          const bool ins = relb0 + i >= k && b < INFINITY &&
+                           lex_less(b, bid, thv, thi);
+          if (!__any_sync(FULL, ins)) continue;
+          list_insert(lv[j], li[j], b, bid, ins, xg, qg);
+          thv = __shfl_sync(FULL, lv[j], passes, 16);
+          thi = __shfl_sync(FULL, li[j], passes, 16);
+        }
+      }
+    }
+    tile_end(t);
   };
 
   if constexpr (MODE == MODE_CAPPED) {
@@ -512,6 +623,15 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
         tile_body(row0 / TN + h, [&](int j, int i) {
           return ub[j * tc::US + 16 * i];
         });
+      }
+    });
+  } else if constexpr (MODE == MODE_BCAP) {
+    // the same 128-row tiles, read as block minima
+    tc::scan_minima<VEC>(points, queries, norms, n, q, d, q0, t_begin * TN,
+                         t_end * TN, tc::hoists(d), smem,
+                         [&](long long row0, int rows, const float* bm) {
+      for (int h = 0; h * TN < rows; ++h) {
+        bcap_body(row0 / TN + h, bm + rbase * tc::BS + h * (TN / BLOCK));
       }
     });
   } else {
@@ -620,13 +740,14 @@ cudaError_t set_smem(size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Shared memory of one fold, fold_lazy, capped or bcap block, and the
-// attribute that allows it: the tile staging plus the working sets when
-// ws_in_smem.
 // Shared memory of the tile product of `mode` at width d.
 size_t product_smem_bytes(int mode, int d) {
-  return mode == MODE_CAPPED ? tc::smem_bytes(d) : tile_smem_bytes(d);
+  return sizeof(float) * static_cast<size_t>(product_floats(mode, d));
 }
+
+// Shared memory of one fold, fold_lazy, capped or bcap block, and the
+// attribute that allows it: the tile product plus the working sets when
+// ws_in_smem.
 
 cudaError_t prepare(int mode, int d, int k, int ws_in_smem, size_t* smem) {
   *smem = product_smem_bytes(mode, d) +
@@ -718,7 +839,7 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
   // many times on an SM as without them (twice for the SIMT product, once
   // for the tensor-core one)
   const size_t ws = static_cast<size_t>(block_queries(mode)) * k * 8;
-  const size_t share = mode == MODE_CAPPED ? optin : optin / 2;
+  const size_t share = on_tc(mode) ? optin : optin / 2;
   *ws_in_smem = product_smem_bytes(mode, d) + ws + 1024 <= share;
   int per_sm = 0;
   size_t smem = 0;
@@ -736,7 +857,7 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
 // (unused when splits == 1 and ws_in_smem), part_m (splits, q) float32
 // (capped, bcap) and zeroed counters (ceil(q / QT),) int32, QT =
 // block_queries(mode) (knn_constants' tq, or knn_tc_constants' for
-// capped).  1 <= k <=
+// capped and bcap).  1 <= k <=
 // MAX_K, q >= 1, n < 2^31; capped: k <= tile_tiles * TN; bcap: k <=
 // tile_tiles * TN / BLOCK; the folds: tile_tiles 1; 0 <= passes <=
 // MAX_PASSES.  splits and ws_in_smem as knn_plan

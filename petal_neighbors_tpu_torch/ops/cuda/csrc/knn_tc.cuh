@@ -1,14 +1,20 @@
-// knn_tc.cuh — the split-bf16 tensor-core tile product of the capped kernel
-// (knn_fold.cu, MODE_CAPPED) and the Euclidean merge passes (knn_select.cu).
+// knn_tc.cuh — the split-bf16 tensor-core tile product of the capped and
+// bcap kernels (knn_fold.cu, MODE_CAPPED and MODE_BCAP), the block minima
+// (knn_minima.cu, MODE_BLOCK) and the Euclidean merge passes
+// (knn_select.cu).
 //
 // What it computes: for a block's TQ = 128 queries and a tile of TN = 128
-// point rows, u = ||x||^2 - 2 q.x, written to a shared-memory tile that the
-// selection reads in its own mapping.  The TPU kernels it stands in for
-// (_knn_kernel_capped, _knn_kernel_merge, petal_neighbors_tpu/ops/pallas/
-// knn_kernel.py:475-478, :366-369) call jnp.dot(precision=HIGHEST), a
-// six-pass bf16 product on the MXU ("highest": 6-pass f32-effective,
-// knn_kernel.py:59-62).  This is the same arithmetic on Hopper's tensor
-// cores:
+// point rows, u = ||x||^2 - 2 q.x.  Two epilogues hand it on:
+//   * scan: u itself, written to a shared-memory tile that the selection
+//     reads in its own mapping (capped, merge);
+//   * scan_minima: only the minimum of u over each 16-row block of the
+//     tile, reduced in the mma registers (bcap, the block minima).
+// The TPU kernels it stands in for (_knn_kernel_capped, _knn_kernel_merge,
+// _knn_kernel_bcap, _bcap_minima_kernel, petal_neighbors_tpu/ops/pallas/
+// knn_kernel.py:475-478, :366-369, :613-617, :735-739) call
+// jnp.dot(precision=HIGHEST), a six-pass bf16 product on the MXU
+// ("highest": 6-pass f32-effective, knn_kernel.py:59-62).  This is the same
+// arithmetic on Hopper's tensor cores:
 //   * each f32 operand element x is split into three bf16 pieces, each
 //     rounded to nearest: hi = bf16(x), mid = bf16(x - hi),
 //     lo = bf16(x - hi - mid).  For a normal f32 (exponent >= -110)
@@ -36,9 +42,20 @@
 //      the six products, product-major so that an accumulator's next mma
 //      is 8 mma behind its last.
 // Plane rows are 40 bf16 (80 bytes) apart, so the eight rows of an
-// ldmatrix 8 x 8 matrix fall on distinct banks.  Shared memory: 2 x 6
-// planes of 128 x 40 bf16 (122,880 bytes) and the u tile 128 x 132 f32
+// ldmatrix 8 x 8 matrix fall on distinct banks.  Shared memory of scan: 2 x
+// 6 planes of 128 x 40 bf16 (122,880 bytes) and the u tile 128 x 132 f32
 // (67,584): 190,464 bytes, one block per SM.
+//
+// scan_minima keeps no u tile.  A warp's 32 x 32 accumulators cover two
+// 16-row blocks for 32 queries; lane (g, t) holds rows 2t and 2t + 1 of
+// each n8 piece, so a block minimum is three register minima per query row
+// and a transposed reduction over the quad (six shuffles leave each lane
+// two of its eight minima).  The minima go to a 128 x 8 f32 array (4 KB).
+// The room the u tile leaves holds every chunk's query planes at d <=
+// HOIST_D: they are split once per block instead of once per row tile, and
+// each chunk stages only the point rows (184,320 bytes of planes at d =
+// 128).  Wider rows stream both, as scan does.  Two blocks an SM would
+// need at most 64 registers a thread; the fragments alone take 80.
 //
 // Why this shape: splitting the f32 fragments in registers, in every warp
 // that read them (four warps read each element), over 64-query tiles, was
@@ -50,10 +67,12 @@
 //
 // Bit-identical u: every (query, row) pair is accumulated in the same order
 // (k-steps ascending, the six products in the order above, one m16n8k16
-// accumulator element per pair) whatever the tile, range or launch, so the
-// same pair gives the same u bits on every pass; the merge's radix select
-// depends on it.  NaN queries give NaN u; rows past n and NaN rows (+inf
-// norms) give +inf u (NaN for a NaN query).
+// accumulator element per pair) whatever the tile, range, epilogue or
+// launch, so the same pair gives the same u bits on every pass; the
+// merge's radix select depends on it, and bcap's block minima are the
+// block-minima kernel's bit for bit.  NaN queries give NaN u; rows past n
+// and NaN rows (+inf norms) give +inf u (NaN for a NaN query); a block
+// minimum propagates NaN (min.NaN).
 //
 // -Xptxas -v of the kernels that use it is printed by the build (see
 // chip_smoke.py's build phase); PERF.md records registers and spills.
@@ -76,13 +95,37 @@ constexpr int THREADS = 512;  // 16 warps, 4 x 4 over the TQ x TN tile
 constexpr int PIECES = 3;     // bf16 pieces per operand element
 constexpr int PRODUCTS = 6;   // piece products summed per element pair
 constexpr int PLANE = TN * PS;           // bf16 of one piece plane
+constexpr int BLOCK = 16;     // rows per block of scan_minima
+constexpr int BS = TN / BLOCK;  // block minima per query per tile
+constexpr int HOIST_D = 128;  // widest d whose query planes stay resident
 static_assert(TQ == TN, "query and point planes share a shape");
 
-// Floats of shared memory the product takes (at any width d): two
-// buffers of the six piece planes (three of the query chunk, three of the
-// point chunk) and the u tile.
-__host__ __device__ __forceinline__ int smem_floats(int) {
-  return (2 * 2 * PIECES * PLANE * 2) / 4 + TQ * US;
+// Whether scan_minima keeps every chunk's query planes for the whole scan.
+__host__ __device__ __forceinline__ bool hoists(int d) { return d <= HOIST_D; }
+
+// Floats of the piece planes: two buffers of the point chunk's three, and
+// of the query chunk's three, or one set per chunk when hoisted.
+__host__ __device__ __forceinline__ int plane_floats(int d, bool hoist) {
+  const int qbufs = hoist ? (d + DC - 1) / DC : 2;
+  return ((2 + qbufs) * PIECES * PLANE * 2) / 4;
+}
+
+// Floats of shared memory scan takes (at any width d): the planes,
+// streamed, and the u tile.
+__host__ __device__ __forceinline__ int smem_floats(int d) {
+  return plane_floats(d, false) + TQ * US;
+}
+
+// Floats of shared memory scan_minima takes at width d (hoist as the
+// caller runs it): the planes and the TQ x BS block minima.
+__host__ __device__ __forceinline__ int minima_smem_floats(int d, bool hoist) {
+  return plane_floats(d, hoist) + TQ * BS;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
@@ -304,9 +347,147 @@ __device__ __forceinline__ void scan(const float* __restrict__ points,
   __syncthreads();   // the caller may reuse shared memory
 }
 
-// Shared memory of one block of the product at width d.
+// As scan, but after each tile
+//     on_tile(row0, rows, bm)
+// gets only the block minima: bm[r * BS + b] is the minimum of u of query
+// q0 + r over rows row0 + 16 b .. + 15 (NaN for a NaN query; +inf where
+// every row is past n or has a +inf norm).  Blocks at or past `rows`
+// belong to no one.  smem: minima_smem_floats(d, hoist) floats.
+//
+// The loop is scan's (the same chunks, loads, split and chunk_product, so
+// the same u bits), with two differences: hoist (only where hoists(d))
+// splits every chunk's query planes once, before the loop, and the chunks
+// then stage only the point rows; and the epilogue below.  Planes:
+// [query chunks, or 2 buffers][PIECES][TN][PS], then [2 point
+// buffers][PIECES][TN][PS].  scan keeps its own loop: one loop shared by
+// both, with the hoist as a branch, made capped 1.7% slower on an H100.
+template <bool VEC, class OnTile>
+__device__ __forceinline__ void scan_minima(const float* __restrict__ points,
+                                            const float* __restrict__ queries,
+                                            const float* __restrict__ norms,
+                                            long long n, int q, int d, int q0,
+                                            long long r_begin,
+                                            long long r_end, bool hoist,
+                                            float* smem, OnTile&& on_tile) {
+  const int nch = (d + DC - 1) / DC;
+  __nv_bfloat16* qplanes = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* xplanes = qplanes + (hoist ? nch : 2) * PIECES * PLANE;
+  float* bm = smem + plane_floats(d, hoist);   // [TQ][BS]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long ntiles = r_end > r_begin ? (r_end - r_begin + TN - 1) / TN
+                                           : 0;
+  const long long nst = ntiles * nch;
+
+  float xv[8], qv[8];
+  if (hoist) {
+    for (int c = 0; c < nch; ++c) {
+      load8<VEC>(qv, queries, q, q0 + (tid >> 2), d, c * DC);
+      split_store(qv, qplanes + c * PIECES * PLANE);
+    }
+  }
+  auto load = [&](long long s) {
+    const long long row0 = r_begin + (s / nch) * TN;
+    const int c0 = static_cast<int>(s % nch) * DC;
+    load8<VEC>(xv, points, n, row0 + (tid >> 2), d, c0);
+    if (!hoist) load8<VEC>(qv, queries, q, q0 + (tid >> 2), d, c0);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  if (nst > 0) load(0);
+  for (long long s = 0; s < nst; ++s) {
+    const int c = static_cast<int>(s % nch);
+    __nv_bfloat16* qp = qplanes + (hoist ? c : (s & 1)) * PIECES * PLANE;
+    __nv_bfloat16* xp = xplanes + (s & 1) * PIECES * PLANE;
+    if (!hoist) split_store(qv, qp);
+    split_store(xv, xp);
+    if (s + 1 < nst) load(s + 1);
+    __syncthreads();
+
+    const int wk = (min(DC, d - c * DC) + 15) & ~15;
+    chunk_product(qp, xp, wk, acc);
+    if (c != nch - 1) continue;
+
+    const long long row0 = r_begin + (s / nch) * TN;
+    // u as scan makes it (the same expression, so the same bits); the
+    // warp's columns 0-15 are block 0 (n8 pieces 0, 1), 16-31 block 1.
+    float xn[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const long long rx = row0 + (warp >> 2) * 32 + ni * 8 + 2 * t4;
+      xn[ni][0] = rx < n ? __ldg(norms + rx) : INFINITY;
+      xn[ni][1] = rx + 1 < n ? __ldg(norms + rx + 1) : INFINITY;
+    }
+    // v[4 mi + 2 h + b]: the lane's least u of query row mi * 16 + h * 8 + g
+    // (of the warp's 32) over block b
+    float v[8];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float* a0 = acc[mi][2 * b];
+          const float* a1 = acc[mi][2 * b + 1];
+          const float u00 = xn[2 * b][0] - 2.f * a0[2 * h];
+          const float u01 = xn[2 * b][1] - 2.f * a0[2 * h + 1];
+          const float u10 = xn[2 * b + 1][0] - 2.f * a1[2 * h];
+          const float u11 = xn[2 * b + 1][1] - 2.f * a1[2 * h + 1];
+          v[4 * mi + 2 * h + b] = min_nan(min_nan(u00, u01),
+                                          min_nan(u10, u11));
+        }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    // transposed minimum over the quad: lanes t and t ^ 1 split by mi,
+    // then t and t ^ 2 by h; lane t ends with mi = t & 1, h = t >> 1
+    {
+      const bool up = t4 & 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float send = up ? v[j] : v[4 + j];
+        const float keep = up ? v[4 + j] : v[j];
+        v[j] = min_nan(keep, __shfl_xor_sync(FULL, send, 1));
+      }
+    }
+    {
+      const bool up = t4 & 2;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float send = up ? v[b] : v[2 + b];
+        const float keep = up ? v[2 + b] : v[b];
+        v[b] = min_nan(keep, __shfl_xor_sync(FULL, send, 2));
+      }
+    }
+    // the previous tile's on_tile is over (as in scan)
+    const int r = (warp & 3) * 32 + (t4 & 1) * 16 + (t4 >> 1) * 8 + g;
+    *reinterpret_cast<float2*>(bm + r * BS + (warp >> 2) * 2) =
+        make_float2(v[0], v[1]);
+    __syncthreads();
+    const long long left = r_end - row0;
+    on_tile(row0, left < TN ? static_cast<int>(left) : TN,
+            static_cast<const float*>(bm));
+  }
+  __syncthreads();   // the caller may reuse shared memory
+}
+
+// Shared memory of one block of scan, and of scan_minima, at width d.
 size_t smem_bytes(int d) {
   return sizeof(float) * static_cast<size_t>(smem_floats(d));
+}
+size_t minima_smem_bytes(int d, bool hoist) {
+  return sizeof(float) * static_cast<size_t>(minima_smem_floats(d, hoist));
 }
 
 }  // namespace tc

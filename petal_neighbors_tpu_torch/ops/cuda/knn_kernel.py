@@ -18,12 +18,13 @@ order-identical in u; ``‖q‖²`` is added back once at the output.
 * ``knn_merge``: the exact k smallest u per query for k up to 4096,
   sorted (``_knn_kernel_merge`` + ``_bitonic_merge_sorted``).
 
-Two precision tiers.  fold, fold_lazy and bcap compute u in FP32 on the
-SIMT cores (``_u``).  capped and merge compute it as the TPU kernels do at
+Two precision tiers.  fold and fold_lazy compute u in FP32 on the SIMT
+cores (``_u``).  capped, bcap and merge compute it as the TPU kernels do at
 ``precision="highest"``, a six-pass bf16 product: each operand element is
 split into three bf16 pieces (``split_bf16x3``) and the six products hh,
 hm, mh, hl, lh and mm are summed in f32 (``_u_tc``), on the card by the
-tensor cores (``csrc/knn_tc.cuh``).  ``tc_proof_err`` is that tier's
+tensor cores (``csrc/knn_tc.cuh``; bcap reduces each 16-row block to its
+minimum in the mma registers).  ``tc_proof_err`` is that tier's
 pointwise error bound, and ``tc_probe`` holds the card's product to it once
 per process and device before the first tensor-core launch, raising
 ``RuntimeError`` on a breach.
@@ -58,7 +59,8 @@ __all__ = ["knn_fold", "knn_fold_reference", "knn_fold_lazy",
            "knn_merge", "knn_merge_reference", "kernel_plan", "tc_tile",
            "split_bf16x3", "tc_proof_err", "tc_probe", "check_tc_product",
            "merge_layout", "fold_path", "FOLD_SELECT_Q",
-           "FOLD_K_MAX", "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK"]
+           "FOLD_K_MAX", "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK",
+           "TILE_ROWS"]
 
 #: largest working set the kernels take (knn_kernel.py:1011-1012)
 FOLD_K_MAX = 1024
@@ -73,6 +75,11 @@ PASSES_MAX = 15
 #: rows per bcap block: its ids map to rows [id*16, id*16 + 16), the
 #: granule of 2048 rows over 128 lanes of the TPU kernel (bcap_tile_n)
 BCAP_BLOCK = 16
+
+#: rows per tile of selection of the capped and bcap kernels on the card
+#: (``csrc/knn_tiles.cuh``'s TN): their ``tile`` is a whole number of these
+#: (capped: a multiple of 64 rows; bcap: of 4 blocks)
+TILE_ROWS = 64
 
 _MODES = {"fold": 0, "capped": 1, "bcap": 2, "merge": 3, "fold_lazy": 4,
           "fold_select": 5}
@@ -293,16 +300,16 @@ def knn_capped_reference(points, queries, point_norms, *, k: int, tile: int,
 
 def knn_bcap_reference(points, queries, point_norms, *, k: int, tile: int,
                        passes: int, splits: int = 1):
-    """Plain PyTorch version of the bcap kernel (see ``knn_bcap``);
-    ``tile`` counts blocks, ``splits`` reproduces a launch plan's row
-    ranges."""
+    """Plain PyTorch version of the bcap kernel (see ``knn_bcap``) on the
+    tensor-core tier's u (``_u_tc``); ``tile`` counts blocks, ``splits``
+    reproduces a launch plan's row ranges."""
     _check(points, queries, point_norms, k, "knn_bcap")
     _check_capped(k, tile, passes, "knn_bcap")
     n = points.shape[0]
     b = BCAP_BLOCK
 
     def scores(s, e):
-        u = _u(points, queries, point_norms, s * b, e * b)
+        u = _u_tc(points, queries, point_norms, s * b, e * b)
         short = (e - s) * b - u.shape[1]      # the last block's missing rows
         if short:
             u = torch.nn.functional.pad(u, (0, short), value=float("inf"))
@@ -384,8 +391,8 @@ def _constants() -> dict[str, int]:
     _select_lib().knn_select_constants(*(ctypes.byref(v) for v in sel))
     out["bins"], out["max_list"] = (v.value for v in sel)
     # merge_layout's lists reach 2 * MERGE_K_MAX words
-    if ((out["block"], out["max_passes"], out["max_k"])
-            != (BCAP_BLOCK, PASSES_MAX, FOLD_K_MAX)
+    if ((out["tn"], out["block"], out["max_passes"], out["max_k"])
+            != (TILE_ROWS, BCAP_BLOCK, PASSES_MAX, FOLD_K_MAX)
             or out["max_list"] < 2 * MERGE_K_MAX):
         raise RuntimeError(f"csrc/knn_fold.cu or csrc/knn_select.cu "
                            f"disagrees with this module: {out}")
@@ -421,14 +428,17 @@ def _plan(device_index: int, mode: int, n: int, q: int, d: int, k: int,
 
 
 def _tile_tiles(scheme: str, tile: int) -> int:
+    """The card's tiles of ``TILE_ROWS`` rows in one capped or bcap tile
+    (``tile`` rows, or blocks for bcap); raises ValueError where ``tile``
+    is not a whole number of them.  The tensor-core product runs 128-row
+    tiles; a range that ends in half of one reads its first 64 rows."""
     if scheme in _FOLDS + ("merge", "fold_select"):
         return 1
     rows = tile * BCAP_BLOCK if scheme == "bcap" else tile
-    tn = _constants()["tn"]
-    if rows % tn:
+    if rows % TILE_ROWS:
         raise ValueError(f"knn_{scheme}: a tile of {rows} rows is not a "
-                         f"multiple of the kernel's {tn}-row tile")
-    return rows // tn
+                         f"multiple of the kernel's {TILE_ROWS}-row tile")
+    return rows // TILE_ROWS
 
 
 def kernel_plan(scheme: str, n: int, q: int, d: int, k: int,
@@ -471,12 +481,15 @@ def _probe_inputs(d: int):
     return pts, qs
 
 
-def check_tc_product(u_of, device) -> float:
+def check_tc_product(u_of, device, rows: int = 1,
+                     product: str = "tc::scan (capped, merge)") -> float:
     """Push the probe (``_probe_inputs``, d = 128 and 960) through
-    ``u_of(points, queries, norms) -> u (Q, N)`` on ``device`` and hold
-    every |u − u_f64| to ``tc_proof_err`` of its query.  Raises
-    ``RuntimeError`` on a breach; returns the largest error over its
-    bound."""
+    ``u_of(points, queries, norms)`` on ``device``: u (Q, N), or with
+    ``rows`` > 1 its minima over each block of ``rows`` rows (Q, N / rows).
+    Hold every value to ``tc_proof_err`` of its query against the same
+    reduction of the f64 u (a minimum moves no further than its inputs).
+    Raises ``RuntimeError`` naming ``product`` on a breach; returns the
+    largest error over its bound."""
     worst = 0.0
     for d in _PROBE_DIMS:
         pts, qs = _probe_inputs(d)
@@ -485,30 +498,44 @@ def check_tc_product(u_of, device) -> float:
         xn = torch.sum(p * p, dim=1)
         u = u_of(p, q, xn)
         u64 = xn.double()[None, :] - 2.0 * (q.double() @ p.double().T)
+        if rows > 1:
+            u64 = torch.amin(u64.reshape(u64.shape[0], -1, rows), dim=2)
         qn = torch.sum(q * q, dim=1).double()
         bound = tc_proof_err(d, qn, xn.double().max())[:, None]
         ratio = float(((u.double() - u64).abs() / bound).max())
         if not ratio <= 1.0:
             raise RuntimeError(
                 f"the tensor-core product breaks its proof bound: |u - "
-                f"u_f64| is {ratio:.3g} times tc_proof_err at d={d}; the "
-                "capped and merge kernels' results cannot be certified here")
+                f"u_f64| is {ratio:.3g} times tc_proof_err at d={d} in "
+                f"{product}; its kernels' results cannot be certified here")
         worst = max(worst, ratio)
     return worst
 
 
 def tc_probe(device=None) -> float:
     """Hold the card's tensor-core product to ``tc_proof_err`` once per
-    process and device, before the first tensor-core launch there
-    (``check_tc_product`` over ``knn_tc_u_launch``, the tile product of
-    the capped and merge kernels).  Raises ``RuntimeError`` on a breach:
+    process and device, before the first tensor-core launch there.  Both
+    of ``csrc/knn_tc.cuh``'s loops are checked: ``tc::scan`` (the capped
+    and merge kernels) through ``knn_tc_u_launch``'s u, and
+    ``tc::scan_minima`` (the bcap and block-minima kernels) through the
+    block-minima kernel's 16-row minima, its query planes resident at
+    d = 128 and streamed at d = 960.  Raises ``RuntimeError`` on a breach:
     an unsound bound would certify wrong answers.  Returns the largest
     error over its bound (cached after the first call)."""
+    from .minima_kernel import _launch as minima_launch
+
+    def block_minima(p, q, xn):
+        return minima_launch("block", p, q, xn, BCAP_BLOCK)
+
     dev = torch.device("cuda") if device is None else torch.device(device)
     idx = _device_index(dev)
     if idx not in _probed:
         with torch.cuda.device(idx):
-            _probed[idx] = check_tc_product(_tc_u, torch.device("cuda", idx))
+            on = torch.device("cuda", idx)
+            _probed[idx] = max(
+                check_tc_product(_tc_u, on),
+                check_tc_product(block_minima, on, BCAP_BLOCK,
+                                 "tc::scan_minima (bcap, block minima)"))
     return _probed[idx]
 
 
@@ -557,7 +584,8 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
         part_i = torch.empty(part, dtype=torch.int32, device=dev)
         part_m = torch.empty((s, nq) if scheme not in _FOLDS and s > 1
                              else (0,), dtype=torch.float32, device=dev)
-        tq = tc_tile()["tq"] if scheme == "capped" else _constants()["tq"]
+        tq = (tc_tile()["tq"] if scheme in ("capped", "bcap")
+              else _constants()["tq"])
         counters = torch.zeros((-(-nq // tq),), dtype=torch.int32,
                                device=dev)
         err = _lib().knn_launch(
@@ -719,20 +747,26 @@ def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
     of ``BCAP_BLOCK`` = 16 contiguous rows (block id b = rows [16b,
     16b + 16)), ``tile`` blocks per tile, ``k`` block ids kept.
 
-    The TPU kernel streams block-interleaved planes so that its block
-    minima are lane-wise minima; here a block is slot i of a half-warp's
-    16 lanes, so the kernel reads the padded points as they are.  Inputs
-    as ``knn_fold``; ``k <= tile``, ``0 <= passes <= 15``; on the card
-    ``tile`` is a multiple of 4 blocks.  Returns ``(block-min rdist (Q, k),
-    block ids (Q, k), thr (Q,))`` as ``knn_capped``.  CUDA tensors launch
-    ``csrc/knn_fold.cu`` (counted in ``knn_bcap.launches``); CPU tensors
-    run ``knn_bcap_reference``.
+    u is the tensor-core tier's (``_u_tc``), as capped's.  The TPU kernel
+    streams block-interleaved planes so that its block minima are
+    lane-wise minima; here the product reduces each 16-row block in the
+    mma registers (``csrc/knn_tc.cuh``'s ``scan_minima``, bit for bit
+    ``bcap_minima``'s), so the kernel reads the padded points as they are;
+    ``tc_probe`` runs before the first launch on a device.  Inputs as
+    ``knn_fold``; ``k <= tile``, ``0 <= passes <= 15``; on the card
+    ``tile`` is a multiple of 4 blocks (``TILE_ROWS`` rows; ValueError
+    otherwise).  Returns ``(block-min rdist (Q, k), block ids (Q, k), thr
+    (Q,))`` as ``knn_capped``.  CUDA tensors launch ``csrc/knn_fold.cu``
+    (counted in ``knn_bcap.launches``); CPU tensors run
+    ``knn_bcap_reference``.
     """
     _check(points, queries, point_norms, k, "knn_bcap")
     _check_capped(k, tile, passes, "knn_bcap")
     if points.device.type == "cpu":
         return knn_bcap_reference(points, queries, point_norms, k=k,
                                   tile=tile, passes=passes)
+    _tile_tiles("bcap", tile)
+    tc_probe(points.device)
     out = _launch("bcap", points, queries, point_norms, k, tile, passes)
     knn_bcap.launches += 1
     return out

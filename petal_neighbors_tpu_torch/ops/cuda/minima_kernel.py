@@ -8,11 +8,14 @@ each block of ``rows`` contiguous point rows,
     out[q, c] = min over rows [rows*c, rows*c + rows) of u = ‖x‖² − 2·q·x,
 
 * ``subchunk_minima``: 128-row subchunks (``_minima_kernel``), the
-  candidate phase of two_phase;
+  candidate phase of two_phase, u in FP32 on the SIMT cores (``_u``);
 * ``bcap_minima``: 16-row blocks (``_bcap_minima_kernel``), the candidate
-  phase of bcap2.  The TPU kernel reads block-interleaved planes so that a
-  block minimum is a lane-wise minimum; here a block is one slot of a
-  half-warp, so the kernel reads the padded points as they are.
+  phase of bcap2, u on the tensor-core tier (``_u_tc``, the TPU kernel's
+  ``precision="highest"``), the same product and block minima as the bcap
+  kernel's, bit for bit.  The TPU kernel reads block-interleaved planes so
+  that a block minimum is a lane-wise minimum; here the product reduces
+  each block in the mma registers, so the kernel reads the padded points
+  as they are.
 
 Rows past N count as +inf, so a ragged last block is the minimum of its
 real rows.  NaN and padding rows carry +inf norms (``pad_for_pallas``), so
@@ -31,7 +34,7 @@ import functools
 
 import torch
 
-from .knn_kernel import BCAP_BLOCK, _u, check_arrays
+from .knn_kernel import BCAP_BLOCK, _u, _u_tc, check_arrays, tc_probe
 
 __all__ = ["subchunk_minima", "subchunk_minima_reference", "bcap_minima",
            "bcap_minima_reference", "minima_plan", "SUBCHUNK"]
@@ -43,16 +46,17 @@ SUBCHUNK = 128
 _MODES = {"subchunk": 0, "block": 1}
 
 
-def _minima_reference(points, queries, point_norms, rows: int):
-    """Chunked u, then ``amin`` over each block of ``rows`` rows; the last
-    block padded with +inf.  ``amin`` propagates NaN."""
+def _minima_reference(points, queries, point_norms, rows: int, u_of=_u):
+    """Chunked u (``u_of``: ``_u`` or ``_u_tc``), then ``amin`` over each
+    block of ``rows`` rows; the last block padded with +inf.  ``amin``
+    propagates NaN."""
     n = points.shape[0]
     nq = queries.shape[0]
     ncols = -(-n // rows)
     out = torch.empty((nq, ncols), dtype=torch.float32, device=queries.device)
     chunk = rows * max(1, 32768 // rows)
     for s in range(0, n, chunk):
-        u = _u(points, queries, point_norms, s, s + chunk)
+        u = u_of(points, queries, point_norms, s, s + chunk)
         cols = -(-u.shape[1] // rows)
         short = cols * rows - u.shape[1]
         if short:
@@ -69,9 +73,10 @@ def subchunk_minima_reference(points, queries, point_norms):
 
 
 def bcap_minima_reference(points, queries, point_norms):
-    """Plain PyTorch version of ``bcap_minima``."""
+    """Plain PyTorch version of ``bcap_minima``, on the tensor-core tier's
+    u (``_u_tc``)."""
     check_arrays(points, queries, point_norms, "bcap_minima")
-    return _minima_reference(points, queries, point_norms, BCAP_BLOCK)
+    return _minima_reference(points, queries, point_norms, BCAP_BLOCK, _u_tc)
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +162,9 @@ def subchunk_minima(points, queries, point_norms):
 def bcap_minima(points, queries, point_norms):
     """Per-block u-domain minima (``_bcap_minima_kernel``,
     knn_kernel.py:706): ``(Q, ceil(N / 16))`` float32, column b the minimum
-    of u over rows [16b, 16b + 16), the bcap kernel's block ids.
+    of u over rows [16b, 16b + 16), the bcap kernel's block ids, on the
+    tensor-core tier (``_u_tc``; ``tc_probe`` runs before the first launch
+    on a device).
 
     Inputs as ``subchunk_minima``.  CUDA tensors launch
     ``csrc/knn_minima.cu`` (counted in ``bcap_minima.launches``); CPU
@@ -166,6 +173,7 @@ def bcap_minima(points, queries, point_norms):
     check_arrays(points, queries, point_norms, "bcap_minima")
     if points.device.type == "cpu":
         return bcap_minima_reference(points, queries, point_norms)
+    tc_probe(points.device)
     out = _launch("block", points, queries, point_norms, BCAP_BLOCK)
     bcap_minima.launches += 1
     return out

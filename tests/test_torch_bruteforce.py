@@ -935,3 +935,66 @@ def test_capped_route_proves_on_the_tc_bound(monkeypatch):
     sd, si = tbf.knn(pts - mu, qs - mu, 10)
     assert torch.equal(torch.sort(i, 1).values, torch.sort(si, 1).values)
     np.testing.assert_allclose(d.numpy(), sd.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("scheme,tier", [("bcap", "tc"), ("bcap2", "tc"),
+                                         ("two_phase", "fp32"),
+                                         ("capped", "tc")])
+def test_proof_gated_routes_prove_on_their_tier(scheme, tier, monkeypatch):
+    """Each proof-gated scheme proves on the bound of the product tier that
+    made its candidates and thr: bcap, bcap2 and capped on the tensor-core
+    tier's, two_phase (its subchunk minima FP32 SIMT) on the FP32 one."""
+    rng = np.random.default_rng(40)
+    pts = torch.from_numpy(rng.random((8192, 48), dtype=np.float32))
+    qs = torch.from_numpy(rng.random((N_Q, 48), dtype=np.float32))
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(pts)
+    tiers = []
+    real = tbf._proof_err
+
+    def spy(dim, qn, xn_max, tier="fp32"):
+        tiers.append(tier)
+        return real(dim, qn, xn_max, tier)
+    monkeypatch.setattr(tbf, "_proof_err", spy)
+    tbf.knn_prepadded(pp, pn, qs, 10, 8192, mu, scheme=scheme)
+    assert tiers == [tier]
+    assert tbf.last_proof_tier == tier
+
+
+def test_fold_route_records_no_proof_tier():
+    """The fold route proves nothing: after a proof-gated call,
+    ``last_proof_tier`` goes back to None on the next fold call."""
+    rng = np.random.default_rng(42)
+    pts = torch.from_numpy(rng.random((4096, 24), dtype=np.float32))
+    qs = torch.from_numpy(rng.random((N_Q, 24), dtype=np.float32))
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(pts)
+    tbf.knn_prepadded(pp, pn, qs, 10, 4096, mu, scheme="bcap2")
+    assert tbf.last_proof_tier == "tc"
+    tbf.knn_prepadded(pp, pn, qs, 10, 4096, mu, scheme="fold")
+    assert tbf.last_proof_tier is None
+
+
+@pytest.mark.parametrize("scheme", ["bcap", "bcap2"])
+@pytest.mark.parametrize("d", [128, 960])
+def test_bcap_routes_match_f64_oracle(scheme, d, monkeypatch):
+    """bcap and bcap2 end to end on the tensor-core tier (their plain
+    versions on ``_u_tc``), proved on its bound and repaired by fold where
+    the proof fails, against the f64 oracle: NaN rows never returned, NaN
+    queries (+inf, -1), ids as sets off f32 ties."""
+    rng = np.random.default_rng(41 + d)
+    pts = (rng.standard_normal((8192, d)) * 10 + 3).astype(np.float32)
+    qs = (rng.standard_normal((N_Q, d)) * 10 + 3).astype(np.float32)
+    pts[[7, 4000, 8191]] = np.nan
+    qs[[3, N_Q - 1]] = np.nan
+    folds = []
+    fold = tbf.knn_fold
+    monkeypatch.setattr(tbf, "knn_fold", lambda *a, **kw: folds.append(
+        len(a[1])) or fold(*a, **kw))
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    for k in (10, 40):
+        td, ti = tbf.knn_prepadded(pp, pn, torch.from_numpy(qs), k, 8192,
+                                   mu, scheme=scheme)
+        td, ti = td.numpy(), ti.numpy()
+        assert not np.isin(ti, [7, 4000, 8191]).any()
+        _check_exact(pts, qs, k, td, ti)
+    # a repair, where one ran, carried only uncovered queries
+    assert all(0 < f < N_Q for f in folds)

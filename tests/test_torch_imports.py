@@ -1,5 +1,6 @@
 """The port stands alone: no module of petal_neighbors_tpu_torch, nor
-chip_smoke.py or fold_profile.py, imports jax or the JAX package."""
+chip_smoke.py, fold_profile.py or kernel_ab.py, imports jax or the JAX
+package."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "petal_neighbors_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "fold_profile.py"]
+    ROOT / "chip_smoke.py", ROOT / "fold_profile.py", ROOT / "kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "petal_neighbors_tpu")
 
 
@@ -43,7 +44,7 @@ def test_port_files_found():
     assert {"knn_kernel.py", "lp_kernel.py", "minima_kernel.py",
             "sort_kernel.py", "rank_sort_kernel.py", "bruteforce.py",
             "topk.py", "convert.py", "chip_smoke.py",
-            "fold_profile.py"} <= names
+            "fold_profile.py", "kernel_ab.py"} <= names
     csrc = ROOT / "petal_neighbors_tpu_torch" / "ops" / "cuda" / "csrc"
     assert {"knn_fold.cu", "knn_minima.cu", "knn_tiles.cuh", "lp_knn.cu",
             "row_sort.cu", "knn_select.cu", "knn_tc.cuh"} <= {

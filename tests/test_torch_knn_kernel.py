@@ -333,6 +333,123 @@ def test_capped_rejects_bad_arguments(run, kw):
         run(pp, torch.zeros((2, 4)), pn, **kw)
 
 
+# ---- bcap on the tensor-core tier -----------------------------------------
+
+def _tc_inputs(seed, n, d, q, nan=True):
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    if nan:
+        pts[[7, n // 2]] = np.nan
+        qs[[3, q - 1]] = np.nan
+    pp, pn = jax_pad(jnp.asarray(pts), tn=2048)
+    return pts, qs, np.array(pp), np.array(pn)
+
+
+def _tier_bounds(d, qs, pn):
+    """Per query: the tensor-core tier's bound and the FP32 one (the JAX
+    kernels' own tier on the CPU), each times ‖q‖² + max ‖x‖²."""
+    qn = (qs.astype(np.float64) ** 2).sum(1)
+    xn_max = float(np.where(np.isfinite(pn), pn, 0).max())
+    return (kk.tc_proof_err(d, qn, xn_max),
+            (4 * 2.0 ** -23 + d * 2.0 ** -24) * (qn + xn_max))
+
+
+def _block_minima_f64(pp, pn, qs):
+    p64, q64 = pp.astype(np.float64), qs.astype(np.float64)
+    xn = np.where(np.isfinite(pn), (p64 * p64).sum(1), np.inf)
+    u = xn[None, :] - 2.0 * q64 @ p64.T
+    return u.reshape(len(qs), -1, kk.BCAP_BLOCK).min(2)
+
+
+@pytest.mark.parametrize("d", [128, 960])
+def test_bcap_reference_matches_jax_highest(d):
+    """``knn_bcap_reference`` (on ``_u_tc``) against ``knn_pallas(scheme=
+    "bcap", precision="highest", interpret=True)`` on the same padded
+    arrays, NaN rows and queries included: rdist and thr within the two
+    tiers' bounds summed (each side within its own of the exact value: the
+    tensor-core one here, the FP32 one for the JAX kernel on the CPU), and
+    the same block ids as sets but where a block left out by one side and
+    one kept by it have f64 block minima within twice that band (a near
+    tie), on most queries none."""
+    k, tile, passes, nq = 18, 128, 2, 16
+    pts, qs, pp, pn = _tc_inputs(d, 4096, d, nq)
+    p_perm, xn_perm = prepare_bcap_planes(jnp.asarray(pp), jnp.asarray(pn),
+                                          tn=2048, precision="highest")
+    jd, ji, jt = (np.asarray(a) for a in knn_pallas(
+        p_perm, jnp.asarray(qs), xn_perm, k=k, tq=8,
+        tn=tile * kk.BCAP_BLOCK, interpret=True, precision="highest",
+        scheme="bcap", passes=passes, granule=2048))
+    td, ti, tt = (t.numpy() for t in kk.knn_bcap_reference(
+        torch.from_numpy(pp), torch.from_numpy(qs), torch.from_numpy(pn),
+        k=k, tile=tile, passes=passes))
+    tc, fp32 = _tier_bounds(d, qs, pn)
+    band = tc + fp32
+    nanq = np.isnan(qs).any(axis=1)
+    assert (ti[nanq] == -1).all() and np.isnan(tt[nanq]).all()
+    assert np.isnan(jt[nanq]).all()
+    ok = ~nanq
+    assert (np.abs(np.sort(td[ok], 1) - np.sort(jd[ok], 1))
+            <= band[ok, None]).all()
+    assert (np.abs(tt[ok] - jt[ok]) <= band[ok]).all()
+    bm = _block_minima_f64(pp, pn, qs)
+    same = 0
+    for r in np.flatnonzero(ok):
+        a_only = sorted(bm[r][list(set(ti[r].tolist()) - set(ji[r].tolist()))])
+        b_only = sorted(bm[r][list(set(ji[r].tolist()) - set(ti[r].tolist()))])
+        assert len(a_only) == len(b_only), r
+        assert all(abs(x - y) <= 2 * band[r]
+                   for x, y in zip(a_only, b_only)), r
+        same += not a_only
+    assert same >= ok.sum() // 2
+
+
+@pytest.mark.parametrize("d", [128, 960])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_bcap_threshold_is_sound_on_the_tc_bound(d, splits):
+    """Every block outside bcap's working set scores at least thr −
+    ``_proof_err(tier="tc")`` in the exact (f64) squared distance, however
+    few the passes and however the rows split into ranges: the route's
+    proof for bcap and bcap2 holds on the tensor-core tier."""
+    from petal_neighbors_tpu_torch.ops.bruteforce import _proof_err
+
+    k, tile, passes, nq, n = 12, 32, 1, 16, 4096
+    pts, qs, pp, pn = _tc_inputs(d + splits, n, d, nq, nan=False)
+    td, ti, tt = kk.knn_bcap_reference(
+        torch.from_numpy(pp), torch.from_numpy(qs), torch.from_numpy(pn),
+        k=k, tile=tile, passes=passes, splits=splits)
+    qt = torch.from_numpy(qs)
+    xn = torch.from_numpy(pn)
+    err = _proof_err(d, torch.sum(qt * qt, 1),
+                     torch.max(torch.where(torch.isfinite(xn), xn, 0.0)),
+                     tier="tc").numpy()
+    d2 = ((qs[:, None].astype(np.float64)
+           - pts[None].astype(np.float64)) ** 2).sum(-1)
+    b = kk.BCAP_BLOCK
+    ti, tt = ti.numpy(), tt.numpy()
+    for r in range(nq):
+        inside = np.zeros(n, bool)
+        for x in ti[r][ti[r] >= 0]:
+            inside[x * b:(x + 1) * b] = True
+        assert d2[r][~inside].min() >= tt[r] - err[r], r
+        assert len(set(ti[r].tolist())) == k
+
+
+def test_bcap_tile_rule():
+    """On the card a bcap tile is a whole number of 64-row tiles of
+    selection (4 blocks), and a capped tile of 64 rows; the tensor-core
+    product's 128-row tiles serve a 64-row half where a range ends in
+    one.  Anything else raises ValueError before a launch."""
+    assert kk.TILE_ROWS == 64
+    assert kk._tile_tiles("bcap", 128) == 32
+    assert kk._tile_tiles("bcap", 4) == 1
+    assert kk._tile_tiles("bcap", 12) == 3
+    assert kk._tile_tiles("capped", 4096) == 64
+    for scheme, tile in (("bcap", 2), ("bcap", 6), ("bcap", 130),
+                         ("capped", 100)):
+        with pytest.raises(ValueError, match="multiple"):
+            kk._tile_tiles(scheme, tile)
+
 # ---- merge: the exact top-k for k up to 4096 ------------------------------
 
 @pytest.mark.parametrize("k", [1500, 37])

@@ -20,6 +20,7 @@ from petal_neighbors_tpu.ops.pallas.knn_kernel import (bcap_minima as
                                                        subchunk_minima as
                                                        jax_subchunk_minima)
 from petal_neighbors_tpu_torch.ops.bruteforce import pad_for_pallas
+from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
 
 Q, D = 32, 48
@@ -119,9 +120,14 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
         pp, torch.from_numpy(qs), pn), rtol=0, atol=0, equal_nan=True)
     assert torch.allclose(b, mk.bcap_minima_reference(
         pp, torch.from_numpy(qs), pn), rtol=0, atol=0, equal_nan=True)
-    # the block minima of a subchunk's 8 blocks are its minimum
-    fin = torch.isfinite(a)
-    assert torch.equal(a[fin], b.reshape(Q, -1, 8).amin(2)[fin])
+    # the block minima of a subchunk's 8 blocks are its minimum on the same
+    # tier (the block minima are the tensor-core tier's, the subchunk
+    # minima the FP32 one's)
+    a_tc = mk._minima_reference(pp, torch.from_numpy(qs), pn, mk.SUBCHUNK,
+                                kk._u_tc)
+    fin = torch.isfinite(a_tc)
+    assert torch.equal(fin, torch.isfinite(a))
+    assert torch.equal(a_tc[fin], b.reshape(Q, -1, 8).amin(2)[fin])
 
 
 @pytest.mark.parametrize("fn", [mk.subchunk_minima, mk.bcap_minima])
@@ -133,3 +139,40 @@ def test_minima_reject_bad_inputs(fn):
         fn(pp, torch.zeros((2, 5)), pn)
     with pytest.raises(ValueError):
         fn(pp, torch.zeros((2, 4)), pn[:10])
+
+
+@pytest.mark.parametrize("d", [48, 128, 960])
+def test_bcap_minima_reference_within_tc_bound(d):
+    """``bcap_minima`` on the CPU (its plain version, on the tensor-core
+    tier's ``_u_tc``) within that tier's bound ``tc_proof_err`` of the f64
+    block minima, and against the JAX kernel at "highest" in interpret mode
+    within the two tiers' bounds summed (the JAX kernel's own is the FP32
+    one, (4·2⁻²³ + d·2⁻²⁴)·(‖q‖² + max ‖x‖²)).  NaN queries NaN, all-padding
+    blocks +inf, in both."""
+    n = 2048
+    pts, qs = _inputs(d + 3, n, d)
+    pp, pn = jax_pad(jnp.asarray(pts), tn=2048)
+    planes, xn_perm = prepare_bcap_planes(pp, pn, tn=2048,
+                                          precision="highest")
+    want_jax = np.asarray(jax_bcap_minima(planes, jnp.asarray(qs), xn_perm,
+                                          tq=Q, tn=2048, granule=2048,
+                                          precision="highest",
+                                          interpret=True))
+    ppn, pnn = np.array(pp), np.array(pn)
+    got = mk.bcap_minima(torch.from_numpy(ppn), torch.from_numpy(qs),
+                         torch.from_numpy(pnn)).numpy()
+    p64, q64 = ppn.astype(np.float64), qs.astype(np.float64)
+    xn64 = np.where(np.isfinite(pnn), (p64 * p64).sum(1), np.inf)
+    want = (xn64[None, :] - 2.0 * q64 @ p64.T).reshape(Q, -1, 16).min(2)
+    _check_nan_and_inf(got, want)
+    _check_nan_and_inf(got, want_jax)
+    qn = (qs * qs).sum(1).astype(np.float64)
+    xn_max = float(np.where(np.isfinite(pnn), pnn, 0).max())
+    tc = kk.tc_proof_err(d, qn, xn_max)[:, None]
+    fp32 = ((4 * 2.0 ** -23 + d * 2.0 ** -24) * (qn + xn_max))[:, None]
+    fin = np.isfinite(want)
+    assert (np.abs(got - want)[fin]
+            <= np.broadcast_to(tc, want.shape)[fin]).all()
+    assert (np.abs(got - want_jax)[fin]
+            <= np.broadcast_to(tc + fp32, want.shape)[fin]).all()
+

@@ -103,6 +103,25 @@ def test_integrity_check_passes_and_raises():
         kk.check_tc_product(one_pass, "cpu")
 
 
+def test_integrity_check_over_block_minima():
+    """The probe's check over 16-row block minima (the form in which it
+    holds ``tc::scan_minima``): the plain block minima on the tier pass,
+    and the minima of a single bf16 pass raise RuntimeError naming the
+    product checked."""
+    from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
+
+    ratio = kk.check_tc_product(mk.bcap_minima_reference, "cpu",
+                                kk.BCAP_BLOCK, "scan_minima")
+    assert 0.0 <= ratio <= 1.0
+
+    def one_pass(p, q, xn):
+        u = xn[None, :] - 2.0 * (q.to(torch.bfloat16).float()
+                                 @ p.to(torch.bfloat16).float().T)
+        return torch.amin(u.reshape(u.shape[0], -1, kk.BCAP_BLOCK), dim=2)
+    with pytest.raises(RuntimeError, match="proof bound.*scan_minima"):
+        kk.check_tc_product(one_pass, "cpu", kk.BCAP_BLOCK, "scan_minima")
+
+
 # ---- capped and merge on the tier against the JAX kernels -----------------
 
 def _inputs(seed, n, d, q):
