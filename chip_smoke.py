@@ -27,12 +27,18 @@ Phases, each printed as one JSON line on stdout:
               must also give fold's rdist bit for bit, and bcap's
               block-min rdist at its ids must equal the rdist made from
               the block-minima kernel's columns at the same ids, bit for
-              bit (bcap_is_minima: one tensor-core epilogue).  The two
-              minima kernels (subchunk, block) against their plain
-              versions at ragged row counts, d = 17 to 130 and 960, NaN
-              rows and queries, 1 and several row ranges, and at the SIFT
-              shape; the block minima with the query planes resident and
-              streamed, the same bits, both timed at the SIFT shape.  The
+              bit (bcap_is_minima: one tensor-core epilogue).  fold_lazy
+              (its own 128-query x 128-row FP32 product) also at q = 1,
+              127, 129 and 300, d = 17, 130 and 960, k = 1 to 1024, its
+              working set in shared and in global memory, 1 and 17 row
+              ranges, and held to both fold paths' rdist bit for bit at
+              every case and at the SIFT shape.  The two minima kernels
+              (subchunk, block; both on the tensor-core tier) against
+              their plain versions at ragged row counts, d = 17 to 130 and
+              960, NaN rows and queries, 1 and several row ranges, and at
+              the SIFT shape, both timed there; each subchunk column equal
+              bit for bit to the min of the 8 block minima it covers
+              (subchunk_is_block), at every case and the SIFT shape.  The
               two row sorts (bitonic, rank; one block sort on the card)
               against a stable ``torch.sort``, keys bit for bit and
               payloads exact:
@@ -94,7 +100,7 @@ Phases, each printed as one JSON line on stdout:
               its main path's largest repair, with the whole batch, its
               launches by path, the cutover and every repair shape beside
               it); its tier
-              ("tc" for capped, bcap, merge and the block minima, whose
+              ("tc" for capped, bcap, merge and both minima kernels, whose
               bound is the tensor cores' six bf16 products, with the FP32
               SIMT bound beside it as simt_bound_ms; "fp32" for the
               others, with tc_bound_ms).
@@ -574,6 +580,28 @@ def compare_minima(kind: str, pp, qt, pn) -> tuple[float, float]:
     return float(diff.max()), start.elapsed_time(stop)
 
 
+def subchunk_is_block(pp, qt, pn) -> int:
+    """The subchunk minima against the block minima on the same card
+    tensors: each subchunk column equal, bit for bit, to the min.NaN of
+    the 8 block-minima columns it covers (the last subchunk's missing
+    blocks +inf).  Both come from tc::scan_minima's one product, so this
+    holds whatever the row ranges.  Returns the columns compared."""
+    from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
+
+    sub = mk.subchunk_minima(pp, qt, pn)
+    blk = mk.bcap_minima(pp, qt, pn)
+    per = mk.SUBCHUNK // mk.BCAP_BLOCK
+    blk = torch.nn.functional.pad(blk, (0, sub.shape[1] * per - blk.shape[1]),
+                                  value=float("inf"))
+    want = blk.reshape(blk.shape[0], -1, per).amin(2)   # amin keeps NaN
+    torch.cuda.synchronize()
+    if not torch.equal(sub.view(torch.int32), want.view(torch.int32)):
+        bad = int((sub.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"subchunk minima: {bad} columns differ from "
+                             "the min of the block minima")
+    return sub.numel()
+
+
 def library_minima(points, queries, norms, rows: int):
     """Yardstick: the same minima by a chunked ``torch.matmul`` and
     ``amin`` over ``rows``-row blocks (cuBLAS), timed here and used nowhere
@@ -613,9 +641,12 @@ def phase_minima_small(rng):
                            ("block", "bcap_minima")):
             err, _ = compare_minima(kind, spp, qt, spn)
             worst[name] = max(worst[name], err)
+            extra = ({"subchunk_is_block": subchunk_is_block(spp, qt, spn)}
+                     if kind == "subchunk" else {})
             emit("kernel", name=name, n=spp.shape[0], q=q, d=d,
                  max_abs_err=err,
-                 splits=minima_plan(kind, spp.shape[0], q, d), ok=True)
+                 splits=minima_plan(kind, spp.shape[0], q, d), **extra,
+                 ok=True)
     return worst
 
 
@@ -666,9 +697,12 @@ def small_inputs(rng, n, q, d):
 
 
 #: (scheme, n, q, d, pad rows, k, tile, passes): tn=1 keeps N ragged for
-#: the kernel itself; d=5, 130 and 257 run the scalar-load path (130 and
+#: the kernel itself; d=5, 17, 130 and 257 run the scalar-load path (130 and
 #: 257 in feature chunks); n=1 with k above n; the 70,001-row shapes split
-#: the rows (working set in shared and in global memory)
+#: the rows (working set in shared and in global memory).  fold_lazy's
+#: 128-query x 128-row block also at q = 1, 127, 129 and 300, d = 960
+#: (query chunks in the ring; working set in shared memory at k=18, in
+#: global memory at k=1024) and k = 1, 18, 33 and 1024
 SMALL_CASES = (
     ("fold", 5003, 301, 128, 1, 18, 1, 0),
     ("fold", 5003, 301, 128, 64, 108, 1, 0),
@@ -683,6 +717,11 @@ SMALL_CASES = (
     ("fold_lazy", 3001, 70, 17, 1, 33, 1, 0),
     ("fold_lazy", 70001, 300, 128, 1, 18, 1, 0),
     ("fold_lazy", 70001, 200, 64, 64, 1024, 1, 0),
+    ("fold_lazy", 5003, 1, 128, 1, 18, 1, 0),
+    ("fold_lazy", 9001, 127, 128, 1, 1024, 1, 0),
+    ("fold_lazy", 70001, 129, 960, 1, 18, 1, 0),
+    ("fold_lazy", 4099, 300, 960, 1, 1024, 1, 0),
+    ("fold_lazy", 70001, 129, 17, 1, 1, 1, 0),
     ("capped", 5003, 301, 128, 1, 18, 512, 2),
     ("capped", 5003, 301, 128, 64, 108, 512, 0),
     ("capped", 4099, 130, 130, 1, 40, 1024, 4),
@@ -1010,7 +1049,9 @@ def phase_kernel(pp, pn, queries_c):
         errs[scheme] = max(errs[scheme], err)
         extra = {}
         if scheme == "fold_lazy":
-            extra["tied_rows_vs_fold"] = lazy_is_fold(spp, qt, spn, k)
+            extra["tied_rows_vs_fold"] = {
+                p: lazy_is_fold(spp, qt, spn, k, p)
+                for p in ("select", "stream")}
         if scheme == "bcap":
             extra["ids_equal_to_minima"] = bcap_is_minima(spp, qt, spn, k,
                                                           tile, passes)
@@ -1046,7 +1087,10 @@ def phase_kernel(pp, pn, queries_c):
                                                           tile, passes)
         if scheme == "fold_lazy":
             # fold on the same work, in the same call, and the two equal
-            extra["tied_rows_vs_fold"] = lazy_is_fold(pp, qt, pn, k)
+            # against both of fold's paths
+            extra["tied_rows_vs_fold"] = {
+                p: lazy_is_fold(pp, qt, pn, k, p)
+                for p in ("select", "stream")}
             extra["fold_ms"] = cuda_ms(lambda: _run(
                 "fold", False, pp, qt, pn, k, 1, 0), reps=3)
         row = dict(k_request=k_req, k=k, tile=tile, passes=passes,
@@ -1056,11 +1100,11 @@ def phase_kernel(pp, pn, queries_c):
         emit("kernel", name=f"knn_{scheme}", **row, ok=True)
         rows[scheme, k_req] = row
 
-    # the minima kernels at the SIFT shape: all 10,240 queries; the block
-    # minima on the tensor-core tier, also with the query planes streamed
+    # the minima kernels at the SIFT shape: all 10,240 queries, both on the
+    # tensor-core tier
     for kind, name, fn, width, tier in (
             ("subchunk", "subchunk_minima", mk.subchunk_minima, mk.SUBCHUNK,
-             "fp32"),
+             "tc"),
             ("block", "bcap_minima", mk.bcap_minima, mk.BCAP_BLOCK, "tc")):
         err, plain = compare_minima(kind, pp, queries_c, pn)
         errs[name] = max(errs[name], err)
@@ -1074,6 +1118,8 @@ def phase_kernel(pp, pn, queries_c):
                    splits=mk.minima_plan(kind, pp.shape[0], N_Q, DIM),
                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                    bound_ms=bound, bound_by=by, tier=tier)
+        if kind == "subchunk":
+            row["subchunk_is_block"] = subchunk_is_block(pp, queries_c, pn)
         if tier == "tc":
             row.update(simt_bound_ms=other,
                        peak="bf16 dense 989 TFLOP/s x 6 products and HBM "
@@ -1589,6 +1635,8 @@ def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
         recall, swaps, worst = check_vs_oracle(index, pdev, qdev, i,
                                                oracle_ids[:, :k])
         extra = {"proof_tier": tier} if tier is not None else {}
+        if scheme == "two_phase" and tier != "tc":
+            raise AssertionError(f"two_phase proved on {tier}, not tc")
         if scheme == "bcap2":
             extra["repaired_queries_per_call"] = list(fold_rows)
         if scheme == "two_phase":

@@ -6,9 +6,10 @@ The other checkout is, for instance, an earlier commit unpacked with
 ``git archive <commit> | tar -x -C build/ab/parent``.  Each side runs in a
 process of its own that imports that checkout's ``petal_neighbors_tpu_torch``
 and calls its wrappers as a user would (``knn_capped``, ``knn_bcap``,
-``bcap_minima``), so the two trees may differ in their C interfaces; each
-builds its kernels into its own ``build/kernels/``.  On the SIFT-1M shape
-of chip_smoke.py (1M x 128 points, 10,240 queries, seed 7) it times:
+``bcap_minima``, ``subchunk_minima``, ``knn_fold_lazy``), so the two trees
+may differ in their C interfaces; each builds its kernels into its own
+``build/kernels/``.  On the SIFT-1M shape of chip_smoke.py (1M x 128
+points, 10,240 queries, seed 7) it times:
 
 * capped at k=108 (tile 4096 rows, the route's passes), the main path's
   k=100 call, and whether the two trees give it the same sorted rdist and
@@ -16,7 +17,10 @@ of chip_smoke.py (1M x 128 points, 10,240 queries, seed 7) it times:
   ``capped_rows_ids_differ``, since the last row range to arrive merges
   the others in and an exact tie at the k-th value may fall either way);
 * bcap at kb=18 (128 blocks a tile), the main path's k=10 call;
-* the block minima of bcap2.
+* the block minima of bcap2 and the subchunk minima of two_phase;
+* fold_lazy at k_scan 18 (the opt-in fold_lazy k=10 call), and whether
+  the two trees give it the same sorted rdist bits (``lazy_bits_equal``;
+  both are fold's).
 
 The sides run parent, change, change, parent, one process each (CUDA
 events, 3 rounds of 3 launches per kernel and process).  Prints one JSON
@@ -39,7 +43,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 3
-KERNELS = ("knn_capped", "knn_bcap", "bcap_minima")
+KERNELS = ("knn_capped", "knn_bcap", "bcap_minima", "subchunk_minima",
+           "knn_fold_lazy")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -60,7 +65,7 @@ def cuda_ms(fn, reps: int) -> float:
 def worker(tree: str, spec: dict, out: str) -> None:
     """One side: the kernels of the checkout at ``tree`` on the shape in
     ``spec``; writes {kernel: {"ms": [...], "plan": ...}} to ``out`` (JSON)
-    and capped's sorted outputs beside it (``.npz``)."""
+    and capped's and fold_lazy's sorted outputs beside it (``.npz``)."""
     sys.path.insert(0, tree)
     import petal_neighbors_tpu_torch as pt
     from petal_neighbors_tpu_torch.ops.cuda import _build
@@ -81,23 +86,31 @@ def worker(tree: str, spec: dict, out: str) -> None:
     nq = qc.shape[0]
     ck, ctile, cpasses = spec["capped"]
     bk, btile, bpasses = spec["bcap"]
+    lk = spec["fold_lazy"][0]
     calls = {
         "knn_capped": lambda: kk.knn_capped(pp, qc, pn, k=ck, tile=ctile,
                                             passes=cpasses),
         "knn_bcap": lambda: kk.knn_bcap(pp, qc, pn, k=bk, tile=btile,
                                         passes=bpasses),
         "bcap_minima": lambda: mk.bcap_minima(pp, qc, pn),
+        "subchunk_minima": lambda: mk.subchunk_minima(pp, qc, pn),
+        "knn_fold_lazy": lambda: kk.knn_fold_lazy(pp, qc, pn, k=lk),
     }
     plans = {"knn_capped": kk.kernel_plan("capped", n, nq, d, ck, ctile),
              "knn_bcap": kk.kernel_plan("bcap", n, nq, d, bk, btile),
-             "bcap_minima": mk.minima_plan("block", n, nq, d)}
+             "bcap_minima": mk.minima_plan("block", n, nq, d),
+             "subchunk_minima": mk.minima_plan("subchunk", n, nq, d),
+             "knn_fold_lazy": kk.kernel_plan("fold_lazy", n, nq, d, lk)}
     row = {name: {"ms": [cuda_ms(fn, reps=3) for _ in range(ROUNDS)],
                   "plan": plans[name]} for name, fn in calls.items()}
     rd, ids, thr = calls["knn_capped"]()
+    lazy_rd, _ = calls["knn_fold_lazy"]()
     np.savez(out + ".npz",
              rdist=torch.sort(rd, 1).values.view(torch.int32).cpu().numpy(),
              ids=torch.sort(ids, 1).values.cpu().numpy(),
-             thr=thr.view(torch.int32).cpu().numpy())
+             thr=thr.view(torch.int32).cpu().numpy(),
+             lazy_rdist=torch.sort(lazy_rd, 1).values.view(torch.int32)
+             .cpu().numpy())
     Path(out).write_text(json.dumps(row))
 
 
@@ -120,7 +133,8 @@ def main() -> int:
 
     spec = {"seed": cs.SEED, "n": cs.N, "dim": cs.DIM, "q": cs.N_Q,
             "capped": cs.kernel_args("capped", 100, cs.N),
-            "bcap": cs.kernel_args("bcap", 10, cs.N)}
+            "bcap": cs.kernel_args("bcap", 10, cs.N),
+            "fold_lazy": cs.kernel_args("fold_lazy", 10, cs.N)}
     trees = {"parent": str(Path(args.parent).resolve()), "change": str(ROOT)}
     runs = []
     (ROOT / "build").mkdir(exist_ok=True)
@@ -146,6 +160,10 @@ def main() -> int:
                 for _, _, out in runs for key in ("rdist", "thr"))
             row["capped_rows_ids_differ"] = max(
                 int((first["ids"] != out["ids"]).any(1).sum())
+                for _, _, out in runs)
+        if name == "knn_fold_lazy":
+            row["lazy_bits_equal"] = all(
+                np.array_equal(runs[0][2]["lazy_rdist"], out["lazy_rdist"])
                 for _, _, out in runs)
         print(json.dumps(row), flush=True)
     print(cs.smi_line(), flush=True)

@@ -100,7 +100,8 @@ _INF_BITS = 0x7F800000
 last_two_phase_fallback = False
 
 #: the tier whose bound the most recent proof-gated call proved its
-#: queries on ("fp32" or "tc"); None after a call on the fold route
+#: queries on ("tc", the tier of every proof-gated scheme's candidates);
+#: None after a call on the fold route
 last_proof_tier: str | None = None
 
 
@@ -267,12 +268,13 @@ def _proof_err(dim: int, qn, xn_max, tier: str = "fp32"):
     """Pointwise |computed u − true u| bound of the product tier that made
     the candidates, times ‖q‖² + max ‖x‖².
 
-    ``"fp32"`` (fold, fold_lazy and the subchunk minima of two_phase: the
-    FP32 SIMT product; ops/bruteforce.py:277-281 at "highest"): 4x the f32
-    rounding plus the sequential-sum accumulation term d·2⁻²⁴.
+    ``"fp32"`` (fold and fold_lazy: the FP32 SIMT product;
+    ops/bruteforce.py:277-281 at "highest"): 4x the f32 rounding plus the
+    sequential-sum accumulation term d·2⁻²⁴.
 
-    ``"tc"`` (capped, bcap and the block minima of bcap2: the split-bf16
-    tensor-core product, ``_u_tc``, ``csrc/knn_tc.cuh``),
+    ``"tc"`` (capped, bcap, the block minima of bcap2 and the subchunk
+    minima of two_phase: the split-bf16 tensor-core product, ``_u_tc``,
+    ``csrc/knn_tc.cuh``),
     ``(4 + 12·⌈d/16⌉)·2⁻²³``
     (``knn_kernel.tc_proof_err``).  With S = Σ|q_i x_i| ≤ ‖q‖‖x‖ ≤
     (‖q‖² + ‖x‖²)/2 and s = 6·⌈d/16⌉ mma steps:
@@ -513,7 +515,8 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
       distance is at most ``thr − err`` (``_proof_err`` of the tier that
       made the candidates: the tensor-core one for all three); uncovered
       queries are recomputed by the fold kernel (``_prove_repair``);
-    * two_phase's threshold is the k-th smallest subchunk minimum.  If the
+    * two_phase's threshold is the k-th smallest subchunk minimum, on the
+      tensor-core tier, and proves on its bound.  If the
       proof leaves any query uncovered, the whole batch re-runs the fold
       route (fold up to k_scan 1024, merge above), as the reference does;
       ``last_two_phase_fallback`` records whether the last call did.
@@ -550,9 +553,10 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
         return to_out(best_rd), best_i
     qn = torch.sum(queries * queries, dim=1)
     xn_max = torch.max(torch.where(torch.isfinite(xn_padded), xn_padded, 0.0))
-    # the tier that made the candidates and thr: two_phase's subchunk minima
-    # are FP32 SIMT, capped, bcap and bcap2's the tensor-core product
-    last_proof_tier = "fp32" if scheme == "two_phase" else "tc"
+    # the tier that made the candidates and thr: every proof-gated scheme's
+    # (capped, bcap, bcap2's block minima, two_phase's subchunk minima) is
+    # the tensor-core product
+    last_proof_tier = "tc"
     err = _proof_err(queries.shape[1], qn, xn_max, tier=last_proof_tier)
     if scheme == "two_phase":
         # ops/bruteforce.py:955-981: one uncovered query sends the whole

@@ -12,9 +12,10 @@
 //               point outside the working set can lie.
 //   MODE_BCAP   _knn_kernel_bcap (:546): the capped scheme over the minima
 //               of blocks of BLOCK = 16 contiguous rows; returns block ids.
-// fold and fold_lazy score on the FP32 SIMT tile product scan_tiles
-// (knn_tiles.cuh); capped and bcap on the split-bf16 tensor-core product
-// (knn_tc.cuh), the TPU kernels' "highest" arithmetic: capped reads its u
+// fold scores on the FP32 SIMT tile product scan_tiles (knn_tiles.cuh),
+// fold_lazy on its wider sibling wide::scan (lazy_kernel below; the same
+// FP32 sums, bit for bit); capped and bcap on the split-bf16 tensor-core
+// product (knn_tc.cuh), the TPU kernels' "highest" arithmetic: capped reads its u
 // tile (tc::scan), bcap only the 16-row block minima reduced in the mma
 // registers (tc::scan_minima), bit for bit knn_minima.cu's.  The Euclidean merge
 // (_knn_kernel_merge) lives in knn_select.cu, on the tensor-core product.
@@ -43,11 +44,13 @@
 // the SIMT cores, 2*Q*N*d FLOP (one FMA per query, row and feature); capped
 // and bcap, six bf16 products on the tensor cores, 6 * 2*Q*N*d FLOP at 989
 // TFLOP/s.  The point set is streamed once per query tile through shared
-// memory: N*d*4 bytes per 64 queries, far under the arithmetic time.
+// memory: N*d*4 bytes per 64 queries (128 for fold_lazy), far under the
+// arithmetic time.
 //
 // Design:
 //   * one block = TQ = 64 queries, 256 threads = 8 warps (capped and bcap:
-//     128 queries, 512 threads, the tensor-core product's tile); warp w
+//     128 queries, 512 threads, the tensor-core product's tile; fold_lazy:
+//     below); warp w
 //     owns queries 8w..8w+7.  Each half-warp owns 4 of them, and each of
 //     its 16 lanes holds 4 x 4 scores (4 queries x 4 points: rows xg,
 //     xg+16, xg+32, xg+48 of a 64-row tile), so one half-warp holds all
@@ -71,11 +74,25 @@
 //     slots they fill in order, without a scan.
 //   * fold_lazy: the TPU kernel's point is one fused reduce per tile (the
 //     tile minimum against each query's tau) before the u tile and the
-//     extraction loop.  Here that is one warp-wide vote over all 8 of the
-//     warp's queries: only when some score of the tile is below its
-//     query's tau do the NaN conversion and the four fold_query calls (each
-//     with its own vote) run.  The scores and every comparison are fold's,
-//     so the working sets are fold's bit for bit.
+//     extraction loop.  Here that is one warp-wide vote over the warp's 16
+//     queries and 128 rows (__reduce_or_sync of a mask of the queries that
+//     hit): only for a query that hit in either half-warp do the NaN
+//     conversion and a fold_query call (with its own vote) run.  It has
+//     its own kernel (lazy_kernel) on the wide product of knn_tiles.cuh:
+//     128 queries x 128-row tiles on 256 threads, an 8 x 8 register tile
+//     a thread (a half-warp owns 8 queries, 8 candidates a lane),
+//     64-feature chunks in a 3-stage cp.async ring, one barrier a chunk
+//     and none around the vote.  It reads each index row once per 128
+//     queries and issues 16 shared-memory loads per 256 FFMA (fold's
+//     scan_tiles: 8 per 64).  The scores are summed in fold's order and
+//     every comparison is fold's, so its rdist are fold's bit for bit; at
+//     a tie on a row's largest rdist the ids kept may differ, as between
+//     fold's two paths.  Tried on an H100 and slower: a producer warp
+//     with an mbarrier ring in place of the barriers (a ninth warp caps a
+//     thread at 168 registers, and the tile spilled), two blocks an SM
+//     (128 registers: spilled), 32-feature chunks (twice the barriers),
+//     fragments prefetched a step ahead, and the generic staging loop's
+//     division per copy (the full chunks' copies now step without one).
 //   * capped / bcap: each query keeps a sorted list of the passes+1
 //     smallest candidates of the current tile, one entry per lane of its
 //     half-warp (insertion = ballot + shuffle-up); at the tile's end its
@@ -97,8 +114,9 @@
 //     with the fold step (and takes the least miss) and writes the output.
 //     For capped and bcap each range seeds its own set, as if it were the
 //     whole index.  One launch, no second kernel.
-//   * the working set lives in shared memory when it still lets two blocks
-//     share an SM, and otherwise in the global scratch part_d / part_i.
+//   * the working set lives in shared memory when it still lets as many
+//     blocks share an SM as without it (two for fold, one for the others),
+//     and otherwise in the global scratch part_d / part_i.
 //
 // The C entry points return a cudaError_t; the launch returns
 // cudaGetLastError() right after the launch.
@@ -123,15 +141,16 @@ constexpr int MAX_PASSES = 15;  // the list of passes+1 entries spans 16 lanes
 constexpr int LANE_LIST = 4;
 constexpr int MAX_K = 1024;
 
-// The smallest of the half-warp's candidates (v, cid), ties to the smaller
-// id (jnp.argmin's first index: ids grow with the column).
-__device__ __forceinline__ void half_warp_argmin(const float (&v)[4],
-                                                 const int (&cid)[4],
+// The smallest of the half-warp's candidates (v, cid), R a lane, ties to
+// the smaller id (jnp.argmin's first index: ids grow with the column).
+template <int R>
+__device__ __forceinline__ void half_warp_argmin(const float (&v)[R],
+                                                 const int (&cid)[R],
                                                  float& m, int& id) {
   m = v[0];
   id = cid[0];
 #pragma unroll
-  for (int i = 1; i < 4; ++i)
+  for (int i = 1; i < R; ++i)
     if (lex_less(v[i], cid[i], m, id)) {
       m = v[i];
       id = cid[i];
@@ -176,19 +195,20 @@ __device__ __forceinline__ void reduce_max(float& mx, int& mp) {
   }
 }
 
-// The fold step for one query per half-warp: lane xg holds 4 candidates
-// (v[i], cid[i]); the half-warp's 64 candidates enter the working set
+// The fold step for one query per half-warp: lane xg holds R candidates
+// (v[i], cid[i]); the half-warp's 16 R candidates enter the working set
 // (wd, wi) of k slots in ascending order while they beat its maximum tau.
 // Every lane of the warp calls this (shuffles span the warp); the two
 // half-warps fold their own queries.  A candidate with NaN score must be
 // passed as +inf.
-__device__ __forceinline__ void fold_query(float (&v)[4], const int (&cid)[4],
+template <int R>
+__device__ __forceinline__ void fold_query(float (&v)[R], const int (&cid)[R],
                                            float& tau, int& amax, int& fill,
                                            float* wd, int* wi, int k,
                                            int xg) {
   bool hit = false;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) hit |= v[i] < tau;
+  for (int i = 0; i < R; ++i) hit |= v[i] < tau;
   if (!__any_sync(FULL, hit)) return;
   while (true) {
     float m;
@@ -198,7 +218,7 @@ __device__ __forceinline__ void fold_query(float (&v)[4], const int (&cid)[4],
     if (!__any_sync(FULL, take)) return;
     if (take) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
         if (cid[i] == id) v[i] = INFINITY;   // consumed
       if (xg == 0) {
         wd[amax] = m;
@@ -330,16 +350,19 @@ __device__ __forceinline__ void flush_list(float& lv, int& li, float& tau,
 // last block of each query tile to merge.  Ranges are whole tiles of
 // tile_tiles x TN rows (1 for fold).
 // Queries and threads per block of a mode: capped's and bcap's tensor-core
-// product takes tc::TQ = 128 queries on 512 threads; the SIMT modes TQ = 64
-// on 256.  Either way a half-warp owns 4 queries.
+// product takes tc::TQ = 128 queries on 512 threads, fold's SIMT product
+// TQ = 64 on 256 (a half-warp owns 4 queries in knn_kernel), and
+// fold_lazy's wide product wide::TQ = 128 on 256 (lazy_kernel, 8 queries a
+// half-warp).
 __host__ __device__ constexpr bool on_tc(int mode) {
   return mode == MODE_CAPPED || mode == MODE_BCAP;
 }
 __host__ __device__ constexpr int block_queries(int mode) {
-  return on_tc(mode) ? tc::TQ : TQ;
+  return on_tc(mode) ? tc::TQ : mode == MODE_FOLD_LAZY ? wide::TQ : TQ;
 }
 __host__ __device__ constexpr int block_threads(int mode) {
-  return on_tc(mode) ? tc::THREADS : THREADS;
+  return on_tc(mode) ? tc::THREADS
+                     : mode == MODE_FOLD_LAZY ? wide::THREADS : THREADS;
 }
 static_assert(tc::THREADS == 4 * tc::TQ && THREADS == 4 * TQ,
               "a half-warp owns 4 queries");
@@ -347,11 +370,12 @@ static_assert(tc::BLOCK == BLOCK && tc::TN == 2 * TN,
               "a tensor-core tile is two 64-row tiles of selection");
 
 // Floats of shared memory the tile product of `mode` takes at width d
-// (bcap keeps the query planes resident where it can).
+// (bcap and fold_lazy keep the queries resident where they can).
 __host__ __device__ __forceinline__ int product_floats(int mode, int d) {
   return mode == MODE_CAPPED ? tc::smem_floats(d)
          : mode == MODE_BCAP ? tc::minima_smem_floats(d, tc::hoists(d))
-                             : tile_floats(d);
+         : mode == MODE_FOLD_LAZY ? wide::smem_floats(d)
+                                  : tile_floats(d);
 }
 
 template <int MODE, bool VEC>
@@ -484,20 +508,9 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
     }
   };
 
-  // ---- fold, fold_lazy, capped: a 64-row tile's scores into the working
-  // sets; uval(j, i) is u of query rbase + j and row t*TN + xg + 16 i ------
+  // ---- fold, capped: a 64-row tile's scores into the working sets;
+  // uval(j, i) is u of query rbase + j and row t*TN + xg + 16 i -----------
   auto tile_body = [&](long long t, auto&& uval) {
-      if (MODE == MODE_FOLD_LAZY) {
-        // one fused test for the warp's 8 queries: a NaN score fails it, as
-        // its +inf stand-in fails fold_query's
-        bool hit = false;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            hit |= uval(j, i) < tau[j];
-        if (!__any_sync(FULL, hit)) return;
-      }
       const int tile0 = static_cast<int>(t * TN);
       int cid[4];
 #pragma unroll
@@ -729,15 +742,182 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   }
 }
 
-template <int MODE>
-cudaError_t set_smem(size_t smem) {
+// fold_lazy on the wide product (knn_tiles.cuh's wide::scan): grid =
+// (ceil(q / wide::TQ), splits); block (bx, by) folds the rows of range by,
+// whole 128-row tiles, into the working sets of queries [bx*wide::TQ, +
+// wide::TQ).  A half-warp owns 8 queries, lane xg holds 8 scores of each
+// (rows xg + 16 i of the tile).  Scratch, ranges and the last block's fold
+// of the other ranges' sets as knn_kernel's, at this block's size.
+template <bool VEC>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+lazy_kernel(const float* __restrict__ points,
+            const float* __restrict__ queries,
+            const float* __restrict__ norms, float* __restrict__ out_d,
+            int* __restrict__ out_i, float* __restrict__ part_d,
+            int* __restrict__ part_i, int* __restrict__ counters, long long n,
+            int q, int d, int k, int splits, int ws_in_smem) {
+  constexpr int QT = wide::TQ;
+  constexpr int NT = wide::THREADS;
+  constexpr int R = wide::R;
+  extern __shared__ float4 smem4[];
+  __shared__ int is_last;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int q0 = blockIdx.x * QT;
+  const int split = blockIdx.y;
+  const long long qk = static_cast<long long>(q) * k;
+  float* ws_d;
+  int* ws_i;
+  if (ws_in_smem) {
+    ws_d = smem + wide::smem_floats(d);   // [QT][k] after the product's
+    ws_i = reinterpret_cast<int*>(ws_d + QT * k);
+  } else {
+    ws_d = part_d + split * qk + static_cast<long long>(q0) * k;
+    ws_i = part_i + split * qk + static_cast<long long>(q0) * k;
+  }
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int xg = lane & 15;
+  const int rbase = warp * 16 + (lane >> 4) * R;   // this thread's queries
+
+  // working-set init: (+inf, -1); rows past q are never touched
+  const int valid_rows = min(QT, q - q0);
+  for (int e = tid; e < valid_rows * k; e += NT) {
+    ws_d[e] = INFINITY;
+    ws_i[e] = -1;
+  }
+  float tau[R];
+  int amax[R], fill[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    // rows past q get tau = -inf: nothing is ever below it
+    tau[j] = q0 + rbase + j < q ? INFINITY : -INFINITY;
+    amax[j] = 0;
+    fill[j] = 0;
+  }
+
+  const long long ntiles = (n + wide::TN - 1) / wide::TN;
+  const long long per = (ntiles + splits - 1) / splits;
+  const long long t_begin = min(ntiles, per * split);
+  const long long t_end = min(ntiles, t_begin + per);
+  const DotScore score{};
+  wide::scan<VEC>(points, queries, norms, n, q, d, q0, t_begin, t_end, smem,
+                  [&](long long t, const float* xnb, float (&acc)[R][R]) {
+    float xr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) xr[i] = xnb[xg + 16 * i];
+    // one fused test for the warp's 16 queries, with the queries that hit
+    // (bit j: query rbase + j of either half-warp): a NaN score fails it,
+    // as its +inf stand-in fails fold_query's
+    unsigned mask = 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      bool h = false;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        h |= score.finish(acc[j][i], xr[i]) < tau[j];
+      mask |= static_cast<unsigned>(h) << j;
+    }
+    mask = __reduce_or_sync(FULL, mask);
+    if (!mask) return;
+    int cid[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      cid[i] = static_cast<int>(t * wide::TN) + xg + 16 * i;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (!((mask >> j) & 1u)) continue;
+      float v[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float u = score.finish(acc[j][i], xr[i]);
+        v[i] = (u < INFINITY) ? u : INFINITY;   // NaN -> +inf
+      }
+      fold_query(v, cid, tau[j], amax[j], fill[j], ws_d + (rbase + j) * k,
+                 ws_i + (rbase + j) * k, k, xg);
+    }
+  });
+
+  if (splits > 1) {
+    // ---- publish this range's working sets; the last block folds the
+    // other ranges' into its own ---------------------------------------
+    if (ws_in_smem) {
+      float* pd = part_d + split * qk + static_cast<long long>(q0) * k;
+      int* pi = part_i + split * qk + static_cast<long long>(q0) * k;
+      for (int e = tid; e < valid_rows * k; e += NT) {
+        pd[e] = ws_d[e];
+        pi[e] = ws_i[e];
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      is_last = atomicAdd(counters + blockIdx.x, 1) == splits - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    for (int other = 0; other < splits; ++other) {
+      if (other == split) continue;
+      // unrolled, so that tau, amax and fill stay in registers
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int gq = q0 + rbase + j;
+        const float* od = part_d + other * qk + static_cast<long long>(gq) * k;
+        const int* oi = part_i + other * qk + static_cast<long long>(gq) * k;
+        for (int e0 = 0; e0 < k; e0 += 16 * R) {
+          float v[R];
+          int cid[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const int e = e0 + xg + 16 * i;
+            const bool ok = gq < q && e < k;
+            v[i] = ok ? __ldcg(od + e) : INFINITY;
+            cid[i] = ok ? __ldcg(oi + e) : -1;
+          }
+          fold_query(v, cid, tau[j], amax[j], fill[j],
+                     ws_d + (rbase + j) * k, ws_i + (rbase + j) * k, k, xg);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- output: rd = max(u + ||q||^2, 0), ||q||^2 summed as knn_kernel
+  // sums it; unfilled slots stay (+inf, -1) -----------------------------
+  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    const int gq = q0 + r;
+    if (gq >= q) break;
+    const float* qrow = queries + static_cast<long long>(gq) * d;
+    float qn = 0.f;
+    for (int f = lane; f < d; f += 32) qn = fmaf(qrow[f], qrow[f], qn);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) qn += __shfl_xor_sync(FULL, qn, off);
+    float* od = out_d + static_cast<long long>(gq) * k;
+    int* oi = out_i + static_cast<long long>(gq) * k;
+    for (int e = lane; e < k; e += 32) {
+      const int id = ws_i[r * k + e];
+      const float rd = ws_d[r * k + e] + qn;
+      od[e] = id < 0 ? INFINITY : (rd < 0.f ? 0.f : rd);
+      oi[e] = id;
+    }
+  }
+}
+
+template <class K>
+cudaError_t set_smem(K vec, K scalar, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_kernel<MODE, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      vec, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(knn_kernel<MODE, false>,
+  return cudaFuncSetAttribute(scalar,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+template <int MODE>
+cudaError_t set_smem(size_t smem) {
+  return set_smem(knn_kernel<MODE, true>, knn_kernel<MODE, false>, smem);
 }
 
 // Shared memory of the tile product of `mode` at width d.
@@ -756,7 +936,8 @@ cudaError_t prepare(int mode, int d, int k, int ws_in_smem, size_t* smem) {
     case MODE_FOLD: return set_smem<MODE_FOLD>(*smem);
     case MODE_CAPPED: return set_smem<MODE_CAPPED>(*smem);
     case MODE_BCAP: return set_smem<MODE_BCAP>(*smem);
-    case MODE_FOLD_LAZY: return set_smem<MODE_FOLD_LAZY>(*smem);
+    case MODE_FOLD_LAZY:
+      return set_smem(lazy_kernel<true>, lazy_kernel<false>, *smem);
   }
   return cudaErrorInvalidValue;
 }
@@ -774,7 +955,7 @@ cudaError_t occupancy(int mode, int* per_sm, size_t smem) {
           per_sm, knn_kernel<MODE_BCAP, true>, block_threads(MODE_BCAP), smem);
     case MODE_FOLD_LAZY:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          per_sm, knn_kernel<MODE_FOLD_LAZY, true>, block_threads(MODE_FOLD_LAZY), smem);
+          per_sm, lazy_kernel<true>, block_threads(MODE_FOLD_LAZY), smem);
   }
   return cudaErrorInvalidValue;
 }
@@ -800,12 +981,13 @@ void launch(bool vec, dim3 grid, size_t smem, cudaStream_t stream,
 
 extern "C" {
 
-// The kernels' fixed sizes: queries per block (counters are sized by it),
-// rows per tile (capped tiles are multiples of it), rows per bcap block,
-// and the largest passes and k.
-void knn_constants(int* tq, int* tn, int* block, int* max_passes,
-                   int* max_k) {
+// The kernels' fixed sizes: queries per block (counters are sized by it;
+// fold's, and fold_lazy's wide block), rows per tile (capped tiles are
+// multiples of it), rows per bcap block, and the largest passes and k.
+void knn_constants(int* tq, int* lazy_tq, int* tn, int* block,
+                   int* max_passes, int* max_k) {
   *tq = TQ;
+  *lazy_tq = wide::TQ;
   *tn = TN;
   *block = BLOCK;
   *max_passes = MAX_PASSES;
@@ -824,8 +1006,9 @@ void knn_tc_constants(int* tq, int* tn, int* dc, int* pieces,
 }
 
 // The launch plan for a problem: where the working set lives (shared
-// memory when two blocks still fit on an SM) and how many row ranges to
-// split into (choose_splits).  mode: 0 fold, 1 capped, 2 bcap, 4 fold_lazy
+// memory when the block still fits as many times on an SM as without it)
+// and how many row ranges to split into (choose_splits; fold_lazy's ranges
+// are whole 128-row tiles).  mode: 0 fold, 1 capped, 2 bcap, 4 fold_lazy
 // (tile_tiles 1 for the folds).
 int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
              int* splits, int* ws_in_smem) {
@@ -836,17 +1019,19 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
   cudaError_t err = card_limits(&sms, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the working sets go to shared memory while the block still fits as
-  // many times on an SM as without them (twice for the SIMT product, once
-  // for the tensor-core one)
+  // many times on an SM as without them (twice for fold's SIMT product,
+  // once for the tensor-core and the wide ones)
   const size_t ws = static_cast<size_t>(block_queries(mode)) * k * 8;
-  const size_t share = on_tc(mode) ? optin : optin / 2;
+  const size_t share = mode == MODE_FOLD ? optin / 2 : optin;
   *ws_in_smem = product_smem_bytes(mode, d) + ws + 1024 <= share;
   int per_sm = 0;
   size_t smem = 0;
   err = prepare(mode, d, k, *ws_in_smem, &smem);
   if (err == cudaSuccess) err = occupancy(mode, &per_sm, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *splits = choose_splits(per_sm, sms, n, q, tile_tiles, block_queries(mode));
+  *splits = choose_splits(per_sm, sms, n, q,
+                          mode == MODE_FOLD_LAZY ? wide::TN / TN : tile_tiles,
+                          block_queries(mode));
   return 0;
 }
 
@@ -856,8 +1041,8 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
 // Scratch part_d (splits, q, k) float32 and part_i (splits, q, k) int32
 // (unused when splits == 1 and ws_in_smem), part_m (splits, q) float32
 // (capped, bcap) and zeroed counters (ceil(q / QT),) int32, QT =
-// block_queries(mode) (knn_constants' tq, or knn_tc_constants' for
-// capped and bcap).  1 <= k <=
+// block_queries(mode) (knn_constants' tq, or its lazy_tq for fold_lazy,
+// or knn_tc_constants' tq for capped and bcap).  1 <= k <=
 // MAX_K, q >= 1, n < 2^31; capped: k <= tile_tiles * TN; bcap: k <=
 // tile_tiles * TN / BLOCK; the folds: tile_tiles 1; 0 <= passes <=
 // MAX_PASSES.  splits and ws_in_smem as knn_plan
@@ -897,10 +1082,14 @@ int knn_launch(int mode, const float* points, const float* queries,
                           q, d, k, tile_tiles, passes, splits, ws_in_smem);
       break;
     case MODE_FOLD_LAZY:
-      launch<MODE_FOLD_LAZY>(vec, grid, smem, s, points, queries, norms,
-                             out_d, out_i, out_t, part_d, part_i, part_m,
-                             counters, n, q, d, k, tile_tiles, passes, splits,
-                             ws_in_smem);
+      if (vec)
+        lazy_kernel<true><<<grid, wide::THREADS, smem, s>>>(
+            points, queries, norms, out_d, out_i, part_d, part_i, counters,
+            n, q, d, k, splits, ws_in_smem);
+      else
+        lazy_kernel<false><<<grid, wide::THREADS, smem, s>>>(
+            points, queries, norms, out_d, out_i, part_d, part_i, counters,
+            n, q, d, k, splits, ws_in_smem);
       break;
     default:
       launch<MODE_BCAP>(vec, grid, smem, s, points, queries, norms, out_d,

@@ -77,9 +77,9 @@ struct DotScore {
 };
 
 // Stage rows [row0, row0 + rows) x features [c0, c0 + w) of a row-major
-// (total, d) matrix into dst (stride DS), zero-filling rows past `total`
-// and the columns [w, wpad).
-template <bool VEC>
+// (total, d) matrix into dst (stride STRIDE), zero-filling rows past
+// `total` and the columns [w, wpad).
+template <bool VEC, int STRIDE = DS>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long total, long long row0,
                                            int rows, int d, int c0, int w,
@@ -91,7 +91,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
       const int c = (idx - r * per_row) << 2;
       const long long g = row0 + r;
       const bool ok = g < total;
-      cp_async16(dst + r * DS + c, ok ? src + g * d + c0 + c : src,
+      cp_async16(dst + r * STRIDE + c, ok ? src + g * d + c0 + c : src,
                  ok ? 16 : 0);
     }
   } else {
@@ -100,7 +100,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
       const int c = idx - r * wpad;
       const long long g = row0 + r;
       const bool ok = g < total && c < w;
-      cp_async4(dst + r * DS + c, ok ? src + g * d + c0 + c : src,
+      cp_async4(dst + r * STRIDE + c, ok ? src + g * d + c0 + c : src,
                 ok ? 4 : 0);
     }
   }
@@ -217,6 +217,208 @@ __device__ __forceinline__ void scan_tiles(
     __syncthreads();
   }
 }
+
+// ---- the wide FP32 product (fold_lazy) ----------------------------------
+//
+// wide::scan is scan_tiles' product on a larger tile: a block's TQ = 128
+// queries against tiles of TN = 128 point rows, 256 threads, each with an
+// 8 x 8 register tile of sums (queries rbase .. rbase + 7, rbase = 16 warp
+// + 8 half-warp; rows xg, xg + 16, .., xg + 112 of the tile, xg the lane in
+// its half-warp), so a half-warp holds all 128 scores of its 8 queries.
+// Per 4 features a thread reads 8 row and 8 query float4 from shared
+// memory for 256 FFMA (scan_tiles: 8 for 64).  The rows stream through a
+// ring of STAGES = 3 chunks of DC = 64 features (cp.async; one barrier a
+// chunk, the next-but-one chunk's copies in flight during this chunk's
+// product); the query chunks stay resident at d <= HOIST_D and ride the
+// ring beside the rows above it.  Rows are padded to DC + 4 floats, so the
+// float4 reads of 8 neighbouring rows hit distinct banks.  One block an SM
+// (its shared memory and registers), 8 warps.
+//
+// Bits: every (query, row) pair is summed as scan_tiles sums it, one
+// fmaf(q_f, x_f, acc) a feature in ascending order from 0, zero-filled
+// features only past d (a ragged last chunk pads to a multiple of 4, as
+// there), never split or reordered, so DotScore's u is scan_tiles' bit for
+// bit at every d, tile, range and launch.
+namespace wide {
+
+constexpr int TQ = 128;       // queries per block
+constexpr int TN = 128;       // point rows per tile
+constexpr int DC = 64;        // features per chunk
+constexpr int DS = DC + 4;    // shared-memory row stride in floats
+constexpr int STAGES = 3;     // chunks in the cp.async ring
+constexpr int THREADS = 256;  // 8 warps; a half-warp owns 8 queries
+constexpr int R = 8;          // queries and rows of a thread's tile
+constexpr int HOIST_D = 128;  // widest d whose query chunks stay resident
+static_assert(TQ == 16 * THREADS / 32 && TN == 16 * R, "tile mapping");
+static_assert(STAGES == 3, "the loop waits for all but the newest copies");
+static_assert(THREADS == ::THREADS, "stage_rows spreads over ::THREADS");
+
+__host__ __device__ __forceinline__ bool hoists(int d) { return d <= HOIST_D; }
+
+// Copy rows [row0, row0 + rows) x features [c0, c0 + w) of a row-major
+// (total, d) matrix into dst (stride DS), rows past `total` zero-filled.
+// A full chunk (VEC, w == DC) gives each thread one column of 4 features
+// and every 16th row from tid / 16, with no division and one address step
+// a copy; other chunks (the ragged last one, d % 4 != 0) take stage_rows.
+template <bool VEC>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long total, long long row0,
+                                      int rows, int d, int c0, int w) {
+  if (VEC && w == DC) {
+    constexpr int PER_ROW = DC / 4, STEP = THREADS / PER_ROW;
+    const int tid = threadIdx.x;
+    const int col = (tid % PER_ROW) * 4;
+    long long g = row0 + tid / PER_ROW;
+    const float* from = src + g * d + c0 + col;
+    float* to = dst + (tid / PER_ROW) * DS + col;
+    for (int r = tid / PER_ROW; r < rows; r += STEP) {
+      const bool ok = g < total;
+      cp_async16(to, ok ? from : src, ok ? 16 : 0);
+      g += STEP;
+      from += static_cast<long long>(STEP) * d;
+      to += STEP * DS;
+    }
+  } else {
+    stage_rows<VEC, DS>(dst, src, total, row0, rows, d, c0, w,
+                        (w + 3) & ~3);
+  }
+}
+
+// Floats of shared memory wide::scan takes at width d: the query chunks
+// (all of them, or a ring), the row ring and its norm rows.
+__host__ __device__ __forceinline__ int smem_floats(int d) {
+  const int qchunks = hoists(d) ? (d + DC - 1) / DC : STAGES;
+  return (qchunks * TQ + STAGES * TN) * DS + STAGES * TN;
+}
+
+// Stream the tiles [t_begin, t_end) of TN rows (and the block's TQ queries
+// from q0) and after each tile's last chunk call
+//     on_tile(t, xnb, acc)
+// on every thread of the block: acc[j][i] is DotScore's sum of query
+// q0 + rbase + j and row t*TN + xg + 16 i, and xnb the tile's TN norms
+// (+inf past n).  acc is zeroed afterwards.  on_tile runs without a
+// barrier around it: it may read only xnb, its registers and memory of
+// its own (the warps meet again at the next chunk's barrier, and a ring
+// slot is refilled only past that barrier).
+template <bool VEC, class OnTile>
+__device__ __forceinline__ void scan(const float* __restrict__ points,
+                                     const float* __restrict__ queries,
+                                     const float* __restrict__ norms,
+                                     long long n, int q, int d, int q0,
+                                     long long t_begin, long long t_end,
+                                     float* smem, OnTile&& on_tile) {
+  const int nch = (d + DC - 1) / DC;
+  const bool hoist = hoists(d);
+  float* qs = smem;                                        // [..][TQ][DS]
+  float* xs = qs + (hoist ? nch : STAGES) * TQ * DS;       // [STAGES][TN][DS]
+  float* xn = xs + STAGES * TN * DS;                       // [STAGES][TN]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int xg = lane & 15;
+  const int rbase = (tid >> 5) * 16 + (lane >> 4) * R;
+  const long long nst = (t_end - t_begin) * nch;
+
+  auto width = [&](int c) { return min(DC, d - c * DC); };
+  // the copies' position in the stream of chunks: tile, chunk, ring slot
+  long long it = t_begin;
+  int ic = 0, islot = 0;
+  auto issue = [&]() {
+    const int w = width(ic);
+    stage<VEC>(xs + islot * TN * DS, points, n, it * TN, TN, d, ic * DC, w);
+    if (!hoist)
+      stage<VEC>(qs + islot * TQ * DS, queries, q, q0, TQ, d, ic * DC, w);
+    if (ic == nch - 1) {
+      float* dst = xn + islot * TN;
+      for (int i = tid; i < TN; i += THREADS) {
+        const long long g = it * TN + i;
+        if (g < n)
+          cp_async4(dst + i, norms + g, 4);
+        else
+          dst[i] = INFINITY;
+      }
+    }
+    islot = islot + 1 == STAGES ? 0 : islot + 1;
+    if (++ic == nch) {
+      ic = 0;
+      ++it;
+    }
+  };
+
+  float acc[R][R];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[j][i] = 0.f;
+
+  // the resident query chunks ride in the first group
+  if (hoist && nst > 0)
+    for (int c = 0; c < nch; ++c) {
+      const int w = width(c);
+      stage<VEC>(qs + c * TQ * DS, queries, q, q0, TQ, d, c * DC, w);
+    }
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < nst) issue();
+    cp_async_commit();
+  }
+  long long t = t_begin;
+  int c = 0, slot = 0;
+  for (long long s = 0; s < nst; ++s) {
+    // chunk s has landed (only chunk s + 1 may still be in flight), and
+    // every thread is past chunk s - 1, whose slot is refilled below
+    cp_async_wait_one();
+    __syncthreads();
+    if (s + STAGES - 1 < nst) issue();
+    cp_async_commit();
+
+    const int wpad = (width(c) + 3) & ~3;
+    const float* xb = xs + slot * TN * DS + xg * DS;
+    const float* qb = qs + (hoist ? c : slot) * TQ * DS + rbase * DS;
+    // not unrolled: unrolled by 2 it ran slower on an H100
+#pragma unroll 1
+    for (int kk = 0; kk < wpad; kk += 4) {
+      float4 xv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xb + 16 * i * DS + kk);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qb + j * DS + kk);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          float a = acc[j][i];
+          a = fmaf(qv.x, xv[i].x, a);
+          a = fmaf(qv.y, xv[i].y, a);
+          a = fmaf(qv.z, xv[i].z, a);
+          a = fmaf(qv.w, xv[i].w, a);
+          acc[j][i] = a;
+        }
+      }
+    }
+
+    if (c == nch - 1) {
+      on_tile(t, static_cast<const float*>(xn + slot * TN), acc);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[j][i] = 0.f;
+    }
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
+    if (++c == nch) {
+      c = 0;
+      ++t;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();   // the caller may reuse shared memory
+}
+
+size_t smem_bytes(int d) {
+  return sizeof(float) * static_cast<size_t>(smem_floats(d));
+}
+
+}  // namespace wide
 
 // ---- merge -------------------------------------------------------------
 

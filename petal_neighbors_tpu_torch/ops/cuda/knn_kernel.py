@@ -29,8 +29,10 @@ pointwise error bound, and ``tc_probe`` holds the card's product to it once
 per process and device before the first tensor-core launch, raising
 ``RuntimeError`` on a breach.
 
-fold, fold_lazy, capped and bcap launch one template of ``csrc/knn_fold.cu``
-(a mode each); merge launches the radix-select passes of
+fold, capped and bcap launch one template of ``csrc/knn_fold.cu`` (a mode
+each), fold_lazy a kernel of its own there on a wider FP32 tile product
+(128 queries × 128 rows a block) that sums each pair in fold's order; merge
+launches the radix-select passes of
 ``csrc/knn_select.cu`` and the word sort of ``csrc/row_sort.cu``.  fold
 takes one of two paths by shape (``fold_path``): small batches (the
 route's repairs) run those radix-select passes on fold's own FP32 product,
@@ -328,7 +330,7 @@ def _lib():
 
     lib = load("knn_fold")
     p = ctypes.POINTER(ctypes.c_int)
-    lib.knn_constants.argtypes = [p] * 5
+    lib.knn_constants.argtypes = [p] * 6
     lib.knn_constants.restype = None
     lib.knn_tc_constants.argtypes = [p] * 5
     lib.knn_tc_constants.restype = None
@@ -383,9 +385,9 @@ def _word_sort_lib():
 @functools.lru_cache(maxsize=None)
 def _constants() -> dict[str, int]:
     """The kernels' fixed sizes, as the CUDA sources define them."""
-    vals = [ctypes.c_int(0) for _ in range(5)]
+    vals = [ctypes.c_int(0) for _ in range(6)]
     _lib().knn_constants(*(ctypes.byref(v) for v in vals))
-    out = dict(zip(("tq", "tn", "block", "max_passes", "max_k"),
+    out = dict(zip(("tq", "lazy_tq", "tn", "block", "max_passes", "max_k"),
                    (v.value for v in vals)))
     sel = [ctypes.c_int(0) for _ in range(2)]
     _select_lib().knn_select_constants(*(ctypes.byref(v) for v in sel))
@@ -408,6 +410,28 @@ def tc_tile() -> dict[str, int]:
     _lib().knn_tc_constants(*(ctypes.byref(v) for v in vals))
     return dict(zip(("tq", "tn", "dc", "pieces", "products"),
                     (v.value for v in vals)))
+
+
+def _block_queries(scheme: str) -> int:
+    """Queries per block of a scheme's kernel on the card: the tensor-core
+    tile's for capped and bcap, fold_lazy's wide block's, fold's SIMT
+    tile's otherwise (the arrival counters are one per block of
+    queries)."""
+    if scheme in ("capped", "bcap"):
+        return tc_tile()["tq"]
+    return _constants()["lazy_tq" if scheme == "fold_lazy" else "tq"]
+
+
+def _scratch_shapes(scheme: str, nq: int, k: int, splits: int,
+                   ws_smem: bool, tq: int):
+    """Shapes of a streaming kernel's scratch for a launch plan: the
+    working sets (each row range's, or the only one when it is not in
+    shared memory), each range's miss (capped and bcap, when split), and
+    one zeroed arrival counter per block of ``tq`` queries
+    (``_block_queries``)."""
+    part = (splits, nq, k) if (splits > 1 or not ws_smem) else (0,)
+    miss = (splits, nq) if scheme not in _FOLDS and splits > 1 else (0,)
+    return part, miss, (-(-nq // tq),)
 
 
 @functools.lru_cache(maxsize=256)
@@ -576,18 +600,12 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
         s, ws_smem = _plan(dev.index if dev.index is not None
                            else torch.cuda.current_device(),
                            _MODES[scheme], n, nq, d, k, tt)
-        # scratch: the working sets (each range's, or the only one when
-        # it is not in shared memory), each range's miss, and one zeroed
-        # arrival counter per query tile
-        part = (s, nq, k) if (s > 1 or not ws_smem) else (0,)
+        part, miss, count = _scratch_shapes(scheme, nq, k, s, ws_smem,
+                                            _block_queries(scheme))
         part_d = torch.empty(part, dtype=torch.float32, device=dev)
         part_i = torch.empty(part, dtype=torch.int32, device=dev)
-        part_m = torch.empty((s, nq) if scheme not in _FOLDS and s > 1
-                             else (0,), dtype=torch.float32, device=dev)
-        tq = (tc_tile()["tq"] if scheme in ("capped", "bcap")
-              else _constants()["tq"])
-        counters = torch.zeros((-(-nq // tq),), dtype=torch.int32,
-                               device=dev)
+        part_m = torch.empty(miss, dtype=torch.float32, device=dev)
+        counters = torch.zeros(count, dtype=torch.int32, device=dev)
         err = _lib().knn_launch(
             _MODES[scheme], points.data_ptr(), queries.data_ptr(),
             point_norms.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
@@ -699,9 +717,11 @@ def knn_fold_lazy(points, queries, point_norms, *, k: int):
     knn_kernel.py:116, ``knn_pallas(scheme="fold_lazy")``): a tile whose
     scores all miss their queries' working-set maxima costs one warp vote
     and no per-candidate work.  Inputs, ``1 <= k <= 1024`` and outputs as
-    ``knn_fold``, with which its results agree bit for bit.
+    ``knn_fold``, whose rdist it gives bit for bit (its ids may differ only
+    at a tie on a row's largest rdist, as between fold's two paths).
 
-    CUDA tensors launch ``csrc/knn_fold.cu``'s ``MODE_FOLD_LAZY`` (counted
+    CUDA tensors launch ``csrc/knn_fold.cu``'s ``MODE_FOLD_LAZY``, its own
+    kernel on the wide FP32 product of ``csrc/knn_tiles.cuh`` (counted
     in ``knn_fold_lazy.launches``); CPU tensors run
     ``knn_fold_lazy_reference``.
     """

@@ -8,14 +8,20 @@ each block of ``rows`` contiguous point rows,
     out[q, c] = min over rows [rows*c, rows*c + rows) of u = ‖x‖² − 2·q·x,
 
 * ``subchunk_minima``: 128-row subchunks (``_minima_kernel``), the
-  candidate phase of two_phase, u in FP32 on the SIMT cores (``_u``);
+  candidate phase of two_phase;
 * ``bcap_minima``: 16-row blocks (``_bcap_minima_kernel``), the candidate
-  phase of bcap2, u on the tensor-core tier (``_u_tc``, the TPU kernel's
-  ``precision="highest"``), the same product and block minima as the bcap
-  kernel's, bit for bit.  The TPU kernel reads block-interleaved planes so
-  that a block minimum is a lane-wise minimum; here the product reduces
-  each block in the mma registers, so the kernel reads the padded points
-  as they are.
+  phase of bcap2, the same product and block minima as the bcap kernel's,
+  bit for bit.  The TPU kernel reads block-interleaved planes so that a
+  block minimum is a lane-wise minimum; here the product reduces each
+  block in the mma registers, so the kernel reads the padded points as
+  they are.
+
+Both compute u on the tensor-core tier (``_u_tc``, the TPU kernels'
+``precision="highest"``), on one product loop: a subchunk is one 128-row
+tile of it, and its minimum is the minimum of the tile's eight block
+minima, so ``subchunk_minima``'s columns are the minima of
+``bcap_minima``'s over each 8, bit for bit.  ``tc_probe`` runs before the
+first launch of either on a device.
 
 Rows past N count as +inf, so a ragged last block is the minimum of its
 real rows.  NaN and padding rows carry +inf norms (``pad_for_pallas``), so
@@ -34,7 +40,7 @@ import functools
 
 import torch
 
-from .knn_kernel import BCAP_BLOCK, _u, _u_tc, check_arrays, tc_probe
+from .knn_kernel import BCAP_BLOCK, _u_tc, check_arrays, tc_probe
 
 __all__ = ["subchunk_minima", "subchunk_minima_reference", "bcap_minima",
            "bcap_minima_reference", "minima_plan", "SUBCHUNK"]
@@ -46,17 +52,18 @@ SUBCHUNK = 128
 _MODES = {"subchunk": 0, "block": 1}
 
 
-def _minima_reference(points, queries, point_norms, rows: int, u_of=_u):
-    """Chunked u (``u_of``: ``_u`` or ``_u_tc``), then ``amin`` over each
-    block of ``rows`` rows; the last block padded with +inf.  ``amin``
-    propagates NaN."""
+def _minima_reference(points, queries, point_norms, rows: int):
+    """Chunked u of the tensor-core tier (``_u_tc``), then ``amin`` over
+    each block of ``rows`` rows; the last block padded with +inf.  ``amin``
+    propagates NaN.  Both minima take u in the same chunks, so they see
+    the same u bits."""
     n = points.shape[0]
     nq = queries.shape[0]
     ncols = -(-n // rows)
     out = torch.empty((nq, ncols), dtype=torch.float32, device=queries.device)
-    chunk = rows * max(1, 32768 // rows)
+    chunk = 32768   # whole blocks of 16 and subchunks of 128 alike
     for s in range(0, n, chunk):
-        u = u_of(points, queries, point_norms, s, s + chunk)
+        u = _u_tc(points, queries, point_norms, s, s + chunk)
         cols = -(-u.shape[1] // rows)
         short = cols * rows - u.shape[1]
         if short:
@@ -67,7 +74,8 @@ def _minima_reference(points, queries, point_norms, rows: int, u_of=_u):
 
 
 def subchunk_minima_reference(points, queries, point_norms):
-    """Plain PyTorch version of ``subchunk_minima``."""
+    """Plain PyTorch version of ``subchunk_minima``, on the tensor-core
+    tier's u (``_u_tc``)."""
     check_arrays(points, queries, point_norms, "subchunk_minima")
     return _minima_reference(points, queries, point_norms, SUBCHUNK)
 
@@ -76,7 +84,7 @@ def bcap_minima_reference(points, queries, point_norms):
     """Plain PyTorch version of ``bcap_minima``, on the tensor-core tier's
     u (``_u_tc``)."""
     check_arrays(points, queries, point_norms, "bcap_minima")
-    return _minima_reference(points, queries, point_norms, BCAP_BLOCK, _u_tc)
+    return _minima_reference(points, queries, point_norms, BCAP_BLOCK)
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,7 +152,8 @@ def _launch(kind: str, points, queries, point_norms, rows: int):
 def subchunk_minima(points, queries, point_norms):
     """Per-subchunk u-domain minima (``_minima_kernel``, knn_kernel.py:804):
     ``(Q, ceil(N / 128))`` float32, column c the minimum of u over rows
-    [128c, 128c + 128).
+    [128c, 128c + 128), on the tensor-core tier (``_u_tc``; ``tc_probe``
+    runs before the first launch on a device).
 
     ``points`` (N, d), ``point_norms`` (N,) as made by ``pad_for_pallas``;
     ``queries`` (Q, d); all float32 on one device.  CUDA tensors launch
@@ -154,6 +163,7 @@ def subchunk_minima(points, queries, point_norms):
     check_arrays(points, queries, point_norms, "subchunk_minima")
     if points.device.type == "cpu":
         return subchunk_minima_reference(points, queries, point_norms)
+    tc_probe(points.device)
     out = _launch("subchunk", points, queries, point_norms, SUBCHUNK)
     subchunk_minima.launches += 1
     return out

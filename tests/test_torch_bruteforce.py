@@ -938,12 +938,13 @@ def test_capped_route_proves_on_the_tc_bound(monkeypatch):
 
 
 @pytest.mark.parametrize("scheme,tier", [("bcap", "tc"), ("bcap2", "tc"),
-                                         ("two_phase", "fp32"),
+                                         ("two_phase", "tc"),
                                          ("capped", "tc")])
 def test_proof_gated_routes_prove_on_their_tier(scheme, tier, monkeypatch):
     """Each proof-gated scheme proves on the bound of the product tier that
-    made its candidates and thr: bcap, bcap2 and capped on the tensor-core
-    tier's, two_phase (its subchunk minima FP32 SIMT) on the FP32 one."""
+    made its candidates and thr: bcap, bcap2, capped and two_phase (its
+    subchunk minima, the minima of the block minima's tensor-core product)
+    all on the tensor-core tier's."""
     rng = np.random.default_rng(40)
     pts = torch.from_numpy(rng.random((8192, 48), dtype=np.float32))
     qs = torch.from_numpy(rng.random((N_Q, 48), dtype=np.float32))
@@ -958,6 +959,39 @@ def test_proof_gated_routes_prove_on_their_tier(scheme, tier, monkeypatch):
     tbf.knn_prepadded(pp, pn, qs, 10, 8192, mu, scheme=scheme)
     assert tiers == [tier]
     assert tbf.last_proof_tier == tier
+
+
+@pytest.mark.parametrize("d", [128, 960])
+def test_two_phase_threshold_is_sound_on_the_tc_bound(d):
+    """two_phase's threshold T (the k-th smallest subchunk minimum, on the
+    tensor-core tier) against the f64 u: every 128-row subchunk outside
+    the k selected has its least f64 u at or above T −
+    ``_proof_err(tier="tc")``, so the route's proof on that tier holds."""
+    from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
+
+    rng = np.random.default_rng(43 + d)
+    n, nq, k = 4096, 16, 10
+    pts = (rng.standard_normal((n, d)) * 10 + 3).astype(np.float32)
+    qs = (rng.standard_normal((nq, d)) * 10 + 3).astype(np.float32)
+    mu, pp, pn, _ = tbf.prepare_euclidean_index(torch.from_numpy(pts))
+    qc = torch.from_numpy(qs) - mu
+    _, _, thr_u = tbf._two_phase_small_k(pp, pn, qc, k)
+    minima = mk.subchunk_minima(pp, qc, pn)
+    selected = torch.sort(minima, dim=1, stable=True).indices[:, :k].numpy()
+    assert torch.equal(thr_u, torch.sort(minima, dim=1).values[:, k - 1])
+    err = tbf._proof_err(d, torch.sum(qc * qc, 1),
+                         torch.max(torch.where(torch.isfinite(pn), pn, 0.0)),
+                         tier="tc").numpy()
+    p64, q64 = pp.numpy().astype(np.float64), qc.numpy().astype(np.float64)
+    xn64 = np.where(np.isfinite(pn.numpy()), (p64 * p64).sum(1), np.inf)
+    u64 = xn64[None, :] - 2.0 * q64 @ p64.T
+    short = -u64.shape[1] % mk.SUBCHUNK
+    u64 = np.pad(u64, ((0, 0), (0, short)), constant_values=np.inf)
+    sub64 = u64.reshape(nq, -1, mk.SUBCHUNK).min(2)
+    thr = thr_u.numpy()
+    for r in range(nq):
+        outside = np.setdiff1d(np.arange(sub64.shape[1]), selected[r])
+        assert sub64[r, outside].min() >= thr[r] - err[r], r
 
 
 def test_fold_route_records_no_proof_tier():

@@ -450,6 +450,28 @@ def test_bcap_tile_rule():
         with pytest.raises(ValueError, match="multiple"):
             kk._tile_tiles(scheme, tile)
 
+@pytest.mark.parametrize("k", [1, 18, 1024])
+@pytest.mark.parametrize("nq", [1, 127, 129, 300])
+def test_scratch_shapes_of_the_lazy_block(k, nq):
+    """fold_lazy's launch scratch on its 128-query block (the card's
+    ``_block_queries("fold_lazy")``): one arrival counter per started block
+    of 128 queries at ragged q, the working sets in global memory only
+    where they are not in shared memory or the rows split into ranges, and
+    no miss (fold_lazy keeps no threshold); capped keeps a miss a range."""
+    tq = 128
+    blocks = -(-nq // tq)
+    for splits, ws_smem in ((1, True), (1, False), (8, True), (8, False)):
+        part, miss, count = kk._scratch_shapes("fold_lazy", nq, k, splits,
+                                              ws_smem, tq)
+        assert count == (blocks,)
+        assert part == ((splits, nq, k) if splits > 1 or not ws_smem
+                        else (0,))
+        assert miss == (0,)
+        _, cmiss, _ = kk._scratch_shapes("capped", nq, k, splits, ws_smem,
+                                        tq)
+        assert cmiss == ((splits, nq) if splits > 1 else (0,))
+
+
 # ---- merge: the exact top-k for k up to 4096 ------------------------------
 
 @pytest.mark.parametrize("k", [1500, 37])

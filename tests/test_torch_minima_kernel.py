@@ -1,12 +1,15 @@
 """The port's minima kernels (subchunk_minima for two_phase, bcap_minima for
-bcap2), as they run on the CPU (their plain PyTorch versions), against the
-JAX kernels in interpret mode at "highest" and against an f64 reduction.
+bcap2), as they run on the CPU (their plain PyTorch versions, both on the
+tensor-core tier's u, ``_u_tc``), against the JAX kernels in interpret mode
+at "highest", against an f64 reduction and against each other.
 
 Tolerance: the minima are u = ‖x‖² − 2·q·x, which both packages sum in
 different orders; rtol 1e-4 with atol 1e-3 (the JAX kernels' own test,
 tests/test_pallas_kernel.py:288) against each other, and the f32 product's
 accumulation bound d·2⁻²³·(‖q‖² + max ‖x‖²) against the f64 reduction.  NaN
-queries give NaN minima in both, and all-padding blocks +inf."""
+queries give NaN minima in both, and all-padding blocks +inf.  A subchunk's
+minimum is the minimum of its 8 block minima bit for bit (one u, and min is
+exact)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -109,6 +112,27 @@ def test_minima_of_ragged_rows_match_f64(fn, rows, n, d):
                 <= np.broadcast_to(band[:, None], want.shape)[fin]).all()
 
 
+@pytest.mark.parametrize("n,d", [(1000, 17), (4099, 48), (6000, 130),
+                                 (77, 960)])
+def test_subchunk_minima_are_min_of_block_minima(n, d):
+    """``subchunk_minima_reference`` equals the minimum over each 8 columns
+    of ``bcap_minima_reference`` bit for bit, the last subchunk's missing
+    blocks as +inf: ragged row counts (no pad, and the port's 64-row pad),
+    NaN rows and queries (NaN columns in both)."""
+    pts, qs = _inputs(n + 2 * d, n, d)
+    q = torch.from_numpy(qs)
+    for pp, pn in (pad_for_pallas(torch.from_numpy(pts)),
+                   pad_for_pallas(torch.from_numpy(pts), tn=1)):
+        sub = mk.subchunk_minima_reference(pp, q, pn)
+        blk = mk.bcap_minima_reference(pp, q, pn)
+        short = sub.shape[1] * 8 - blk.shape[1]
+        blk = torch.nn.functional.pad(blk, (0, short), value=float("inf"))
+        want = blk.reshape(Q, -1, 8).amin(2)
+        assert sub.shape == want.shape
+        assert torch.isnan(sub[[0, Q - 1]]).all()
+        assert torch.equal(sub.view(torch.int32), want.view(torch.int32))
+
+
 def test_cpu_runs_plain_version_and_counts_no_launch():
     pts, qs = _inputs(5, 1024)
     pp, pn = pad_for_pallas(torch.from_numpy(pts))
@@ -120,14 +144,10 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
         pp, torch.from_numpy(qs), pn), rtol=0, atol=0, equal_nan=True)
     assert torch.allclose(b, mk.bcap_minima_reference(
         pp, torch.from_numpy(qs), pn), rtol=0, atol=0, equal_nan=True)
-    # the block minima of a subchunk's 8 blocks are its minimum on the same
-    # tier (the block minima are the tensor-core tier's, the subchunk
-    # minima the FP32 one's)
-    a_tc = mk._minima_reference(pp, torch.from_numpy(qs), pn, mk.SUBCHUNK,
-                                kk._u_tc)
-    fin = torch.isfinite(a_tc)
-    assert torch.equal(fin, torch.isfinite(a))
-    assert torch.equal(a_tc[fin], b.reshape(Q, -1, 8).amin(2)[fin])
+    # the block minima of a subchunk's 8 blocks are its minimum: both are
+    # the tensor-core tier's
+    fin = torch.isfinite(a)
+    assert torch.equal(a[fin], b.reshape(Q, -1, 8).amin(2)[fin])
 
 
 @pytest.mark.parametrize("fn", [mk.subchunk_minima, mk.bcap_minima])
