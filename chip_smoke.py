@@ -94,7 +94,37 @@ Phases, each printed as one JSON line on stdout:
               least 256).  Then the path's kernels against their plain
               versions at this shape, the Lp kernel's time for Manhattan and
               Chebyshev, and bcap at this shape as a yardstick.
-8. kernels  — one JSON line: every kernel with its launches on its main
+   radius_flat — the same index's radius search (plain PyTorch): r is the
+              median over the first 1,024 queries of their 100th-neighbour
+              distance (k=100 above); ``query_radius_batch`` on those
+              queries takes the matmul band form (a 1 GB mask), held to a
+              plain direct-form mask made chunk by chunk on the card: a
+              pair may differ only within 2 f32 ulp of rr.  Then
+              ``cap=512`` and ``query_radius_count_batch`` on all 10,240
+              queries: counts equal to each other and to the mask's row
+              sums (off only by pairs within 2 ulp), capped ids the mask's
+              first members.  QPS of each form, ambiguous pairs per query,
+              whether the band overflowed.
+8. ball_knn — the JAX package's config 1 (benchmarks/run.py:109-127):
+              ``BallTree`` over 100,000 x 2 N(0,1) f32 points (seed 1,
+              host build), 10,000 queries at k=2 by the tiled ("auto") and
+              per-query schemes; build seconds, QPS, ``loop_chunks`` (host
+              loop steps, one device-to-host read each), every query's ids
+              against the f64 oracle.
+   ball_radius — config 4 (:173-189): seed 4, the first 4,096 points as
+              queries, eps 0.01, 0.05 and 0.2, capped at 512 (tiled and
+              per-query), the count form and the mask form; counts equal
+              across the forms, capped ids the mask's members; QPS of each.
+   ball_device_build — 1,000,000 x 2 N(0,1) f32 (seed 1) with the "auto"
+              builder on the card: it must take the device build, its idx
+              equal to the host "vectorized" build's bit for bit, centroids
+              and radii within 1e-6 relative (+ 1e-6); both builds'
+              seconds; config 1's
+              queries at k=2 on it against the f64 oracle.
+   ball_highdim — 65,536 x 40 uniform f32, 1,024 queries, k=10 per query
+              (the matmul-form leaf scan and the direct rescore), against
+              the f64 oracle.
+9. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick (fold: at
               its main path's largest repair, with the whole batch, its
@@ -1655,6 +1685,316 @@ def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
     return got
 
 
+# ---- the radius family and the ball tree (plain PyTorch on the card) -------
+
+#: the JAX package's config 1 (benchmarks/run.py:109-127): BallTree over
+#: 100k x 2 N(0,1) points, 10k queries, k=2
+BALL_N, BALL_Q, BALL_K, BALL_SEED = 100_000, 10_000, 2, 1
+#: its config 4 (:173-189): the first 4,096 points as queries, an epsilon
+#: sweep, capped lists
+RADIUS_SEED, RADIUS_Q, RADIUS_EPS, RADIUS_CAP = 4, 4096, (0.01, 0.05, 0.2), 512
+#: the device build's regime (the JAX package's trees/ball.py:91-93)
+BUILD_N = 1_000_000
+#: |device - host| / (1 + |host|) allowed for its centroids and radii
+BUILD_TOL = 1e-6
+#: the matmul-form leaf scan and the direct rescore (d > 32)
+HIGHDIM_N, HIGHDIM_D, HIGHDIM_Q, HIGHDIM_K, HIGHDIM_SEED = (65_536, 40, 1_024,
+                                                           10, 40)
+#: the flat index's radius phase: queries of the mask form
+RADIUS_FLAT_Q = 1024
+#: a flat radius pair may differ between two forms only this many f32
+#: ulp of rr from the boundary (PARITY.md:129-135)
+BOUNDARY_ULP = 2.0
+
+
+def timed(fn, reps: int = 2, warm: bool = True):
+    """(the last call's result, its least wall seconds over ``reps``
+    calls, after one warm call where ``warm``)."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def ulp32(x: float) -> float:
+    return float(np.spacing(np.float32(x)))
+
+
+def phase_radius_flat(index, pdev, qdev, d100) -> None:
+    """``BruteForce.query_radius_batch`` on the SIFT index: the band form
+    on the first 1,024 queries against a plain direct-form mask, then the
+    capped and count forms on all queries."""
+    import warnings
+
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+
+    t_phase = time.perf_counter()
+    q1 = qdev[:RADIUS_FLAT_Q]
+    r = float(d100[:RADIUS_FLAT_Q, 99].median())
+    band_calls = []
+    band = bf._radius_mask_matmul
+
+    def counted(*a, **kw):
+        band_calls.append(kw["cap"])
+        return band(*a, **kw)
+    bf._radius_mask_matmul = counted
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mask, mask_s = timed(lambda: index.query_radius_batch(q1, r),
+                                 reps=1)
+    finally:
+        bf._radius_mask_matmul = band
+    if not band_calls:
+        raise AssertionError("radius_flat: the band form did not run")
+    amb = bf.last_band_ambiguous
+    overflow = any("error band" in str(w.message) for w in caught)
+
+    # the plain direct form, chunk by chunk, on the index's centred copy
+    pts, qc = index._pts[:N], q1 - index._center
+    dev = qdev.device
+    rr = torch.tensor(r, dtype=torch.float32, device=dev) ** 2
+    tol = BOUNDARY_ULP * ulp32(float(rr))
+    plain = torch.empty_like(mask)
+    near = torch.zeros((RADIUS_FLAT_Q,), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for s in range(0, N, 512):
+        diff = qc[:, None, :] - pts[None, s:s + 512, :]
+        rd = torch.sum(diff * diff, dim=-1)
+        plain[:, s:s + 512] = (rd <= rr) & ~index._invalid[None, s:s + 512]
+        near += torch.sum((rd - rr).abs() <= tol, dim=1)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    qi, pi = torch.nonzero(mask != plain, as_tuple=True)
+    worst = 0.0
+    if qi.numel():
+        rd64 = ((qc[qi].double() - pts[pi].double()) ** 2).sum(1)
+        worst = float((rd64 - float(rr)).abs().max()) / ulp32(float(rr))
+        if worst > BOUNDARY_ULP:
+            raise AssertionError(f"radius_flat: a pair {worst:.2f} ulp from "
+                                 "the radius differs from the direct form")
+    rowsum = mask.sum(1)
+
+    qs_all = qdev
+    # one call each: a call is seconds long
+    (ids, counts), capped_s = timed(
+        lambda: index.query_radius_batch(qs_all, r, cap=RADIUS_CAP), reps=1,
+        warm=False)
+    count_only, count_s = timed(
+        lambda: index.query_radius_count_batch(qs_all, r), reps=1,
+        warm=False)
+    if not bool(torch.equal(counts, count_only)):
+        raise AssertionError("radius_flat: capped and count forms disagree")
+    off = (counts[:RADIUS_FLAT_Q].long() - rowsum).abs()
+    if bool((off > near).any()):
+        raise AssertionError("radius_flat: counts differ from the mask's "
+                             "row sums away from the boundary")
+    # the capped ids are the mask's first members, ascending
+    want, _ = bf.compact_mask(mask, RADIUS_CAP)
+    exact = near == 0
+    if not bool(torch.equal(ids[:RADIUS_FLAT_Q][exact], want[exact])):
+        raise AssertionError("radius_flat: capped ids differ from the mask")
+    emit("radius_flat", n=N, d=DIM, radius=r, rr=float(rr),
+         mask_queries=RADIUS_FLAT_Q, mask_qps=RADIUS_FLAT_Q / mask_s,
+         mask_s=mask_s, mask_gb=mask.numel() / 1e9, band_form=True,
+         band_cap=band_calls[-1], band_overflow=overflow,
+         ambiguous_per_query=float(amb.double().mean()),
+         ambiguous_max=int(amb.max()), pairs_differing=int(qi.numel()),
+         worst_differing_ulp=worst, pairs_within_2ulp=int(near.sum()),
+         plain_mask_s=plain_s, members_per_query=float(
+             rowsum.double().mean()), queries=qs_all.shape[0],
+         capped_qps=qs_all.shape[0] / capped_s, capped_s=capped_s,
+         count_qps=qs_all.shape[0] / count_s, count_s=count_s,
+         over_cap=int((counts > RADIUS_CAP).sum()),
+         seconds=time.perf_counter() - t_phase)
+
+
+def check_tree_knn(pdev, qdev, ids, oracle_ids, label: str):
+    """Every query's ids against the f64 oracle's: an id may differ only
+    by a swap that f32 direct-form distances cannot order (within
+    4·d·2⁻²⁴ of the oracle's farthest kept distance); swaps are capped at
+    SWAPS_PER_MILLION per 10^6 ids.  Returns (recall, swaps)."""
+    a = torch.sort(ids.long(), dim=1).values
+    b = torch.sort(oracle_ids.long(), dim=1).values
+    rows = torch.nonzero((a != b).any(dim=1)).flatten().tolist()
+    n_ids = a.numel()
+    if len(rows) > max(1, SWAPS_PER_MILLION * n_ids // 10 ** 6):
+        raise AssertionError(f"{label}: {len(rows)} queries differ from the "
+                             "f64 oracle")
+    d = pdev.shape[1]
+    swaps = 0
+    for r in rows:
+        got = set(a[r].tolist()) - set(b[r].tolist())
+        missed = set(b[r].tolist()) - set(a[r].tolist())
+        q64 = qdev[r].double()
+
+        def rd64(p):
+            return float(((pdev[p].double() - q64) ** 2).sum())
+        edge = min(rd64(o) for o in missed)
+        if max(rd64(p) for p in got) - edge > 4 * d * 2.0 ** -24 * edge:
+            raise AssertionError(f"{label}: query {r} returned an id the "
+                                 "oracle orders farther beyond f32 rounding")
+        swaps += len(got)
+    return 1.0 - swaps / n_ids, swaps
+
+
+def phase_ball_knn(pt):
+    """Config 1: the host-built tree, k=2 on the tiled ("auto") and the
+    per-query schemes, every query against the f64 oracle."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(BALL_SEED)
+    pts = rng.normal(size=(BALL_N, 2)).astype(np.float32)
+    qs = rng.normal(size=(BALL_Q, 2)).astype(np.float32)
+    t0 = time.perf_counter()
+    tree = pt.BallTree.euclidean(pts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if tree.builder != "vectorized":
+        raise AssertionError(f"config 1 built on {tree.builder}")
+    pdev, qdev = tree.points, torch.from_numpy(qs).cuda()
+    _, oi = f64_oracle(pdev, qdev, BALL_K)
+    for scheme in ("auto", "per_query"):
+        (d, i), wall = timed(lambda: tree.query_batch(qdev, BALL_K,
+                                                      scheme=scheme))
+        _, _, stats = tree.query_batch(qdev, BALL_K, scheme=scheme,
+                                       with_stats=True)
+        if d.shape != (BALL_Q, BALL_K) or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"ball_knn {scheme}: bad output")
+        recall, swaps = check_tree_knn(pdev, qdev, i, oi, f"ball_knn {scheme}")
+        emit("ball_knn", scheme=scheme,
+             ran="tiled" if "n_tiles" in stats else "per_query", n=BALL_N,
+             d=2, queries=BALL_Q, k=BALL_K,
+             qps=BALL_Q / wall, batch_s=wall, recall=recall,
+             boundary_swaps=swaps, loop_chunks=int(stats["loop_chunks"]),
+             chunk_leaves=int(stats["chunk_leaves"]),
+             n_leaves=int(stats["n_leaves"]), leaf_size=128,
+             builder=tree.builder, build_s=build_s)
+    emit("ball_knn", seconds=time.perf_counter() - t_phase)
+    return qs
+
+
+def phase_ball_radius(pt) -> None:
+    """Config 4: capped lists (tiled and per-query), the count form and
+    the mask form at each epsilon; counts equal across the forms, ids the
+    mask's members."""
+    from petal_neighbors_tpu_torch.ops.bruteforce import compact_mask
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(RADIUS_SEED)
+    pts = rng.normal(size=(BALL_N, 2)).astype(np.float32)
+    tree = pt.BallTree.euclidean(pts)
+    qdev = tree.points[:RADIUS_Q]
+    for eps in RADIUS_EPS:
+        row = {}
+        mask, row["mask_s"] = timed(lambda: tree.query_radius_batch(qdev, eps))
+        rowsum = mask.sum(1).to(torch.int32)
+        counts = {}
+        for scheme in ("tiled", "per_query"):
+            (ids, cnt), row[f"{scheme}_s"] = timed(
+                lambda: tree.query_radius_batch(qdev, eps, cap=RADIUS_CAP,
+                                                scheme=scheme))
+            counts[scheme] = cnt
+            fits = torch.nonzero(cnt <= RADIUS_CAP).flatten()
+            got = torch.sort(torch.where(ids[fits] >= 0, ids[fits],
+                                         torch.iinfo(torch.int32).max),
+                             dim=1).values
+            want, _ = compact_mask(mask[fits], RADIUS_CAP)
+            want = torch.where(want >= 0, want, torch.iinfo(torch.int32).max)
+            if not bool(torch.equal(got, want)):
+                raise AssertionError(f"ball_radius eps={eps} {scheme}: ids "
+                                     "differ from the mask's members")
+        cnt_only, row["count_s"] = timed(
+            lambda: tree.query_radius_count_batch(qdev, eps))
+        for name, c in (("tiled", counts["tiled"]),
+                        ("per_query", counts["per_query"]),
+                        ("count", cnt_only)):
+            if not bool(torch.equal(c, rowsum)):
+                raise AssertionError(f"ball_radius eps={eps}: {name} counts "
+                                     "differ from the mask's")
+        emit("ball_radius", eps=eps, n=BALL_N, d=2, queries=RADIUS_Q,
+             cap=RADIUS_CAP, **{f"{k[:-2]}_qps": RADIUS_Q / v
+                                for k, v in row.items()}, **row,
+             members_per_query=float(rowsum.double().mean()),
+             over_cap=int((rowsum > RADIUS_CAP).sum()))
+    emit("ball_radius", seconds=time.perf_counter() - t_phase)
+
+
+def phase_ball_device_build(pt, config1_queries) -> None:
+    """The 1M-point "auto" build on the card against the host build, then
+    config 1's queries on it against the f64 oracle."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(BALL_SEED)
+    pts = rng.normal(size=(BUILD_N, 2)).astype(np.float32)
+    builds = []
+    for _ in range(2):                       # cold, then warm
+        t0 = time.perf_counter()
+        tree = pt.BallTree.euclidean(pts)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    if tree.builder != "device":
+        raise AssertionError(f"the 1M auto build took {tree.builder}")
+    t0 = time.perf_counter()
+    host = pt.BallTree.euclidean(pts, builder="vectorized")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(tree.idx, host.idx):
+        raise AssertionError("device build idx differs from the host's")
+    # both sum in f64 (the card's atomics in any order): the f32 centroids
+    # and radii may differ by an ulp or two
+    def err(a, b):
+        return float(((a - b).abs() / (1.0 + b.abs())).max())
+    c_err = err(tree.nodes.centroids, host.nodes.centroids)
+    r_err = err(tree.nodes.radii, host.nodes.radii)
+    if c_err > BUILD_TOL or r_err > BUILD_TOL:
+        raise AssertionError(f"device build geometry off: centroids "
+                             f"{c_err}, radii {r_err}")
+    qdev = torch.from_numpy(config1_queries).cuda()
+    (d, i), wall = timed(lambda: tree.query_batch(qdev, BALL_K))
+    _, oi = f64_oracle(tree.points, qdev, BALL_K)
+    recall, swaps = check_tree_knn(tree.points, qdev, i, oi,
+                                   "ball_device_build")
+    emit("ball_device_build", n=BUILD_N, d=2, builder=tree.builder,
+         device_build_s=builds, host_build_s=host_s, idx_equal=True,
+         centroid_max_err=c_err, radius_max_err=r_err,
+         tolerance=BUILD_TOL, queries=BALL_Q, k=BALL_K, qps=BALL_Q / wall,
+         batch_s=wall, recall=recall, boundary_swaps=swaps,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_ball_highdim(pt) -> None:
+    """65,536 x 40 uniform points: the per-query scan's matmul-form leaf
+    scan and direct rescore, k=10 against the f64 oracle."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(HIGHDIM_SEED)
+    pts = rng.random((HIGHDIM_N, HIGHDIM_D), dtype=np.float32)
+    qs = rng.random((HIGHDIM_Q, HIGHDIM_D), dtype=np.float32)
+    t0 = time.perf_counter()
+    tree = pt.BallTree.euclidean(pts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qdev = torch.from_numpy(qs).cuda()
+    (d, i), wall = timed(lambda: tree.query_batch(
+        qdev, HIGHDIM_K, scheme="per_query"))
+    _, _, stats = tree.query_batch(qdev, HIGHDIM_K, scheme="per_query",
+                                   with_stats=True)
+    _, oi = f64_oracle(tree.points, qdev, HIGHDIM_K)
+    recall, swaps = check_tree_knn(tree.points, qdev, i, oi, "ball_highdim")
+    emit("ball_highdim", n=HIGHDIM_N, d=HIGHDIM_D, queries=HIGHDIM_Q,
+         k=HIGHDIM_K, scheme="per_query", qps=HIGHDIM_Q / wall,
+         batch_s=wall, recall=recall, boundary_swaps=swaps,
+         loop_chunks=int(stats["loop_chunks"]),
+         n_leaves=int(stats["n_leaves"]),
+         prune_ratio=float(stats["prune_ratio"].double().mean()),
+         builder=tree.builder, build_s=build_s,
+         seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1773,7 +2113,7 @@ def main() -> int:
 
         _, oi = f64_oracle(pdev, qs, max(ks))
         if phase == "main":
-            main_oracle = oi
+            main_oracle, main_d100 = oi, out[100][0]
         for k, scheme in ks.items():
             d, i, wall = out[k]
             if d.shape != (qs.shape[0], k) or not bool(torch.isfinite(d).all()):
@@ -1823,12 +2163,18 @@ def main() -> int:
                                   wrappers, fold_rows).items():
         if s in ("fold_lazy", "subchunk_minima", "bcap_minima"):
             launches[s] = c
+    phase_radius_flat(index, pdev, qdev, main_d100)
 
     del index, pdev, qdev
     torch.cuda.empty_cache()
     lp_row, generic_launches, capped_gist, fold_rows_gist = (
         phase_main_generic(wrappers, fold_rows))
     launches["lp_knn"] = generic_launches["lp_knn"]
+
+    config1_queries = phase_ball_knn(pt)
+    phase_ball_radius(pt)
+    phase_ball_device_build(pt, config1_queries)
+    phase_ball_highdim(pt)
 
     kernels = []
     for scheme, k_req in MAIN_ROW.items():

@@ -1,4 +1,5 @@
-"""Carry a JAX ``BruteForce`` index across to the port without a rebuild.
+"""Carry a JAX ``BruteForce`` or ``BallTree`` index across to the port
+without a rebuild.
 
 The index's "weights" are its resident arrays, the outputs of the JAX
 package's ``prepare_*_index`` for its kernel layout:
@@ -14,15 +15,20 @@ package's ``prepare_*_index`` for its kernel layout:
 each beside ``points``, the original on the host.  Handed over as numpy
 arrays, they make a port index that answers the same queries with the
 same arithmetic.
+
+A ``BallTree``'s are ``points``, ``centroids`` (``.nodes.centroids``),
+``radii`` (``.nodes.radii``) and ``idx`` (``.idx``), with its metric and
+leaf size.
 """
 
 from __future__ import annotations
 
 from .distance import Cosine, Euclidean, get_metric
 from .ops.cuda.lp_kernel import lp_spec_for
+from .trees.ball import BallTree
 from .trees.bruteforce import BruteForce
 
-__all__ = ["bruteforce_from_jax_arrays"]
+__all__ = ["balltree_from_jax_arrays", "bruteforce_from_jax_arrays"]
 
 _KEYS = {"euclidean": ("points", "center", "ppad", "pnorm", "bad"),
          "cosine": ("points", "ppad", "pnorm", "bad"),
@@ -53,3 +59,20 @@ def bruteforce_from_jax_arrays(arrays, *, metric="euclidean",
     return BruteForce._from_prepared(arrays["points"], arrays["ppad"],
                                      arrays["bad"], metric=metric,
                                      device=device, **extra)
+
+
+def balltree_from_jax_arrays(arrays, *, metric="euclidean", leaf_size,
+                             device=None) -> BallTree:
+    """A port ``BallTree`` from a JAX tree's arrays, as numpy: ``points``,
+    ``centroids`` (``.nodes.centroids``), ``radii`` (``.nodes.radii``) and
+    ``idx`` (``.idx``), with the tree's ``metric`` and ``leaf_size``.  It
+    answers the same queries with no rebuild (the JAX package's
+    ``BallTree._from_arrays``)."""
+    missing = [key for key in ("points", "centroids", "radii", "idx")
+               if key not in arrays]
+    if missing:
+        raise KeyError(f"missing arrays: {missing}; need points, "
+                       "centroids, radii, idx")
+    return BallTree._from_arrays(arrays["points"], metric, leaf_size,
+                                 arrays["centroids"], arrays["radii"],
+                                 arrays["idx"], device=device)

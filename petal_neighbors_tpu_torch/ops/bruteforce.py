@@ -19,7 +19,14 @@ the exact flat index needs:
   direct power sums are final, converted by the metric;
 * the streamed scan ``knn`` / ``_knn_impl``: the JAX package's XLA path,
   which serves f64 indexes, SqEuclidean, Haversine, low dimensions and k
-  beyond the kernels.
+  beyond the kernels;
+* the radius family (``ops/bruteforce.py:1163-1548``): ``radius_mask``
+  (the direct form, or for f32 Euclidean at d > 32 and n >= 4096 the
+  matmul form with a rescored boundary band), ``radius_counts``,
+  ``radius_counts_streaming``, ``radius_capped``, ``distances_at`` and
+  ``compact_mask``.  The compactions keep ascending id order by a
+  ``cumsum`` position and a scatter into a buffer one column wider than
+  the cap, whose last column takes the dropped entries.
 
 Euclidean distance evaluation is a tiled ``‖q‖² + ‖x‖² − 2 q·xᵀ`` product
 on centered data (or the direct form at d <= 32), streamed over point
@@ -30,10 +37,11 @@ materializes.
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
-from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric
+from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric, _cross
 from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
                               PASSES_MAX, knn_bcap, knn_capped, knn_fold,
                               knn_fold_lazy, knn_merge, tc_proof_err)
@@ -48,6 +56,8 @@ __all__ = ["knn", "knn_prepadded", "center_of", "pad_for_pallas",
            "prepare_euclidean_index", "prepare_cosine_index",
            "prepare_lp_index", "lp_knn_prepadded", "pick_scheme",
            "with_bcap_planes", "capped_passes", "scan_width",
+           "radius_mask", "radius_counts", "radius_counts_streaming",
+           "radius_capped", "distances_at", "compact_mask",
            "RESCORE_SLACK", "PAD_ROWS", "PALLAS_K_MAX",
            "SPLIT_BUDGET_ELEMS"]
 
@@ -98,6 +108,11 @@ _INF_BITS = 0x7F800000
 #: whether the most recent two_phase call fell back to the fold route for
 #: its whole batch (some query's proof failed)
 last_two_phase_fallback = False
+
+#: per-query counts of the pairs the most recent band-form
+#: ``radius_mask`` call found ambiguous (int64, (Q,)); more than its cap
+#: in some row sent the call to the direct form
+last_band_ambiguous: torch.Tensor | None = None
 
 #: the tier whose bound the most recent proof-gated call proved its
 #: queries on ("tc", the tier of every proof-gated scheme's candidates);
@@ -727,3 +742,243 @@ def _knn_impl(points, queries, point_norms, invalid, k: int,
     dists = monotone_distances(metric.rdistance_to_distance(best_d))
     return (torch.where(qbad, torch.inf, dists),
             torch.where(qbad, -1, best_i))
+
+
+# -- the radius family (ops/bruteforce.py:1163-1548) -------------------------
+
+def _no_rows(n: int, device) -> torch.Tensor:
+    return torch.zeros((n,), dtype=torch.bool, device=device)
+
+
+def direct_rdist(queries, pts, metric: Metric):
+    """(Q, c) reduced distances for radius decisions: the direct
+    difference form for Euclidean at any dim (the matmul form's
+    cancellation would flip boundary decisions), ``metric.rdist``
+    otherwise.  NaN stays NaN."""
+    if isinstance(metric, Euclidean):
+        diff = queries[:, None, :] - pts[None, :, :]
+        return torch.sum(diff * diff, dim=-1)
+    return metric.rdist(queries, pts)
+
+
+def _member_chunk(pts, queries, rr, metric: Metric, inclusive: bool):
+    """(Q, c) membership of one point chunk (ops/bruteforce.py:1421-1428);
+    NaN distances never match."""
+    rd = nan_to_inf(direct_rdist(queries, pts, metric))
+    return (rd <= rr) if inclusive else (rd < rr)
+
+
+def _members(points, queries, rr, metric: Metric, inclusive: bool, invalid,
+             chunk: int):
+    """(base, (Q, c) membership) of each point chunk in id order, the
+    ``invalid`` rows never members."""
+    for base in range(0, points.shape[0], chunk):
+        yield base, (_member_chunk(points[base:base + chunk], queries, rr,
+                                   metric, inclusive)
+                     & ~invalid[None, base:base + chunk])
+
+
+def append_ids(out, count, member, vals):
+    """Append each row's accepted ``vals`` (``member`` True), in order, to
+    ``out`` (..., cap + 1) at the row's running ``count``; the entries past
+    the cap land in the last column, which the caller drops, and the
+    counts still take them.  The last axis is the row; ``vals`` broadcasts
+    to ``member``'s shape.  Returns the new counts."""
+    cap = out.shape[-1] - 1
+    pos = count[..., None] + torch.cumsum(member, dim=-1) - 1
+    pos = torch.where(member & (pos < cap), pos, cap)
+    out.scatter_(-1, pos, vals.to(out.dtype).expand_as(pos))
+    return count + torch.sum(member, dim=-1)
+
+
+def _cols(base: int, width: int, device) -> torch.Tensor:
+    return torch.arange(base, base + width, device=device)
+
+
+def radius_mask(points, queries, radius, metric: Metric | None = None,
+                *, inclusive: bool = True, chunk: int | None = None,
+                invalid=None, amb_cap: int = 256):
+    """Boolean membership mask (Q, n): distance to the query within
+    ``radius`` (ops/bruteforce.py:1163-1209).
+
+    ``inclusive=True`` tests ``d <= r``, else the strict ``d < r``.  NaN
+    distances never match, nor do the ``invalid`` (n,) rows (an index's
+    zeroed NaN rows).  Float32 Euclidean corpora at d > 32 and n >= 4096
+    take the matmul form with a boundary band (``_radius_mask_matmul``);
+    where more than ``amb_cap`` points of some query land in the band, the
+    direct form runs again, with a ``RuntimeWarning``."""
+    metric = metric or Euclidean()
+    n, dim = points.shape
+    q = queries.shape[0]
+    if invalid is None:
+        invalid = _no_rows(n, points.device)
+    r = torch.as_tensor(radius, dtype=points.dtype, device=points.device)
+    if (isinstance(metric, Euclidean) and dim > DIRECT_DIM_MAX
+            and n >= 4096 and points.dtype == torch.float32
+            and queries.dtype == torch.float32):
+        c = _pick_chunk(n, q, dim, chunk, direct=False)
+        mask, overflow = _radius_mask_matmul(
+            points, queries, metric.distance_to_rdistance(r), invalid,
+            inclusive=inclusive, chunk=c, cap=min(amb_cap, c))
+        if not overflow:
+            return mask
+        warnings.warn(
+            f"radius_mask: > {amb_cap} points per query within the "
+            "matmul-form error band of the radius; re-running the direct "
+            "path for exact boundary decisions", RuntimeWarning,
+            stacklevel=2)
+    c = _pick_chunk(n, q, dim, chunk, direct=isinstance(metric, Euclidean))
+    mask = torch.empty((q, n), dtype=torch.bool, device=points.device)
+    for base, m in _members(points, queries, metric.distance_to_rdistance(r),
+                            metric, inclusive, invalid, c):
+        mask[:, base:base + m.shape[1]] = m
+    return mask
+
+
+def _radius_band(dim: int) -> float:
+    """Worst-case |matmul rd − direct rd| over ‖q‖² + max ‖x‖² for the
+    full-FP32 ``qn + xn − 2 q·x`` form (ops/bruteforce.py:1248-1258): the
+    sequential-sum accumulation of the d-term products plus the final
+    additions.  A sound bound, not a stochastic one; it holds only for an
+    FP32 product, never a TF32 one (``distance._cross``)."""
+    return (8.0 + 2.0 * dim) * 2.0 ** -24
+
+
+def _radius_mask_matmul(points, queries, rr, invalid, *, inclusive: bool,
+                        chunk: int, cap: int):
+    """High-dim Euclidean membership by the matmul form
+    (ops/bruteforce.py:1262-1337).  With err = ``_radius_band(d)·(‖q‖² +
+    max ‖x‖²)`` each pair is certain in (rd < rr − err), certain out
+    (rd > rr + err) or ambiguous; each query's first ``cap`` ambiguous ids
+    are re-decided by the direct form (``_amb_rescore``).  Returns (mask
+    (Q, n), overflow: some query had more than ``cap`` ambiguous ids); the
+    per-query ambiguous counts go to ``last_band_ambiguous``."""
+    global last_band_ambiguous
+    n, dim = points.shape
+    q = queries.shape[0]
+    qn = torch.sum(queries * queries, dim=-1)
+    xn = torch.sum(points * points, dim=-1)
+    # NaN rows' norms must not widen the band (their rd is +inf: out)
+    xn_max = torch.max(torch.where(invalid | ~torch.isfinite(xn), 0.0, xn))
+    err = _radius_band(dim) * (qn + xn_max)
+    lo, hi = (rr - err)[:, None], (rr + err)[:, None]
+    mask = torch.empty((q, n), dtype=torch.bool, device=points.device)
+    amb_ids = torch.full((q, cap + 1), n, dtype=torch.int64,
+                         device=points.device)
+    count = torch.zeros((q,), dtype=torch.int64, device=points.device)
+    for base in range(0, n, chunk):
+        pts = points[base:base + chunk]
+        rd = nan_to_inf(qn[:, None] + xn[None, base:base + chunk]
+                        - 2.0 * _cross(queries, pts))
+        ok = ~invalid[None, base:base + chunk]
+        sure = (rd < lo) & ok
+        mask[:, base:base + chunk] = sure
+        count = append_ids(amb_ids, count, ~sure & (rd <= hi) & ok,
+                           _cols(base, pts.shape[0], points.device))
+    last_band_ambiguous = count
+    amb_ids = amb_ids[:, :cap]
+    member = _amb_rescore(points, queries, amb_ids, rr, inclusive, n)
+    # an ambiguous pair is never sure, and a row lists an id once
+    rows = torch.arange(q, device=points.device)[:, None].expand_as(amb_ids)
+    listed = amb_ids < n
+    mask[rows[listed], amb_ids[listed]] = member[listed]
+    return mask, bool(torch.any(count > cap))
+
+
+def _amb_rescore(points, queries, ids, rr, inclusive: bool, n: int):
+    """Direct-form membership of the ambiguous ids (Q, cap), sentinel
+    ``n``, over query blocks of 128 (ops/bruteforce.py:1340-1361)."""
+    out = torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
+    for s in range(0, ids.shape[0], 128):
+        idb = ids[s:s + 128]
+        ok = idb < n
+        cand = points[torch.where(ok, idb, 0)]
+        rd = nan_to_inf(torch.sum((queries[s:s + 128, None, :] - cand) ** 2,
+                                  dim=-1))
+        out[s:s + 128] = ((rd <= rr) if inclusive else (rd < rr)) & ok
+    return out
+
+
+def radius_counts(mask):
+    """Per-query neighbour counts of a membership mask, int32."""
+    return torch.sum(mask, dim=-1).to(torch.int32)
+
+
+def _stream(points, queries, radius, metric, inclusive, invalid, chunk):
+    """The streaming radius ops' membership chunks (``_members``), with
+    the chunk size of the direct form (ops/bruteforce.py:1369-1379)."""
+    metric = metric or Euclidean()
+    if invalid is None:
+        invalid = _no_rows(points.shape[0], points.device)
+    c = _pick_chunk(points.shape[0], queries.shape[0], points.shape[1],
+                    chunk, direct=isinstance(metric, Euclidean))
+    r = torch.as_tensor(radius, dtype=points.dtype, device=points.device)
+    return _members(points, queries, metric.distance_to_rdistance(r), metric,
+                    inclusive, invalid, c)
+
+
+def radius_counts_streaming(points, queries, radius,
+                            metric: Metric | None = None, *,
+                            inclusive: bool = True, invalid=None,
+                            chunk: int | None = None):
+    """Per-query counts within the radius with no (Q, n) mask: one pass
+    over point chunks in the direct form, (Q,) int32
+    (ops/bruteforce.py:1382-1399)."""
+    cnt = torch.zeros((queries.shape[0],), dtype=torch.int64,
+                      device=points.device)
+    for _, m in _stream(points, queries, radius, metric, inclusive, invalid,
+                        chunk):
+        cnt += torch.sum(m, dim=1)
+    return cnt.to(torch.int32)
+
+
+def radius_capped(points, queries, radius, metric: Metric | None = None,
+                  *, cap: int, inclusive: bool = True, invalid=None,
+                  chunk: int | None = None):
+    """Streaming capped radius search (ops/bruteforce.py:1402-1495): (ids
+    (Q, min(cap, n)) int32, counts (Q,) int32) with no (Q, n) mask.  Each
+    row holds its first members in ascending id order, -1 padded; the
+    counts are exact past the cap (``counts > cap``: the list was cut)."""
+    q = queries.shape[0]
+    cap = min(cap, points.shape[0])
+    ids = torch.full((q, cap + 1), -1, dtype=torch.int32,
+                     device=points.device)
+    cnt = torch.zeros((q,), dtype=torch.int64, device=points.device)
+    for base, m in _stream(points, queries, radius, metric, inclusive,
+                           invalid, chunk):
+        cnt = append_ids(ids, cnt, m, _cols(base, m.shape[1], points.device))
+    return ids[:, :cap], cnt.to(torch.int32)
+
+
+def distances_at(points, queries, ids, metric: Metric):
+    """Exact distances from each query to its own ids (Q, cap), over query
+    blocks of 128 (ops/bruteforce.py:1499-1526); -1 and out-of-range ids
+    and NaN distances give +inf."""
+    n = points.shape[0]
+    rd = torch.empty(ids.shape, dtype=points.dtype, device=points.device)
+    for s in range(0, ids.shape[0], 128):
+        idb = ids[s:s + 128]
+        ok = (idb >= 0) & (idb < n)
+        cand = points[torch.where(ok, idb, 0).long()]
+        rdb = nan_to_inf(metric.rowwise_rdist(queries[s:s + 128, None, :],
+                                              cand))
+        rd[s:s + 128] = torch.where(ok, rdb, torch.inf)
+    # +inf stays +inf (Haversine's conversion clips its domain)
+    return torch.where(torch.isinf(rd), torch.inf,
+                       metric.rdistance_to_distance(rd))
+
+
+def compact_mask(mask, cap: int):
+    """A (Q, n) mask compacted into (ids (Q, cap) int32, counts (Q,)
+    int32): each row's first ``cap`` member columns ascending, -1 padded
+    (ops/bruteforce.py:1530-1548)."""
+    q, n = mask.shape
+    ids = torch.full((q, min(cap, n) + 1), -1, dtype=torch.int32,
+                     device=mask.device)
+    counts = append_ids(ids, torch.zeros((q,), dtype=torch.int64,
+                                         device=mask.device), mask,
+                        _cols(0, n, mask.device))
+    ids = ids[:, :-1]
+    if cap > n:
+        ids = torch.nn.functional.pad(ids, (0, cap - n), value=-1)
+    return ids, counts.to(torch.int32)

@@ -29,6 +29,10 @@ Four layouts, chosen at build (the JAX package's, trees/bruteforce.py:
   A kernel layout answers k beyond its kernels with the scan over its own
   resident copy and NaN-row mask.
 
+Radius search (``query_radius``, ``query_radius_batch``,
+``query_radius_count_batch``) runs the ``ops.bruteforce`` radius family on
+the same resident copy, the NaN rows never matching.
+
 ``last_backend`` names the route that served the latest ``query_batch``:
 ``"kernel"`` or ``"scan"``; ``last_scheme`` the kernel scheme ("bcap",
 "capped", "fold", "merge", "lp"), or None after the scan.  Unlike the JAX
@@ -244,12 +248,45 @@ class BruteForce:
         self.last_backend, self.last_scheme = "scan", None
         return d, i
 
-    # -- later slices --------------------------------------------------------
+    # -- radius search --------------------------------------------------------
+    def _radius_args(self, qs):
+        """The scan's points, the centred queries and the NaN-row mask:
+        radius search runs on the index's resident copy, where the
+        ``invalid`` rows never match."""
+        return self._scan_points()[0], self._q(qs), self._invalid
+
     def query_radius(self, point, distance):
-        raise NotImplementedError("radius search comes in a later slice")
+        """Indices with distance <= ``distance`` as numpy int64, ascending
+        (ball_tree.rs:123-142).  The flat index has no subtree take, so
+        the boundary rule is the reference's documented inclusive
+        ``d <= r`` (ball_tree.rs:123-124)."""
+        q = check_query(point, self.dim, self._dtype(), self.device)
+        pts, qc, invalid = self._radius_args(q[None, :])
+        mask = bf.radius_mask(pts, qc, distance, self.metric,
+                              invalid=invalid)
+        return np.flatnonzero(mask[0].cpu().numpy()).astype(np.int64)
 
-    def query_radius_batch(self, queries, distance, **kw):
-        raise NotImplementedError("radius search comes in a later slice")
+    def query_radius_batch(self, queries, distance, *, cap: int | None = None,
+                           inclusive: bool = True):
+        """Batched radius search: the (Q, n) mask, or with ``cap`` the
+        streamed (ids (Q, min(cap, n)), counts (Q,)) of ``bf.radius_capped``,
+        ids ascending and -1 padded, counts exact past the cap.
+        ``inclusive`` picks ``d <= r`` (default) or the strict ``d < r``
+        (the reference's leaf-scan rule, ball_tree.rs:277)."""
+        qs = check_query_batch(queries, self.dim, self._dtype(), self.device)
+        pts, qc, invalid = self._radius_args(qs)
+        if cap is None:
+            return bf.radius_mask(pts, qc, distance, self.metric,
+                                  inclusive=inclusive, invalid=invalid)
+        return bf.radius_capped(pts, qc, distance, self.metric, cap=cap,
+                                inclusive=inclusive, invalid=invalid)
 
-    def query_radius_count_batch(self, queries, distance, **kw):
-        raise NotImplementedError("radius search comes in a later slice")
+    def query_radius_count_batch(self, queries, distance, *,
+                                 inclusive: bool = True):
+        """Per-query counts only: one streamed pass, no (Q, n) mask
+        (``bf.radius_counts_streaming``)."""
+        qs = check_query_batch(queries, self.dim, self._dtype(), self.device)
+        pts, qc, invalid = self._radius_args(qs)
+        return bf.radius_counts_streaming(pts, qc, distance, self.metric,
+                                          inclusive=inclusive,
+                                          invalid=invalid)

@@ -147,8 +147,11 @@ def test_typed_errors():
     assert isinstance(tpn.get_metric("cosine"), tpn.Cosine)
     with pytest.raises(ValueError):
         tpn.get_metric("nope")
-    with pytest.raises(NotImplementedError):
-        idx.query_radius(np.ones(3, np.float32), 1.0)
+    # radius search: a wrong query dim raises as in query
+    assert idx.query_radius(np.ones(3, np.float32), 1.0).tolist() == [
+        0, 1, 2, 3, 4]
+    with pytest.raises(ValueError):
+        idx.query_radius(np.ones(4, np.float32), 1.0)
 
 
 def test_default_device_needs_a_card():

@@ -44,7 +44,12 @@ def test_port_files_found():
     assert {"knn_kernel.py", "lp_kernel.py", "minima_kernel.py",
             "sort_kernel.py", "rank_sort_kernel.py", "bruteforce.py",
             "topk.py", "convert.py", "chip_smoke.py",
-            "fold_profile.py", "kernel_ab.py"} <= names
+            "fold_profile.py", "kernel_ab.py", "ball.py", "ball_query.py",
+            "ball_build.py", "ball_build_device.py", "_auto.py",
+            "tree_math.py"} <= names
+    port = ROOT / "petal_neighbors_tpu_torch"
+    assert port / "native" / "__init__.py" in PORT_FILES
+    assert (port / "native" / "src" / "petal_native.cpp").is_file()
     csrc = ROOT / "petal_neighbors_tpu_torch" / "ops" / "cuda" / "csrc"
     assert {"knn_fold.cu", "knn_minima.cu", "knn_tiles.cuh", "lp_knn.cu",
             "row_sort.cu", "knn_select.cu", "knn_tc.cuh"} <= {
@@ -56,7 +61,14 @@ def test_import_leaves_jax_unloaded():
             "petal_neighbors_tpu_torch.ops.cuda._build, "
             "petal_neighbors_tpu_torch.ops.cuda.lp_kernel, "
             "petal_neighbors_tpu_torch.ops.cuda.minima_kernel, "
-            "petal_neighbors_tpu_torch.distance; "
+            "petal_neighbors_tpu_torch.distance, "
+            "petal_neighbors_tpu_torch.native, "
+            "petal_neighbors_tpu_torch.trees.ball, "
+            "petal_neighbors_tpu_torch.trees.ball_query, "
+            "petal_neighbors_tpu_torch.trees.ball_build, "
+            "petal_neighbors_tpu_torch.trees.ball_build_device, "
+            "petal_neighbors_tpu_torch.trees._auto, "
+            "petal_neighbors_tpu_torch.utils.tree_math; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m.split('.')[0] == 'petal_neighbors_tpu' "
             "for m in sys.modules), 'JAX package loaded'")
