@@ -105,6 +105,15 @@ Phases, each printed as one JSON line on stdout:
               sums (off only by pairs within 2 ulp), capped ids the mask's
               first members.  QPS of each form, ambiguous pairs per query,
               whether the band overflowed.
+   vp_sift — (PR 14) a VantagePointTree over the same SIFT points:
+              "auto" builds it on the card (level-synchronous) and answers
+              all 10,240 queries at k=10 on the kernel route (capped,
+              k_scan 18, 2 passes, with the fold repair; no bcap planes);
+              QPS, the device build's seconds, launches, the queries
+              repaired, ids against the main phase's f64 oracle; then
+              capped (whole batch) and fold (the largest repair) against
+              their plain versions at this shape, timed beside the plain
+              version, a library call and the bound.
 8. ball_knn — the JAX package's config 1 (benchmarks/run.py:109-127):
               ``BallTree`` over 100,000 x 2 N(0,1) f32 points (seed 1,
               host build), 10,000 queries at k=2 by the tiled ("auto") and
@@ -124,6 +133,31 @@ Phases, each printed as one JSON line on stdout:
    ball_highdim — 65,536 x 40 uniform f32, 1,024 queries, k=10 per query
               (the matmul-form leaf scan and the direct rescore), against
               the f64 oracle.
+   vp_knn   — (PR 14) the JAX package's config 2 (benchmarks/run.py:
+              128-149): VantagePointTree over 100,000 x 2 N(0,1) f32
+              (seed 2, the native host build), k=10 on the first 1,000 and
+              all 4,096 queries under "auto" (the kernel route: capped,
+              4 passes, and the fold repair), "per_query" and "tiled";
+              QPS, loop_chunks, launches and repairs, every query against
+              the f64 oracle; capped and fold against their plain versions
+              at this shape.  Fails unless capped ran under "auto", and
+              unless fold ran on the VP route in this phase or vp_sift.
+   vp_radius — config 4's data on the VP tree: the capped search (cap
+              512; its loop steps) and the mask form at eps 0.01, 0.05 and
+              0.2, counts equal to a plain inclusive direct-form count
+              except pairs within 2 f32 ulp of r, listed ids members.
+   vp_device_build — 1,000,000 x 2 N(0,1) (seed 1): "auto" must build on
+              the card, cold and warm, against the native host build; the
+              two number their nodes differently, so config 1's 10,000
+              queries at k=10 per query on both trees give equal
+              distances and ids equal away from ties, against the f64
+              oracle.
+   dynamic  — DynamicIndex over config 1's points: 5,000 rows added and
+              5,000 ids removed (10% of the base, under the 0.25 rebuild
+              threshold), 10,000 queries at k=10 against the f64 oracle
+              over the live rows, the capped radius (eps 0.05, cap 512)
+              against a plain strict count; then rebuild(), timed, and
+              both again.
 9. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick (fold: at
@@ -133,7 +167,10 @@ Phases, each printed as one JSON line on stdout:
               ("tc" for capped, bcap, merge and both minima kernels, whose
               bound is the tensor cores' six bf16 products, with the FP32
               SIMT bound beside it as simt_bound_ms; "fp32" for the
-              others, with tc_bound_ms).
+              others, with tc_bound_ms); fold and capped also carry
+              vp_launches (the VP tree's "auto" runs, config 2 and SIFT)
+              and vp (each kernel held to its plain version at those
+              cells' shapes).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA card is present or any
@@ -474,7 +511,7 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
 
 
 def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
-                   passes: int = 0):
+                   passes: int = 0, tier_band: bool = False):
     """Kernel vs plain version on the same card tensors and the same launch
     plan.  Returns (max_abs_err over matched sorted rdist and thresholds,
     rows whose ids differ between near-equal rdist, the plan).
@@ -485,7 +522,14 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
     thresholds must agree within twice that.  Where a row's id sets
     differ, its differing ids, paired in rdist order, must lie within that
     band of each other: near ties may fall either way, in the capped and
-    bcap schemes also at a pass's `u < tau` test."""
+    bcap schemes also at a pass's `u < tau` test.
+
+    ``tier_band`` takes instead twice the proof bound of the tier that
+    made the scores (``_proof_err``: "tc" for capped, bcap and merge,
+    "fp32" for the folds): each side lies within it of the exact score.
+    It also covers the fixed roundings (‖x‖² − 2q·x, + ‖q‖²) and the six
+    products a feature of the tensor-core tier, which the accumulation
+    term alone leaves out at small d (d = 2: the VP tree's config 2)."""
     from petal_neighbors_tpu_torch.ops.cuda.knn_kernel import kernel_plan
 
     plan = kernel_plan("fold" if scheme == "fold_stream" else scheme,
@@ -504,6 +548,11 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
     xn_max = torch.where(torch.isfinite(pn), pn, 0.0).max()
     qn = torch.sum(qt * qt, dim=1)
     band = 2.0 * pp.shape[1] * 2.0 ** -24 * (qn + xn_max)
+    if tier_band:
+        from petal_neighbors_tpu_torch.ops.bruteforce import _proof_err
+
+        band = 2.0 * _proof_err(pp.shape[1], qn, xn_max, tier="tc" if
+                                scheme in TC_SCHEMES else "fp32")
     fin = torch.isfinite(rd_p)
     if not torch.equal(fin, torch.isfinite(rd_k)):
         raise AssertionError(f"{scheme} k={k}: finite slots differ")
@@ -1995,6 +2044,337 @@ def phase_ball_highdim(pt) -> None:
          seconds=time.perf_counter() - t_phase)
 
 
+# ---- the vantage-point tree and the mutable index (PR 14) ------------------
+
+#: the JAX package's config 2 (benchmarks/run.py:128-149): VantagePointTree
+#: over 100k x 2 N(0,1) points, k=10, the first 1,000 and all 4,096 queries
+VP_N, VP_Q, VP_K, VP_SEED, VP_BATCHES = 100_000, 4096, 10, 2, (1000, 4096)
+#: the capped radius search's cap, and the dynamic mix: rows added and ids
+#: removed (10% of the base, under the 0.25 rebuild threshold)
+VP_CAP, DYN_ADD, DYN_REMOVE, DYN_EPS = 512, 5000, 5000, 0.05
+
+
+def zero_launches(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def read_launches(wrappers) -> dict:
+    return {s: w.launches for s, w in wrappers.items() if w.launches}
+
+
+def hold_vp_kernels(tree, qdev, k: int, repaired: int) -> dict:
+    """The VP route's capped and fold kernels against their plain versions
+    at the shapes the route gives them (capped: the whole batch; fold:
+    its repair, at least one query), timed beside the plain version, a
+    library call and the bound.  Launches here are not the path's."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    mu, pp, pn = tree._kernel_tables()
+    qc = qdev - mu
+    n, d = tree.n, tree.dim
+    out = {}
+    for scheme in ("capped", "fold"):
+        k_scan, tile, passes = kernel_args(scheme, k, n)
+        qs = qc if scheme == "capped" else qc[:max(repaired, 1)]
+        err, tied, plan = compare_kernel(scheme, pp, qs, pn, k_scan, tile,
+                                         passes, tier_band=True)
+        if scheme == "capped":
+            run = lambda: kk.knn_capped(pp, qs, pn, k=k_scan, tile=tile,
+                                        passes=passes)
+            plain = lambda: kk.knn_capped_reference(
+                pp, qs, pn, k=k_scan, tile=tile, passes=passes,
+                splits=plan[0])
+            bound, by = tc_bound_ms(n, qs.shape[0], d, k_scan)
+        else:
+            run = lambda: kk.knn_fold(pp, qs, pn, k=k_scan)
+            plain = lambda: kk.knn_fold_reference(pp, qs, pn, k=k_scan)
+            bound, by = bound_ms(n, qs.shape[0], d, k_scan)
+        out[scheme] = {
+            "n": n, "q": qs.shape[0], "d": d, "k": k_scan, "tile": tile,
+            "passes": passes, "plan": list(plan), "max_abs_err": err,
+            "tied_rows": tied, "ms": cuda_ms(run, reps=5, hold=True),
+            "plain_ms": cuda_ms(plain, reps=1),
+            "library_ms": cuda_ms(lambda: library_topk(pp[:n], qs, pn[:n],
+                                                       k_scan), reps=2),
+            "bound_ms": bound, "bound_by": by}
+        if scheme == "fold":
+            out[scheme]["path"] = kk.fold_path(qs.shape[0], k_scan, d)
+    return out
+
+
+def phase_vp_knn(pt, wrappers, fold_rows) -> dict:
+    """Config 2: the host-built VP tree, k=10 on the first 1,000 and all
+    4,096 queries under "auto" (the kernel route: capped with the fold
+    repair), "per_query" and "tiled"; every query against the f64 oracle;
+    then the route's kernels against their plain versions at this shape.
+    Returns the launches of the "auto" runs and the kernels' rows."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(VP_SEED)
+    pts = rng.normal(size=(VP_N, 2)).astype(np.float32)
+    qs = rng.normal(size=(VP_Q, 2)).astype(np.float32)
+    t0 = time.perf_counter()
+    tree = pt.VantagePointTree.euclidean(pts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if tree.builder != "host":
+        raise AssertionError(f"config 2 built on {tree.builder}")
+    pdev, qdev = tree.points, torch.from_numpy(qs).cuda()
+    _, oi = f64_oracle(pdev, qdev, VP_K)
+    launches, repaired_max = {}, 0
+    for nq in VP_BATCHES:
+        q = qdev[:nq]
+        for scheme in ("auto", "per_query", "tiled"):
+            fold_rows.clear()
+            zero_launches(wrappers)
+            (d, i), wall = timed(lambda: tree.query_batch(q, VP_K,
+                                                          scheme=scheme))
+            got = read_launches(wrappers)
+            row = {}
+            if scheme == "auto":
+                if not got.get("capped"):
+                    raise AssertionError(f"vp_knn auto q={nq}: the capped "
+                                         f"kernel did not run ({got})")
+                for s, c in got.items():
+                    launches[s] = launches.get(s, 0) + c
+                row = {"launches_in_calls": got, "calls": 3,
+                       "repaired_queries_per_call": list(fold_rows)}
+                repaired_max = max([repaired_max] + fold_rows)
+            else:
+                if got:
+                    raise AssertionError(f"vp_knn {scheme}: kernels ran "
+                                         f"({got})")
+                _, _, stats = tree.query_batch(q, VP_K, scheme=scheme,
+                                               with_stats=True)
+                row = {"loop_chunks": int(stats["loop_chunks"]),
+                       "chunk_size": int(stats["chunk_size"]),
+                       "n_subtrees": int(stats["n_subtrees"]),
+                       "trunk_size": int(stats["trunk_size"])}
+            if d.shape != (nq, VP_K) or not bool(torch.isfinite(d).all()):
+                raise AssertionError(f"vp_knn {scheme}: bad output")
+            if not bool((d[:, 1:] >= d[:, :-1]).all()):
+                raise AssertionError(f"vp_knn {scheme}: not ascending")
+            recall, swaps = check_tree_knn(pdev, q, i, oi[:nq],
+                                           f"vp_knn {scheme} q={nq}")
+            emit("vp_knn", scheme=scheme, n=VP_N, d=2, queries=nq, k=VP_K,
+                 qps=nq / wall, batch_s=wall, recall=recall,
+                 boundary_swaps=swaps, builder=tree.builder,
+                 build_s=build_s, **row)
+    kernels = hold_vp_kernels(tree, qdev, VP_K, repaired_max)
+    emit("vp_knn", kernels=kernels, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": launches, "kernels": kernels}
+
+
+def phase_vp_sift(pt, points, qdev, oracle_ids, wrappers, fold_rows) -> dict:
+    """The VP tree over the SIFT points at full width: "auto" builds on
+    the card and answers all 10,240 queries at k=10 on the kernel route
+    (capped and the fold repair); ids against the main phase's f64
+    oracle.  Returns the launches."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tree = pt.VantagePointTree.euclidean(points)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if tree.builder != "device":
+        raise AssertionError(f"the SIFT VP tree built on {tree.builder}")
+    fold_rows.clear()
+    zero_launches(wrappers)
+    (d, i), wall = timed(lambda: tree.query_batch(qdev, VP_K), reps=3)
+    got = read_launches(wrappers)
+    repaired = list(fold_rows)
+    if not got.get("capped"):
+        raise AssertionError(f"vp_sift: the capped kernel did not run "
+                             f"({got})")
+    if d.shape != (N_Q, VP_K) or not bool(torch.isfinite(d).all()):
+        raise AssertionError("vp_sift: bad output")
+    recall, swaps = check_tree_knn(tree.points, qdev, i,
+                                   oracle_ids[:, :VP_K], "vp_sift")
+    kernels = hold_vp_kernels(tree, qdev, VP_K, max([0] + repaired))
+    emit("vp_sift", n=N, d=DIM, queries=N_Q, k=VP_K, qps=N_Q / wall,
+         batch_s=wall, recall=recall, boundary_swaps=swaps,
+         launches_in_calls=got, calls=4, repaired_queries_per_call=repaired,
+         builder=tree.builder, device_build_s=build_s, depth=tree.depth,
+         kernels=kernels, seconds=time.perf_counter() - t_phase)
+    return {"launches": got, "kernels": kernels}
+
+
+def plain_radius_counts(pdev, qdev, r: float, strict: bool):
+    """Direct-form counts within r, chunk by chunk on the card, and the
+    pairs within 2 f32 ulp of r (where two forms may differ)."""
+    rr = torch.tensor(r, dtype=torch.float32, device=qdev.device) ** 2
+    tol = BOUNDARY_ULP * ulp32(float(rr))
+    cnt = torch.zeros((qdev.shape[0],), dtype=torch.int64,
+                      device=qdev.device)
+    near = torch.zeros_like(cnt)
+    for s in range(0, pdev.shape[0], 4096):
+        diff = qdev[:, None, :] - pdev[None, s:s + 4096, :]
+        rd = torch.sum(diff * diff, dim=-1)
+        rd = torch.where(torch.isnan(rd), torch.inf, rd)
+        cnt += torch.sum((rd < rr) if strict else (rd <= rr), dim=1)
+        near += torch.sum((rd - rr).abs() <= tol, dim=1)
+    return cnt, near
+
+
+def check_radius(label, ids, cnt, want, near, member) -> None:
+    """Counts equal to the plain ones except for pairs within 2 ulp of r;
+    every listed id a member (``member(rows, ids)``)."""
+    off = (cnt.long() - want).abs()
+    if bool((off > near).any()):
+        raise AssertionError(f"{label}: counts differ from the plain form "
+                             "away from the boundary")
+    listed = ids >= 0
+    if not bool(torch.equal(listed.sum(1), torch.clamp_max(cnt, ids.shape[1]
+                                                           ).long())):
+        raise AssertionError(f"{label}: listed ids do not match the counts")
+    rows = torch.nonzero(listed, as_tuple=True)
+    if not bool(member(rows[0], ids[rows].long()).all()):
+        raise AssertionError(f"{label}: a listed id is not a member")
+
+
+def phase_vp_radius(pt) -> None:
+    """Config 4's data on the VP tree: the capped search (cap 512) and the
+    mask form at each epsilon, counts against a plain inclusive count."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(RADIUS_SEED)
+    pts = rng.normal(size=(BALL_N, 2)).astype(np.float32)
+    tree = pt.VantagePointTree.euclidean(pts)
+    pdev = tree.points
+    qdev = pdev[:RADIUS_Q]
+    for eps in RADIUS_EPS:
+        (ids, cnt), capped_s = timed(lambda: tree.query_radius_batch(
+            qdev, eps, cap=RADIUS_CAP))
+        steps = tree.last_radius_steps
+        mask, mask_s = timed(lambda: tree.query_radius_batch(qdev, eps))
+        want, near = plain_radius_counts(pdev, qdev, eps, strict=False)
+        check_radius(f"vp_radius eps={eps}", ids, cnt, want, near,
+                     lambda r, c: mask[r, c])
+        if bool(((mask.sum(1) - want).abs() > near).any()):
+            raise AssertionError(f"vp_radius eps={eps}: mask differs from "
+                                 "the plain form")
+        emit("vp_radius", eps=eps, n=BALL_N, d=2, queries=RADIUS_Q,
+             cap=RADIUS_CAP, capped_qps=RADIUS_Q / capped_s,
+             capped_s=capped_s, mask_qps=RADIUS_Q / mask_s, mask_s=mask_s,
+             loop_steps=steps, depth=tree.depth,
+             members_per_query=float(want.double().mean()),
+             over_cap=int((cnt > RADIUS_CAP).sum()),
+             pairs_within_2ulp=int(near.sum()))
+    emit("vp_radius", seconds=time.perf_counter() - t_phase)
+
+
+def phase_vp_device_build(pt, config1_queries) -> None:
+    """1M x 2: the device build cold and warm against the host build; the
+    two number their nodes differently, so config 1's queries at k=10 on
+    both trees' per-query scans must give equal distances, and ids equal
+    away from ties."""
+    from petal_neighbors_tpu_torch.trees.vantage_build_device import vp_shape
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(BALL_SEED)
+    pts = rng.normal(size=(BUILD_N, 2)).astype(np.float32)
+    builds = []
+    vp_shape.cache_clear()                   # vp_sift built at this n
+    for _ in range(2):                       # cold, then warm
+        t0 = time.perf_counter()
+        tree = pt.VantagePointTree.euclidean(pts)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    if tree.builder != "device":
+        raise AssertionError(f"the 1M auto VP build took {tree.builder}")
+    t0 = time.perf_counter()
+    host = pt.VantagePointTree.euclidean(pts, builder="host")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    qdev = torch.from_numpy(config1_queries).cuda()
+    out = {}
+    for name, t in (("device", tree), ("host", host)):
+        (d, i), wall = timed(lambda: t.query_batch(qdev, VP_K,
+                                                   scheme="per_query"))
+        out[name] = (d, i, wall)
+    (dd, di, dwall), (hd, hi, hwall) = out["device"], out["host"]
+    if not bool(torch.equal(dd, hd)):
+        raise AssertionError("vp_device_build: the trees' distances differ")
+    # ids may differ only between points at the same distance (within the
+    # row, or at its k-th)
+    tied = ((dd[:, None, :] == dd[:, :, None]).sum(2) > 1) | (
+        dd == dd[:, -1:])
+    if bool(((di != hi) & ~tied).any()):
+        raise AssertionError("vp_device_build: ids differ away from ties")
+    _, oi = f64_oracle(tree.points, qdev, VP_K)
+    recall, swaps = check_tree_knn(tree.points, qdev, di, oi,
+                                   "vp_device_build")
+    emit("vp_device_build", n=BUILD_N, d=2, builder=tree.builder,
+         device_build_s=builds, host_build_s=host_s, depth=tree.depth,
+         queries=BALL_Q, k=VP_K, device_tree_qps=BALL_Q / dwall,
+         host_tree_qps=BALL_Q / hwall, ids_differing_at_ties=int(
+             (di != hi).sum()), recall=recall, boundary_swaps=swaps,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_dynamic(pt) -> None:
+    """``DynamicIndex`` over config 1's points: 5,000 rows added and 5,000
+    ids removed (10% of the base, no rebuild), 10,000 queries at k=10
+    against the f64 oracle over the live rows and the capped radius
+    (strict, cap 512) against a plain strict count; then ``rebuild()``,
+    timed, and both checks again."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(BALL_SEED)
+    pts = rng.normal(size=(BALL_N, 2)).astype(np.float32)
+    qs = rng.normal(size=(BALL_Q, 2)).astype(np.float32)
+    t0 = time.perf_counter()
+    idx = pt.DynamicIndex(pts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    new = np.random.default_rng(BALL_SEED + 1).normal(
+        size=(DYN_ADD, 2)).astype(np.float32)
+    t0 = time.perf_counter()
+    idx.add(new)
+    gone = np.random.default_rng(BALL_SEED + 2).choice(
+        BALL_N + DYN_ADD, DYN_REMOVE, replace=False)
+    idx.remove(gone)
+    mutate_s = time.perf_counter() - t0
+    if idx._delta_rows == [] or len(idx._tombstones) != DYN_REMOVE:
+        raise AssertionError("dynamic: the mutations rebuilt the index")
+    qdev = torch.from_numpy(qs).cuda()
+    by_id = np.full((BALL_N + DYN_ADD, 2), np.nan, dtype=np.float32)
+    by_id[:BALL_N], by_id[BALL_N:] = pts, new
+    by_id[gone] = np.nan                   # dead rows: never a member
+    rows = torch.from_numpy(by_id).cuda()
+    live = torch.from_numpy(np.setdiff1d(np.arange(len(by_id)), gone)).cuda()
+    _, opos = f64_oracle(rows[live], qdev, VP_K)
+    oracle_ids = live[opos]
+    for stage in ("mutated", "rebuilt"):
+        if stage == "rebuilt":
+            t0 = time.perf_counter()
+            idx.rebuild()
+            torch.cuda.synchronize()
+            rebuild_s = time.perf_counter() - t0
+        (d, i), knn_s = timed(lambda: idx.query_batch(qdev, VP_K))
+        if d.shape != (BALL_Q, VP_K) or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"dynamic {stage}: bad output")
+        recall, swaps = check_tree_knn(rows, qdev, i, oracle_ids,
+                                       f"dynamic {stage}")
+        (ids, cnt), radius_s = timed(lambda: idx.query_radius_batch(
+            qdev, DYN_EPS, cap=VP_CAP))
+        want, near = plain_radius_counts(rows, qdev, DYN_EPS, strict=True)
+        rr = DYN_EPS ** 2 * (1 + 4 * 2.0 ** -24)
+
+        def member(r, c):
+            return ((rows[c] - qdev[r]) ** 2).sum(1) <= rr
+        check_radius(f"dynamic {stage}", ids, cnt, want, near, member)
+        emit("dynamic", stage=stage, n=BALL_N, d=2, added=DYN_ADD,
+             removed=DYN_REMOVE, live=idx.num_points, queries=BALL_Q,
+             k=VP_K, knn_qps=BALL_Q / knn_s, knn_s=knn_s, recall=recall,
+             boundary_swaps=swaps, eps=DYN_EPS, cap=VP_CAP,
+             radius_qps=BALL_Q / radius_s, radius_s=radius_s,
+             members_per_query=float(want.double().mean()),
+             over_cap=int((cnt > VP_CAP).sum()), build_s=build_s,
+             mutate_s=mutate_s,
+             **({"rebuild_s": rebuild_s} if stage == "rebuilt" else {}))
+    emit("dynamic", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2164,6 +2544,8 @@ def main() -> int:
         if s in ("fold_lazy", "subchunk_minima", "bcap_minima"):
             launches[s] = c
     phase_radius_flat(index, pdev, qdev, main_d100)
+    vp_sift = phase_vp_sift(pt, points, qdev, main_oracle, wrappers,
+                            fold_rows)
 
     del index, pdev, qdev
     torch.cuda.empty_cache()
@@ -2175,6 +2557,14 @@ def main() -> int:
     phase_ball_radius(pt)
     phase_ball_device_build(pt, config1_queries)
     phase_ball_highdim(pt)
+    vp_config2 = phase_vp_knn(pt, wrappers, fold_rows)
+    if not (vp_config2["launches"].get("fold")
+            or vp_sift["launches"].get("fold")):
+        raise AssertionError("the VP kernel route repaired no query: fold "
+                             "did not run on its path")
+    phase_vp_radius(pt)
+    phase_vp_device_build(pt, config1_queries)
+    phase_dynamic(pt)
 
     kernels = []
     for scheme, k_req in MAIN_ROW.items():
@@ -2225,6 +2615,15 @@ def main() -> int:
                     "stream_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "max_abs_err", "collect_passes")}
                     for r in table if r.get("repair")])
+        if scheme in ("capped", "fold"):
+            # the VP tree's kernel route (PR 14): its launches in the
+            # "auto" runs of each cell, and the kernel held to its plain
+            # version at that cell's shape
+            kernels[-1]["vp_launches"] = {
+                "config2": vp_config2["launches"].get(scheme, 0),
+                "sift": vp_sift["launches"].get(scheme, 0)}
+            kernels[-1]["vp"] = {"config2": vp_config2["kernels"][scheme],
+                                 "sift": vp_sift["kernels"][scheme]}
         if scheme == "capped":
             kernels[-1]["gist"] = {key: capped_gist[key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",

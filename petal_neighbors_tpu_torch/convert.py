@@ -1,5 +1,5 @@
-"""Carry a JAX ``BruteForce`` or ``BallTree`` index across to the port
-without a rebuild.
+"""Carry a JAX ``BruteForce``, ``BallTree``, ``VantagePointTree`` or
+``DynamicIndex`` across to the port without a rebuild.
 
 The index's "weights" are its resident arrays, the outputs of the JAX
 package's ``prepare_*_index`` for its kernel layout:
@@ -18,7 +18,10 @@ same arithmetic.
 
 A ``BallTree``'s are ``points``, ``centroids`` (``.nodes.centroids``),
 ``radii`` (``.nodes.radii``) and ``idx`` (``.idx``), with its metric and
-leaf size.
+leaf size.  A ``VantagePointTree``'s are ``points``, ``vp``, ``radius``,
+``near`` and ``far`` (``.nodes``), ``root`` and ``depth``.  A
+``DynamicIndex``'s state is its base tree's arrays, its id tables and its
+pending mutations, the arguments of its ``_from_state``.
 """
 
 from __future__ import annotations
@@ -27,8 +30,22 @@ from .distance import Cosine, Euclidean, get_metric
 from .ops.cuda.lp_kernel import lp_spec_for
 from .trees.ball import BallTree
 from .trees.bruteforce import BruteForce
+from .trees.dynamic import DynamicIndex
+from .trees.vantage import VantagePointTree
 
-__all__ = ["balltree_from_jax_arrays", "bruteforce_from_jax_arrays"]
+__all__ = ["balltree_from_jax_arrays", "bruteforce_from_jax_arrays",
+           "vptree_from_jax_arrays", "dynamic_from_jax_state"]
+
+_VP_KEYS = ("points", "vp", "radius", "near", "far", "root", "depth")
+_DYNAMIC_KEYS = ("base_rows", "leaf_size", "centroids", "radii", "idx",
+                 "base_ids", "delta_rows", "delta_ids", "tombstones",
+                 "next_id", "rebuild_threshold")
+
+
+def _need(arrays, keys) -> None:
+    missing = [key for key in keys if key not in arrays]
+    if missing:
+        raise KeyError(f"missing arrays: {missing}; need {list(keys)}")
 
 _KEYS = {"euclidean": ("points", "center", "ppad", "pnorm", "bad"),
          "cosine": ("points", "ppad", "pnorm", "bad"),
@@ -50,10 +67,7 @@ def bruteforce_from_jax_arrays(arrays, *, metric="euclidean",
               else "euclidean" if type(metric) is Euclidean else None)
     if layout is None:
         raise ValueError(f"no kernel layout serves {metric!r}")
-    missing = [key for key in _KEYS[layout] if key not in arrays]
-    if missing:
-        raise KeyError(f"missing arrays: {missing}; need "
-                       f"{list(_KEYS[layout])}")
+    _need(arrays, _KEYS[layout])
     extra = {key: arrays[key] for key in ("center", "pnorm", "mask")
              if key in _KEYS[layout]}
     return BruteForce._from_prepared(arrays["points"], arrays["ppad"],
@@ -68,11 +82,37 @@ def balltree_from_jax_arrays(arrays, *, metric="euclidean", leaf_size,
     ``idx`` (``.idx``), with the tree's ``metric`` and ``leaf_size``.  It
     answers the same queries with no rebuild (the JAX package's
     ``BallTree._from_arrays``)."""
-    missing = [key for key in ("points", "centroids", "radii", "idx")
-               if key not in arrays]
-    if missing:
-        raise KeyError(f"missing arrays: {missing}; need points, "
-                       "centroids, radii, idx")
+    _need(arrays, ("points", "centroids", "radii", "idx"))
     return BallTree._from_arrays(arrays["points"], metric, leaf_size,
                                  arrays["centroids"], arrays["radii"],
                                  arrays["idx"], device=device)
+
+
+def vptree_from_jax_arrays(arrays, *, metric="euclidean",
+                           device=None) -> VantagePointTree:
+    """A port ``VantagePointTree`` from a JAX tree's arrays, as the JAX
+    ``VantagePointTree._from_arrays`` takes them (vantage.py:767-775):
+    ``points``, ``vp``, ``radius``, ``near`` and ``far`` (the tree's
+    ``.nodes``: ``vantage_point``, ``radius``, ``near``, ``far``), ``root``
+    and ``depth``, with the tree's ``metric``.  It answers the same queries
+    with no rebuild."""
+    _need(arrays, _VP_KEYS)
+    points, vp, radius, near, far, root, depth = (arrays[key]
+                                                  for key in _VP_KEYS)
+    return VantagePointTree._from_arrays(points, metric, vp, radius, near,
+                                         far, root, depth, device=device)
+
+
+def dynamic_from_jax_state(state, *, metric="euclidean",
+                           device=None) -> DynamicIndex:
+    """A port ``DynamicIndex`` from a JAX index's state, the arguments of
+    the JAX ``DynamicIndex._from_state`` (dynamic.py:145-167): the base
+    tree's ``base_rows``, ``centroids``, ``radii``, ``idx`` and
+    ``leaf_size``; ``base_ids``, ``delta_rows``, ``delta_ids``,
+    ``tombstones``, ``next_id`` and ``rebuild_threshold``; with the
+    index's ``metric``.  Its pending mutations carry across as they
+    stand."""
+    _need(state, _DYNAMIC_KEYS)
+    base_rows, leaf_size, *rest = (state[key] for key in _DYNAMIC_KEYS)
+    return DynamicIndex._from_state(base_rows, metric, leaf_size, *rest,
+                                    device=device)

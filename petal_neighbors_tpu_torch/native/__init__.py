@@ -9,10 +9,16 @@ The library is compiled with ``g++`` at first use:
 into ``build/native/`` of the checkout the package runs from (else the
 user's cache directory), keyed by a hash of the source, the flags and
 ``g++ --version``.  A failed compile raises: nothing falls back quietly to
-the Python builders.  ``ball_build`` raises ``ValueError`` for a metric
-with no native kind (only Euclidean, Cosine and Minkowski have one); the
-caller takes the Python builder then.  ``vp_build`` is bound for the VP
-tree, which the port does not carry yet.
+the Python builders.  ``ball_build`` and ``vp_build`` raise ``ValueError``
+for a metric with no native kind (only Euclidean, Cosine and Minkowski
+have one); the trees check ``native_kind`` and take the Python builder
+then.
+
+The JAX package builds its copy with ``-march=native``, which lets g++
+contract the distance loops into fused multiply-adds; this one is built
+without it, so on real-valued data a VP-tree radius may differ from the
+JAX package's native build in its last bit (equal where the arithmetic is
+exact, as on small integers).
 """
 
 from __future__ import annotations

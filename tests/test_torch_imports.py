@@ -46,7 +46,8 @@ def test_port_files_found():
             "topk.py", "convert.py", "chip_smoke.py",
             "fold_profile.py", "kernel_ab.py", "ball.py", "ball_query.py",
             "ball_build.py", "ball_build_device.py", "_auto.py",
-            "tree_math.py"} <= names
+            "tree_math.py", "vantage.py", "vantage_build_device.py",
+            "dynamic.py"} <= names
     port = ROOT / "petal_neighbors_tpu_torch"
     assert port / "native" / "__init__.py" in PORT_FILES
     assert (port / "native" / "src" / "petal_native.cpp").is_file()
@@ -68,6 +69,9 @@ def test_import_leaves_jax_unloaded():
             "petal_neighbors_tpu_torch.trees.ball_build, "
             "petal_neighbors_tpu_torch.trees.ball_build_device, "
             "petal_neighbors_tpu_torch.trees._auto, "
+            "petal_neighbors_tpu_torch.trees.vantage, "
+            "petal_neighbors_tpu_torch.trees.vantage_build_device, "
+            "petal_neighbors_tpu_torch.trees.dynamic, "
             "petal_neighbors_tpu_torch.utils.tree_math; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m.split('.')[0] == 'petal_neighbors_tpu' "
