@@ -12,6 +12,12 @@ Phases, each printed as one JSON line on stdout:
               knn_minima.cu).
    tc_probe — the tensor-core tier's integrity probe (knn_kernel.tc_probe):
               its largest |u - u_f64| over the tier's bound, at most 1.
+   mst_kernel_small — the Borůvka scan kernel (csrc/mst_scan.cu)
+              against its plain version, bw and bj bit for bit: n ragged
+              against the 64-row tiles (1 to 4,097), d = 2, 3, 8, 17 and
+              40, labels all distinct, three components or one (every row
+              (+inf, -1)), small-integer rows with exact ties and
+              duplicates, +inf cores, query rows of their own, f32 and f64.
 3. kernel   — each kernel (fold, fold_lazy, capped, bcap, merge) against
               its plain PyTorch version on the card, with the same launch
               plan: small
@@ -158,6 +164,32 @@ Phases, each printed as one JSON line on stdout:
               over the live rows, the capped radius (eps 0.05, cap 512)
               against a plain strict count; then rebuild(), timed, and
               both again.
+   hdbscan  — the JAX package's MST workload (benchmarks/
+              mst_probe.py:47-48): 1M x 8 uniform f32, seed 0xB0, min_samples
+              5, through ``mutual_reachability_mst`` on the card: the core
+              distances on the kernel route (capped with the fold repair;
+              their launches and seconds), each Borůvka round's scan-kernel
+              ms (CUDA events), wall and host union-find seconds; the edges
+              span (scipy), every weight within 8 f32 ulp of max(core_u,
+              core_v, d(u, v)) in f64, 4,096 core distances within 8 ulp of
+              an f64 direct-form k-th NN, the weight sum within 1e-6
+              relative of the 186891.1277 the JAX package recorded; the host
+              stages (single_linkage, condense_tree, extract_clusters)
+              timed, with the cluster count; the scan kernel against its
+              plain version bit for bit at 16,384 query rows x 1M (a mid-run
+              labelling), timed beside the plain version and a chunked
+              ``torch.cdist`` yardstick; capped and fold held to theirs at
+              the core pass's shape (8,192 of its queries; its largest
+              repair); then the generator's first 10,000 points: the MST's
+              sorted weights and total against a dense f64 Prim on the card
+              (the "dual" engine's too), and ``hdbscan`` end to end.
+   dual_join — ``dual_tree_knn`` on each engine, every query's ids
+              against the f64 oracle (check_tree_knn): the tree engine on
+              config 1's self-join (k=5; ``query_tree`` equal to it), the
+              kernel engine on a 300k x 8 uniform self-join (seed 8, k=5;
+              capped and fold), the leaf-pair sweep with 20,000 N(0,1) x 2
+              points (seed 20) against config 1's tree at k=32 (its rounds
+              and steps).
 9. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick (fold: at
@@ -170,7 +202,12 @@ Phases, each printed as one JSON line on stdout:
               others, with tc_bound_ms); fold and capped also carry
               vp_launches (the VP tree's "auto" runs, config 2 and SIFT)
               and vp (each kernel held to its plain version at those
-              cells' shapes).
+              cells' shapes), and mst_launches (the HDBSCAN
+              core pass and the join's kernel engine) and mst (held at the
+              core pass's shape).  The scan kernel's row (mst_scan): its
+              launches (one a round), ms a round at full width, its bound
+              (3d + 7 FP32 instructions a pair at 33.5e12 a second), the
+              plain version and the cdist yardstick at the reduced shape.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA card is present or any
@@ -2065,15 +2102,22 @@ def read_launches(wrappers) -> dict:
 
 def hold_vp_kernels(tree, qdev, k: int, repaired: int) -> dict:
     """The VP route's capped and fold kernels against their plain versions
-    at the shapes the route gives them (capped: the whole batch; fold:
-    its repair, at least one query), timed beside the plain version, a
-    library call and the bound.  Launches here are not the path's."""
-    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    at the shapes the route gives them (``hold_route_kernels``)."""
+    return hold_route_kernels(*tree._kernel_tables(), qdev, tree.n,
+                              tree.dim, k, repaired)
+
+
+def hold_route_kernels(mu, pp, pn, qdev, n: int, d: int, k: int,
+                       repaired: int) -> dict:
+    """The kernel route's capped and fold kernels against their plain
+    versions at the shapes the route gives them (capped: the batch
+    ``qdev``; fold: its repair, at least one query), timed beside the
+    plain version, a library call and the bound.  ``mu``, ``pp``, ``pn``
+    are the route's centre, padded points and norms over ``n`` real rows.
+    Launches here are not the path's."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
-    mu, pp, pn = tree._kernel_tables()
     qc = qdev - mu
-    n, d = tree.n, tree.dim
     out = {}
     for scheme in ("capped", "fold"):
         k_scan, tile, passes = kernel_args(scheme, k, n)
@@ -2375,6 +2419,485 @@ def phase_dynamic(pt) -> None:
     emit("dynamic", seconds=time.perf_counter() - t_phase)
 
 
+# ---- HDBSCAN and the dual-tree join --------------------------------------
+
+MST_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/mst_scan.cu"
+MST_REPLACES = "petal_neighbors_tpu/trees/boruvka.py:330"
+#: the JAX package's MST workload (benchmarks/mst_probe.py:47-48): 1M x 8
+#: uniform f32, seed 0xB0, min_samples 5, and the weight sum it recorded
+#: (BENCH_NOTES.md:722-723), an output to cross-check
+MST_N, MST_D, MST_SEED, MST_K = 1_000_000, 8, 0xB0, 5
+MST_WEIGHT_SUM, MST_SUM_RTOL = 186891.1277, 1e-6
+#: the dense f64 Prim oracle's size (the same generator's first rows), the
+#: core-distance sample, and the reduced shape (query rows x the full
+#: corpus) of the plain version and the yardstick
+MST_SMALL_N, MST_CORE_SAMPLE, MST_REDUCED_Q = 10_000, 4096, 16_384
+#: an MST weight against its f64 re-derivation: the d rounded terms of the
+#: f32 rd, the square of the core and two square roots, in f32 ulp
+MST_ULP = 8.0
+#: the capped kernel held to its plain version on this many of the core
+#: pass's queries (a block is 131,072)
+MST_HOLD_Q = 8192
+#: the join cells: k; the kernel engine's self-join (d > 3); the sweep's
+#: A-tree against config 1's tree at k > 16
+JOIN_K, JOIN_KERNEL_N, JOIN_KERNEL_D, JOIN_KERNEL_SEED = 5, 300_000, 8, 8
+SWEEP_NA, SWEEP_K, SWEEP_SEED = 20_000, 32, 20
+#: mst_kernel_small: (n, d, labels, integer data, +inf cores, separate
+#: query rows, dtype); n ragged against the 64-row tiles
+MST_CASES = (
+    (1, 2, "distinct", False, False, False, "f32"),
+    (63, 3, "few", True, False, False, "f32"),
+    (65, 8, "distinct", True, True, False, "f32"),
+    (1000, 17, "few", False, False, False, "f32"),
+    (4097, 8, "few", True, True, False, "f32"),
+    (3001, 2, "single", False, False, False, "f32"),
+    (2049, 40, "few", False, True, True, "f32"),
+    (777, 3, "distinct", True, False, True, "f32"),
+    (1500, 8, "few", True, True, False, "f64"),
+    (300, 17, "single", False, False, True, "f64"),
+)
+
+
+def mst_instructions(d: int) -> int:
+    """The scan kernel's instructions a pair, from csrc/mst_scan.cu: a
+    sub, a mul and an add a feature, then two max, the label compare and
+    its select, the compare with the running best and its two updates."""
+    return 3 * d + 7
+
+
+def mst_bound_ms(nq: int, n: int, d: int, itemsize: int = 4):
+    """The scan's least time: its instructions at the SIMT lanes' rate
+    against each input read once and (bw, bj) written once."""
+    ops = nq * n * mst_instructions(d) / PEAK_FP32_INSTR_S * 1e3
+    byts = ((n + nq) * (d + 1) * itemsize + (n + nq) * 4
+            + nq * (itemsize + 4)) / PEAK_BYTES_S * 1e3
+    return (ops, "operations") if ops >= byts else (byts, "bytes")
+
+
+def mst_case(rng, n, d, labels, integer, inf_core, separate, dtype):
+    """A scan input: rows (small integers give exact ties), duplicated
+    rows, core distances (some +inf), labels (all distinct, three large
+    components, or one), and query rows (the corpus, or rows of their
+    own with labels drawn from the corpus's)."""
+    def rows(m):
+        return (rng.integers(-3, 4, size=(m, d)) if integer
+                else rng.random((m, d)))
+    pts = rows(n)
+    if n > 8:
+        pts[n // 2:n // 2 + 3] = pts[1]
+    core = rng.integers(0, 4, size=n) if integer else rng.random(n) * 0.3
+    core_rd = (core * core).astype(np.float64)
+    if inf_core:
+        core_rd[::7] = np.inf
+    comp = {"distinct": np.arange(n), "few": rng.integers(0, 3, size=n),
+            "single": np.zeros(n)}[labels].astype(np.int32)
+    if separate:
+        nq = max(1, n // 2 + 5)
+        q, cq = rows(nq), core_rd[rng.integers(0, n, size=nq)]
+        compq = comp[rng.integers(0, n, size=nq)]
+    else:
+        q, cq, compq = pts, core_rd, comp
+    dt = torch.float32 if dtype == "f32" else torch.float64
+    dev = torch.device("cuda")
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev, dt)
+    i = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+    return f(pts), f(core_rd), i(comp), f(q), f(cq), i(compq)
+
+
+def same_bits(a, b) -> bool:
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def phase_mst_kernel_small() -> int:
+    """The scan kernel against its plain version on the card, bit for bit
+    in bw and bj, at MST_CASES.  Returns the cases held."""
+    from petal_neighbors_tpu_torch.ops.cuda import mst_kernel as mk
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    for case in MST_CASES:
+        args = mst_case(rng, *case)
+        bw, bj = mk.scan_minout(*args)
+        torch.cuda.synchronize()
+        pw, pj = mk.scan_minout_reference(*args)
+        if not (same_bits(bw, pw) and torch.equal(bj, pj)):
+            bad = int(((bw != pw) | (bj != pj)).sum())
+            raise AssertionError(f"mst scan kernel differs from its plain "
+                                 f"version at {case}: {bad} rows")
+        if case[2] == "single" and not (bool(torch.isinf(bw).all())
+                                        and bool((bj == -1).all())):
+            raise AssertionError(f"one component must give (+inf, -1): "
+                                 f"{case}")
+        emit("mst_kernel_small", n=case[0], d=case[1], labels=case[2],
+             integer=case[3], inf_core=case[4], separate_q=case[5],
+             dtype=case[6], q=args[3].shape[0],
+             finite_rows=int(torch.isfinite(bw).sum()), bits_equal=True)
+    emit("mst_kernel_small", cases=len(MST_CASES),
+         seconds=time.perf_counter() - t_phase)
+    return len(MST_CASES)
+
+
+def f64_oracle_blocks(points_dev, queries_dev, k: int, qblock: int = 8192):
+    """``f64_oracle`` over blocks of queries (a self-join's query count
+    would make one (Q, chunk) f64 matrix too large)."""
+    ds, ids = [], []
+    for s in range(0, queries_dev.shape[0], qblock):
+        d, i = f64_oracle(points_dev, queries_dev[s:s + qblock], k)
+        ds.append(d)
+        ids.append(i)
+    return torch.cat(ds), torch.cat(ids)
+
+
+def kth_f64(pdev, rows, k: int, chunk: int = 32768):
+    """The f64 direct-form k-th-NN distance of ``pdev[rows]`` against all
+    of ``pdev`` (self included), summed feature by feature."""
+    x = pdev.double()
+    q = x[rows]
+    best = None
+    for s in range(0, x.shape[0], chunk):
+        p = x[s:s + chunk]
+        rd = torch.zeros((q.shape[0], p.shape[0]), dtype=torch.float64,
+                         device=x.device)
+        for f in range(x.shape[1]):
+            t = q[:, f, None] - p[None, :, f]
+            rd += t * t
+        cand = rd if best is None else torch.cat([best, rd], dim=1)
+        best = torch.topk(cand, k, dim=1, largest=False).values
+    return best.amax(dim=1).sqrt()
+
+
+def prim_f64(pdev, k: int):
+    """The dense f64 mutual-reachability MST by Prim on the card: its
+    n - 1 weights in the order Prim adds them."""
+    x = pdev.double()
+    n = x.shape[0]
+    rd = torch.zeros((n, n), dtype=torch.float64, device=x.device)
+    for f in range(x.shape[1]):
+        t = x[:, f, None] - x[None, :, f]
+        rd += t * t
+    dist = rd.sqrt_()
+    core = torch.kthvalue(dist, k, dim=1).values           # self included
+    m = torch.maximum(dist, torch.maximum(core[:, None], core[None, :]))
+    del dist, rd
+    in_tree = torch.zeros(n, dtype=torch.bool, device=x.device)
+    in_tree[0] = True
+    best = m[0].clone()
+    ws = torch.empty(n - 1, dtype=torch.float64, device=x.device)
+    for t in range(n - 1):                  # no host read inside the loop
+        masked = torch.where(in_tree, torch.inf, best)
+        j = torch.argmin(masked).view(1)
+        ws[t:t + 1] = masked.gather(0, j)
+        in_tree.index_fill_(0, j, True)
+        best = torch.minimum(best, m.index_select(0, j)[0])
+    return ws
+
+
+def library_minout(pts, core_rd, comp, q, cq, compq, chunk: int = 4096):
+    """Yardstick for the scan: chunked ``torch.cdist`` in its direct mode
+    (``donot_use_mm_for_euclid_dist``), squared, with the same max, label
+    mask and a ``min`` over each chunk — timed here, used nowhere in the
+    port."""
+    bw = torch.full((q.shape[0],), torch.inf, dtype=pts.dtype,
+                    device=pts.device)
+    bj = torch.full((q.shape[0],), -1, dtype=torch.int64, device=pts.device)
+    for s in range(0, pts.shape[0], chunk):
+        dd = torch.cdist(q, pts[s:s + chunk],
+                         compute_mode="donot_use_mm_for_euclid_dist")
+        w = torch.maximum(torch.maximum(dd * dd, cq[:, None]),
+                          core_rd[s:s + chunk][None, :])
+        w = w.masked_fill(comp[s:s + chunk][None, :] == compq[:, None],
+                          torch.inf)
+        m, a = w.min(dim=1)
+        better = m < bw
+        bw = torch.where(better, m, bw)
+        bj = torch.where(better, a + s, bj)
+    return bw, bj
+
+
+def timed_once(fn):
+    """(fn's result, its device milliseconds by CUDA events), one call: a
+    slow plain version or yardstick runs once and its output is kept."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def spanning(us, vs, n: int) -> bool:
+    """Whether n - 1 edges join all n points (a spanning tree)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    g = coo_matrix((np.ones(len(us)), (us, vs)), shape=(n, n))
+    return len(us) == n - 1 and connected_components(g, directed=False)[0] == 1
+
+
+def phase_hdbscan(pt, wrappers, fold_rows) -> dict:
+    """The MST workload: ``mutual_reachability_mst`` over 1M x 8 points
+    (seed 0xB0, k=5) on the card, its core distances (kernel route) and
+    rounds (the scan kernel) timed as it runs; the MST's edges spanning,
+    each weight against max(core_u, core_v, d(u, v)) in f64, 4,096 core
+    distances against an f64 k-th NN, the weight sum beside the JAX
+    package's; the host stages; then the 10,000-point MST against a dense
+    f64 Prim, ``hdbscan`` end to end there, and the scan kernel and the
+    core pass's capped and fold held to their plain versions."""
+    from petal_neighbors_tpu_torch import cluster
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import mst_kernel as mk
+    from petal_neighbors_tpu_torch.trees import boruvka as tb
+
+    t_phase = time.perf_counter()
+    pts = np.random.default_rng(MST_SEED).random((MST_N, MST_D),
+                                                 dtype=np.float32)
+    rec, round_ms, labels_seen = {}, [], []
+    real_core, real_scan = tb._core_distances, tb.scan_minout
+
+    def timed_core(p, *, k, **kw):
+        before = {s: w.launches for s, w in wrappers.items()}
+        fold_at = len(fold_rows)
+        t0 = time.perf_counter()
+        out = real_core(p, k=k, **kw)
+        torch.cuda.synchronize()
+        rec.update(core_s=time.perf_counter() - t0, core=out,
+                   core_launches={s: w.launches - before[s]
+                                  for s, w in wrappers.items()
+                                  if w.launches - before[s]},
+                   repairs=list(fold_rows[fold_at:]))
+        return out
+
+    def timed_scan(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_scan(*args)
+        stop.record()
+        stop.synchronize()
+        round_ms.append(start.elapsed_time(stop))
+        labels_seen.append(args[2])
+        return out
+
+    tb._core_distances, tb.scan_minout = timed_core, timed_scan
+    try:
+        zero_launches(wrappers)
+        t0 = time.perf_counter()
+        us, vs, ws = pt.mutual_reachability_mst(pts, MST_K)
+        mst_s = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+    finally:
+        tb._core_distances, tb.scan_minout = real_core, real_scan
+    rounds = [dict(r, kernel_ms=ms) for r, ms in zip(tb.last_rounds,
+                                                     round_ms)]
+    for need in ("capped", "mst_scan"):
+        if not launches.get(need):
+            raise AssertionError(f"hdbscan: the MST launched no {need}")
+    if launches["mst_scan"] != len(rounds):
+        raise AssertionError("hdbscan: one scan launch a round expected")
+
+    # ---- the MST against f64 re-derivations ----
+    if not spanning(us, vs, MST_N):
+        raise AssertionError("hdbscan: the edges do not span the points")
+    pdev = torch.from_numpy(pts).cuda()
+    core = rec["core"]
+    u_t, v_t = torch.from_numpy(us).cuda(), torch.from_numpy(vs).cuda()
+    d64 = (pdev[u_t].double() - pdev[v_t].double()).pow(2).sum(1).sqrt()
+    c64 = core.double()
+    w64 = torch.maximum(d64, torch.maximum(c64[u_t], c64[v_t]))
+    w_err = float(((torch.from_numpy(ws).cuda() - w64).abs()
+                   / w64.clamp_min(1e-30)).max()) / 2.0 ** -24
+    if w_err > MST_ULP:
+        raise AssertionError(f"hdbscan: an edge weight is {w_err} ulp from "
+                             "its f64 re-derivation")
+    sample = torch.from_numpy(np.random.default_rng(MST_SEED + 1).choice(
+        MST_N, MST_CORE_SAMPLE, replace=False)).cuda()
+    core64 = kth_f64(pdev, sample, MST_K)
+    core_err = float(((core[sample].double() - core64).abs()
+                      / core64.clamp_min(1e-30)).max()) / 2.0 ** -24
+    if core_err > MST_ULP:
+        raise AssertionError(f"hdbscan: a core distance is {core_err} ulp "
+                             "from the f64 k-th NN")
+    weight_sum = float(ws.sum())
+    sum_rel = abs(weight_sum - MST_WEIGHT_SUM) / MST_WEIGHT_SUM
+    if sum_rel > MST_SUM_RTOL:
+        raise AssertionError(f"hdbscan: weight sum {weight_sum} against "
+                             f"{MST_WEIGHT_SUM}")
+
+    # ---- the host stages ----
+    stages = {}
+    t0 = time.perf_counter()
+    z = cluster.single_linkage(us, vs, ws, MST_N)
+    stages["single_linkage_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ct = cluster.condense_tree(z, MST_K)
+    stages["condense_tree_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels, probs, _ = cluster.extract_clusters(ct)
+    stages["extract_clusters_s"] = time.perf_counter() - t0
+    if labels.shape != (MST_N,) or not np.all((probs >= 0) & (probs <= 1)):
+        raise AssertionError("hdbscan: bad labels or probabilities")
+    round_s = sum(r["round_s"] for r in rounds)
+    host_s = sum(r["host_s"] for r in rounds)
+    emit("hdbscan", n=MST_N, d=MST_D, k=MST_K, seed=MST_SEED,
+         mst_s=mst_s, core_s=rec["core_s"], rounds_s=round_s,
+         rounds_host_s=host_s, round_count=len(rounds),
+         kernel_ms_per_round=[r["kernel_ms"] for r in rounds],
+         round_s_per_round=[r["round_s"] for r in rounds],
+         host_s_per_round=[r["host_s"] for r in rounds],
+         edges_per_round=[r["edges"] for r in rounds],
+         core_launches=rec["core_launches"], core_repairs=rec["repairs"],
+         launches=launches, edges=len(us), spanning=True,
+         weight_max_ulp=w_err, core_sample=MST_CORE_SAMPLE,
+         core_max_ulp=core_err, weight_sum=weight_sum,
+         weight_sum_reference=MST_WEIGHT_SUM, weight_sum_rel=sum_rel,
+         clusters=int(labels.max() + 1), noise=int((labels < 0).sum()),
+         host_stages_s=stages)
+
+    # ---- the kernels of this path against their plain versions ----
+    kernel_ms = float(np.mean(round_ms))
+    comp = labels_seen[len(labels_seen) // 2]       # a mid-run labelling
+    core_rd = core * core
+    qn = MST_REDUCED_Q
+    args = (pdev, core_rd, comp, pdev[:qn], core_rd[:qn], comp[:qn])
+    bw, bj = mk.scan_minout(*args)
+    (pw, pj), plain_ms = timed_once(lambda: mk.scan_minout_reference(*args))
+    if not (same_bits(bw, pw) and torch.equal(bj, pj)):
+        raise AssertionError("mst scan kernel differs from its plain "
+                             "version at the reduced shape")
+    (lw, lj), library_ms = timed_once(lambda: library_minout(*args))
+    reduced = {
+        "q": qn, "n": MST_N, "d": MST_D,
+        "ms": cuda_ms(lambda: mk.scan_minout(*args), reps=3),
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_w_max_rel": float(((lw - bw).abs()
+                                    / bw.clamp_min(1e-30)).max()),
+        "library_j_differs": int((lj != bj).sum()),
+        "bound_ms": mst_bound_ms(qn, MST_N, MST_D)[0]}
+    bound, by = mst_bound_ms(MST_N, MST_N, MST_D)
+    scan_row = {"ms": kernel_ms, "bound_ms": bound, "bound_by": by,
+                "plain_ms": reduced["plain_ms"],
+                "library_ms": reduced["library_ms"], "max_abs_err": 0.0,
+                "reduced": reduced,
+                "instructions_per_pair": mst_instructions(MST_D)}
+    mu, pp, pn, _ = bf.prepare_euclidean_index(pdev)
+    held = hold_route_kernels(mu, pp, pn, pdev[:MST_HOLD_Q], MST_N, MST_D,
+                              MST_K, max([0] + rec["repairs"]))
+    del mu, pp, pn
+
+    # ---- 10,000 points against the dense f64 Prim ----
+    small = pts[:MST_SMALL_N]
+    t0 = time.perf_counter()
+    us2, vs2, ws2 = pt.mutual_reachability_mst(small, MST_K)
+    small_s = time.perf_counter() - t0
+    prim = torch.sort(prim_f64(torch.from_numpy(small).cuda(), MST_K)).values
+    mine = torch.sort(torch.from_numpy(ws2).cuda()).values
+    small_err = float(((mine - prim).abs() / prim.clamp_min(1e-30)).max()
+                      ) / 2.0 ** -24
+    total_rel = abs(float(mine.sum()) - float(prim.sum())) / float(prim.sum())
+    if not spanning(us2, vs2, MST_SMALL_N) or small_err > MST_ULP \
+            or total_rel > MST_SUM_RTOL:
+        raise AssertionError(f"hdbscan small: against Prim {small_err} ulp, "
+                             f"total {total_rel}")
+    # the dual engine (a caller's knob, plain PyTorch on the card)
+    t0 = time.perf_counter()
+    us3, vs3, ws3 = pt.mutual_reachability_mst(small, MST_K, scheme="dual")
+    dual_s = time.perf_counter() - t0
+    dual_err = float(((torch.sort(torch.from_numpy(ws3).cuda()).values - prim)
+                      .abs() / prim.clamp_min(1e-30)).max()) / 2.0 ** -24
+    if not spanning(us3, vs3, MST_SMALL_N) or dual_err > MST_ULP:
+        raise AssertionError(f"hdbscan small, dual: {dual_err} ulp from Prim")
+    t0 = time.perf_counter()
+    res = pt.hdbscan(small, MST_K)
+    hd_s = time.perf_counter() - t0
+    emit("hdbscan", n=MST_SMALL_N, mst_s=small_s,
+         weights_max_ulp_vs_prim=small_err, total_rel_vs_prim=total_rel,
+         dual_mst_s=dual_s, dual_weights_max_ulp_vs_prim=dual_err,
+         total=float(mine.sum()), hdbscan_s=hd_s,
+         clusters=int(res.labels.max() + 1),
+         noise=int((res.labels < 0).sum()), scan_kernel=scan_row,
+         held=held,
+         seconds=time.perf_counter() - t_phase)
+    return {"scan": scan_row, "launches": launches,
+            "core_launches": rec["core_launches"], "held": held}
+
+
+def phase_dual_join(pt, wrappers) -> dict:
+    """``dual_tree_knn`` on each engine against the f64 oracle: the tree
+    engine on config 1's self-join (k=5), the kernel engine on a 300k x 8
+    self-join (k=5), the leaf-pair sweep with a 20,000-point A-tree
+    against config 1's tree at k=32; and ``query_tree`` once."""
+    from petal_neighbors_tpu_torch.trees import dual
+
+    t_phase = time.perf_counter()
+    ran = {"_join_via_kernel": 0, "_join_via_tree": 0, "_dual_knn": 0}
+    real = {name: getattr(dual, name) for name in ran}
+
+    def counted(name):
+        def run(*a, **kw):
+            ran[name] += 1
+            return real[name](*a, **kw)
+        return run
+
+    for name in ran:
+        setattr(dual, name, counted(name))
+    out = {}
+    try:
+        rng = np.random.default_rng(BALL_SEED)
+        config1 = pt.BallTree.euclidean(
+            rng.normal(size=(BALL_N, 2)).astype(np.float32))
+        rng = np.random.default_rng(JOIN_KERNEL_SEED)
+        wide = pt.BallTree.euclidean(rng.random(
+            (JOIN_KERNEL_N, JOIN_KERNEL_D), dtype=np.float32))
+        rng = np.random.default_rng(SWEEP_SEED)
+        small_a = pt.BallTree.euclidean(
+            rng.normal(size=(SWEEP_NA, 2)).astype(np.float32))
+        for engine, ta, tb_, k in (
+                ("_join_via_tree", config1, config1, JOIN_K),
+                ("_join_via_kernel", wide, wide, JOIN_K),
+                ("_dual_knn", small_a, config1, SWEEP_K)):
+            for name in ran:
+                ran[name] = 0
+            zero_launches(wrappers)
+            (d, i), wall = timed(lambda: pt.dual_tree_knn(ta, tb_, k),
+                                 reps=1)
+            launches = read_launches(wrappers)
+            took = {name for name, c in ran.items() if c}
+            if took != {engine}:
+                raise AssertionError(f"dual_join: {engine} expected, ran "
+                                     f"{sorted(took)}")
+            if d.shape != (ta.n, k) or not bool(torch.isfinite(d).all()) \
+                    or not bool((d[:, 1:] >= d[:, :-1]).all()):
+                raise AssertionError(f"dual_join {engine}: bad output")
+            _, oi = f64_oracle_blocks(tb_.points, ta.points, k)
+            recall, swaps = check_tree_knn(tb_.points, ta.points, i, oi,
+                                           f"dual_join {engine}")
+            row = {"engine": engine, "n_a": ta.n, "n_b": tb_.n, "d": ta.dim,
+                   "k": k, "self_join": ta is tb_, "wall_s": wall,
+                   "qps": ta.n / wall, "recall": recall,
+                   "boundary_swaps": swaps, "launches": launches}
+            if engine == "_dual_knn":
+                row["sweep"] = dict(dual.last_sweep)
+            if engine == "_join_via_tree":
+                d2, i2 = config1.query_tree(config1, k)
+                if not (torch.equal(d2, d) and torch.equal(i2, i)):
+                    raise AssertionError("query_tree differs from "
+                                         "dual_tree_knn")
+                row["query_tree_equal"] = True
+            emit("dual_join", **row)
+            out[engine] = row
+        if not out["_join_via_kernel"]["launches"].get("capped"):
+            raise AssertionError("dual_join: the kernel engine launched no "
+                                 "capped kernel")
+    finally:
+        for name, fn in real.items():
+            setattr(dual, name, fn)
+    emit("dual_join", seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2387,6 +2910,7 @@ def main() -> int:
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
     from petal_neighbors_tpu_torch.ops.cuda import lp_kernel as lk
     from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
+    from petal_neighbors_tpu_torch.ops.cuda import mst_kernel as msk
 
     smi = smi_line()
     emit("device", nvidia_smi=smi, torch=torch.__version__,
@@ -2405,6 +2929,7 @@ def main() -> int:
                                                     "knn_select",
                                                     "knn_minima")})
     tc_ratio = phase_tc_probe()
+    mst_cases = phase_mst_kernel_small()
 
     rng = np.random.default_rng(SEED)
     points = rng.random((N, DIM), dtype=np.float32) * 255.0
@@ -2433,7 +2958,8 @@ def main() -> int:
                 "rank_sort": rk.rank_sort_pairs, "lp_knn": lk.lp_knn,
                 "fold_lazy": kk.knn_fold_lazy,
                 "subchunk_minima": mk.subchunk_minima,
-                "bcap_minima": mk.bcap_minima}
+                "bcap_minima": mk.bcap_minima,
+                "mst_scan": msk.scan_minout}
     # the route's fold calls, with their query counts: under bcap and
     # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
@@ -2565,6 +3091,8 @@ def main() -> int:
     phase_vp_radius(pt)
     phase_vp_device_build(pt, config1_queries)
     phase_dynamic(pt)
+    mst = phase_hdbscan(pt, wrappers, fold_rows)
+    joins = phase_dual_join(pt, wrappers)
 
     kernels = []
     for scheme, k_req in MAIN_ROW.items():
@@ -2624,6 +3152,14 @@ def main() -> int:
                 "sift": vp_sift["launches"].get(scheme, 0)}
             kernels[-1]["vp"] = {"config2": vp_config2["kernels"][scheme],
                                  "sift": vp_sift["kernels"][scheme]}
+            # the HDBSCAN path: the core distances' kernel route
+            # at 1M x 8 and the join's kernel engine, and the kernel held
+            # to its plain version at the core pass's shape
+            kernels[-1]["mst_launches"] = {
+                "hdbscan_core": mst["core_launches"].get(scheme, 0),
+                "dual_join_kernel": joins["_join_via_kernel"][
+                    "launches"].get(scheme, 0)}
+            kernels[-1]["mst"] = mst["held"][scheme]
         if scheme == "capped":
             kernels[-1]["gist"] = {key: capped_gist[key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -2667,6 +3203,19 @@ def main() -> int:
         "library_ms": lp_row["library_ms"],
         "shape": {key: lp_row[key] for key in ("n", "q", "d", "k",
                                                "splits")} | {"p": 3.0}})
+    scan = mst["scan"]
+    kernels.append({
+        "name": "mst_scan", "route": "cuda", "source": MST_SOURCE,
+        "replaces": MST_REPLACES, "launches": mst["launches"]["mst_scan"],
+        "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": scan["library_ms"],
+        "tier": "fp32", "shape": {"n": MST_N, "q": MST_N, "d": MST_D},
+        "per": "one Borůvka round at full width; plain and library at "
+               "the reduced shape",
+        "reduced": scan["reduced"],
+        "instructions_per_pair": scan["instructions_per_pair"],
+        "small_cases_bit_equal": mst_cases})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

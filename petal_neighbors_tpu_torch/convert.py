@@ -18,8 +18,9 @@ same arithmetic.
 
 A ``BallTree``'s are ``points``, ``centroids`` (``.nodes.centroids``),
 ``radii`` (``.nodes.radii``) and ``idx`` (``.idx``), with its metric and
-leaf size.  A ``VantagePointTree``'s are ``points``, ``vp``, ``radius``,
-``near`` and ``far`` (``.nodes``), ``root`` and ``depth``.  A
+leaf size, and optionally its centre ``center`` (``_qcenter``).  A
+``VantagePointTree``'s are ``points``, ``vp``, ``radius``, ``near`` and
+``far`` (``.nodes``), ``root`` and ``depth``.  A
 ``DynamicIndex``'s state is its base tree's arrays, its id tables and its
 pending mutations, the arguments of its ``_from_state``.
 """
@@ -79,13 +80,18 @@ def balltree_from_jax_arrays(arrays, *, metric="euclidean", leaf_size,
                              device=None) -> BallTree:
     """A port ``BallTree`` from a JAX tree's arrays, as numpy: ``points``,
     ``centroids`` (``.nodes.centroids``), ``radii`` (``.nodes.radii``) and
-    ``idx`` (``.idx``), with the tree's ``metric`` and ``leaf_size``.  It
+    ``idx`` (``.idx``), with the tree's ``metric`` and ``leaf_size``, and
+    optionally ``center`` (a Euclidean tree's ``_qcenter``, the centre of
+    its product-form bounds; recomputed by ``center_of`` when absent).  It
     answers the same queries with no rebuild (the JAX package's
-    ``BallTree._from_arrays``)."""
+    ``BallTree._from_arrays``); the join and the dual Borůvka read the
+    permutation tables (``_orig_ids``, ``_pos_of_id``) and the leaf
+    geometry it derives from these arrays."""
     _need(arrays, ("points", "centroids", "radii", "idx"))
     return BallTree._from_arrays(arrays["points"], metric, leaf_size,
                                  arrays["centroids"], arrays["radii"],
-                                 arrays["idx"], device=device)
+                                 arrays["idx"], center=arrays.get("center"),
+                                 device=device)
 
 
 def vptree_from_jax_arrays(arrays, *, metric="euclidean",

@@ -18,8 +18,8 @@ ball_tree.rs:303-353).  Beyond it: the batched ``query_batch`` and
 not the reference's 1-2), and a choice of builders.
 
 ``device=None`` means ``"cuda"`` and raises without a card; pass
-``device="cpu"`` to run on the CPU.  Not carried yet: ``save`` (the
-serialize slice) and ``query_tree`` (the dual-tree slice).
+``device="cpu"`` to run on the CPU.  ``query_tree`` is the dual-tree join
+(``trees/dual.py``).  Not carried yet: ``save`` (the serialize slice).
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ class BallTree:
         self.builder = builder
         self._init_from_data(data)
 
-    def _init_from_data(self, data: BallTreeData) -> None:
+    def _init_from_data(self, data: BallTreeData, center=None) -> None:
         dev = self.device
 
         def on_device(a):
@@ -167,7 +167,9 @@ class BallTree:
         if isinstance(self.metric, Euclidean):
             # the product-form computations run on centred values for
             # exactness (ops.bruteforce.center_of); the norms match that
-            self._qcenter = center_of(self.points)
+            self._qcenter = (center_of(self.points) if center is None
+                             else torch.from_numpy(
+                                 np.array(center, self._np_dtype())).to(dev))
             centered = self._points_perm - self._qcenter
             self._perm_norms = torch.sum(centered * centered, dim=-1)
         else:
@@ -184,9 +186,10 @@ class BallTree:
 
     @classmethod
     def _from_arrays(cls, points, metric, leaf_size, centroids, radii, idx,
-                     *, device=None):
+                     *, center=None, device=None):
         """A tree from its arrays (points, centroids, radii, idx), with no
-        rebuild."""
+        rebuild; ``center`` (Euclidean) is the centre its product-form
+        bounds subtract, ``center_of(points)`` when None."""
         self = cls.__new__(cls)
         self.metric = get_metric(metric)
         self.device = resolve_device(device)
@@ -205,7 +208,8 @@ class BallTree:
         self.builder = None
         self._init_from_data(BallTreeData(
             centroids=centroids.astype(self._np_dtype()),
-            radii=radii.astype(self._np_dtype()), idx=idx, shape=self._shape))
+            radii=radii.astype(self._np_dtype()), idx=idx, shape=self._shape),
+            center=center)
         return self
 
     def save(self, path) -> None:
@@ -386,8 +390,12 @@ class BallTree:
         return self._shape.n_nodes
 
     def query_tree(self, other: "BallTree", k: int):
-        raise NotImplementedError(
-            "the dual-tree k-NN join comes with the port's dual-tree slice")
+        """Dual-tree k-NN join: for every point of ``self``, the ``k``
+        nearest points of ``other`` (``trees.dual.dual_tree_knn``);
+        ``self.query_tree(self, k)`` is the all-k-NN self-join (HDBSCAN
+        core distances)."""
+        from .dual import dual_tree_knn
+        return dual_tree_knn(self, other, k)
 
     def num_points(self) -> int:
         return self.points.shape[0]

@@ -359,8 +359,11 @@ def test_later_slices_and_errors():
     tt = tpn.BallTree.euclidean(pts, device="cpu")
     with pytest.raises(NotImplementedError, match="serialize"):
         tt.save("x.npz")
-    with pytest.raises(NotImplementedError, match="dual"):
-        tt.query_tree(tt, 2)
+    # the dual-tree join is carried since the join slice: the self-join
+    # keeps each point first, at 0
+    d, i = tt.query_tree(tt, 2)
+    assert d.shape == i.shape == (30, 2)
+    assert (i[:, 0].numpy() == np.arange(30)).all() and (d[:, 0] == 0).all()
     with pytest.raises(ValueError, match="scheme"):
         tt.query_batch(pts, 2, scheme="nope")
     with pytest.raises(ValueError, match="scheme"):

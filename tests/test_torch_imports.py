@@ -47,13 +47,15 @@ def test_port_files_found():
             "fold_profile.py", "kernel_ab.py", "ball.py", "ball_query.py",
             "ball_build.py", "ball_build_device.py", "_auto.py",
             "tree_math.py", "vantage.py", "vantage_build_device.py",
-            "dynamic.py"} <= names
+            "dynamic.py", "dual.py", "boruvka.py", "cluster.py",
+            "mst_kernel.py"} <= names
     port = ROOT / "petal_neighbors_tpu_torch"
     assert port / "native" / "__init__.py" in PORT_FILES
     assert (port / "native" / "src" / "petal_native.cpp").is_file()
     csrc = ROOT / "petal_neighbors_tpu_torch" / "ops" / "cuda" / "csrc"
     assert {"knn_fold.cu", "knn_minima.cu", "knn_tiles.cuh", "lp_knn.cu",
-            "row_sort.cu", "knn_select.cu", "knn_tc.cuh"} <= {
+            "row_sort.cu", "knn_select.cu", "knn_tc.cuh",
+            "mst_scan.cu"} <= {
         p.name for p in csrc.iterdir()}
 
 
@@ -72,6 +74,10 @@ def test_import_leaves_jax_unloaded():
             "petal_neighbors_tpu_torch.trees.vantage, "
             "petal_neighbors_tpu_torch.trees.vantage_build_device, "
             "petal_neighbors_tpu_torch.trees.dynamic, "
+            "petal_neighbors_tpu_torch.trees.dual, "
+            "petal_neighbors_tpu_torch.trees.boruvka, "
+            "petal_neighbors_tpu_torch.cluster, "
+            "petal_neighbors_tpu_torch.ops.cuda.mst_kernel, "
             "petal_neighbors_tpu_torch.utils.tree_math; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m.split('.')[0] == 'petal_neighbors_tpu' "
