@@ -190,6 +190,54 @@ Phases, each printed as one JSON line on stdout:
               capped and fold), the leaf-pair sweep with 20,000 N(0,1) x 2
               points (seed 20) against config 1's tree at k=32 (its rounds
               and steps).
+   The adapters and the utilities, each phase with its launches
+   counted from zero and read after it:
+   serialize — save_index and load_index on the card, one line a kind:
+              brute (the SIFT index, right after vp_sift: the largest
+              file, timed first), ball (the 1M x 2 device-built tree,
+              config 1's queries), vantage (config 2's tree after its
+              kernel-route queries, its flat tables in the file), dynamic
+              (the d = 64 index below, its mutations pending).  Every
+              array of the loaded index equals the saved one's bit for bit
+              (and the flat index's prepared layout), and it answers its
+              cell's queries with the same distances and ids bit for bit;
+              save and load seconds and the file's bytes.  Files live in a
+              temporary directory under build/ that the phase deletes.
+   knn_route — ``bf.knn`` with backend "auto" on the SIFT points as users
+              pass them, uncentred: all 10,240 queries at k=10 and 100
+              (capped) and the first 2,048 at k=2000 (merge), fold repairs
+              required; ids against the main phases' f64 oracles under the
+              swap rule, QPS beside BruteForce's.  Then the fault the
+              centring repairs: 5,000 x 64 N(10^4, 1) (seed 13), 300
+              queries, k=5, on "auto" (the kernels) and "xla" (the scan):
+              recall 1.0 against f64.
+   sklearn  — ``NearestNeighbors(n_neighbors=10).fit`` on the SIFT points
+              must take BruteForce; ``kneighbors`` at k=10 (bcap) and 100
+              (capped) equal to ``query_batch`` bit for bit;
+              ``kneighbors_graph``'s shape and nnz; ``radius_neighbors`` on
+              the first 1,024 queries at radius_flat's r, counts equal to
+              the mask's row sums except pairs within 2 ulp; config 1's
+              ``kneighbors(X=None, n_neighbors=5)`` (the ball tree) with no
+              row holding its own id, against the f64 oracle of k=6 less
+              the point itself; config 4's ``radius_neighbors_graph`` at
+              eps 0.05 against a plain count.  Seconds and QPS of each.
+   serving  — a ``QueryStream`` over the SIFT index at k=10: 1,000 single
+              submits flushed in groups of 1, 10, 100 and 1,000, equal bit
+              for bit to one ``query_batch``'s rows; ms a query and
+              launches a flush at each group size.
+   profiling — ``utils.profiling.trace`` around one SIFT k=10
+              ``query_batch``: the Chrome trace must name the bcap kernel;
+              the traced kernels' time, and ``wall_time`` of the call.
+   dynamic (d64) — a DynamicIndex at d = 64 off the origin: 180,000 rows
+              of N(10^3, 1) (seed 16) build it, 20,000 are added, 2,000
+              ids removed; 1,024 queries at k=10 must find the f64
+              oracle's ids over the live rows exactly.
+   examples — examples/torch_dbscan.py on config 4's points (eps 0.05,
+              min_samples 10), torch_optics.py and torch_hdbscan_core.py
+              on their own ``__main__`` data, each on the card and with
+              device="cpu": the same core mask and partition of core
+              points; the same ordering and reachability within f32; the
+              same MST weights within f32 and the same labels.
 9. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick (fold: at
@@ -208,6 +256,9 @@ Phases, each printed as one JSON line on stdout:
               launches (one a round), ms a round at full width, its bound
               (3d + 7 FP32 instructions a pair at 33.5e12 a second), the
               plain version and the cdist yardstick at the reduced shape.
+              fold, capped, bcap, merge and the row sorts also carry
+              adapter_launches: their launches in knn_route, sklearn and
+              serving.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA card is present or any
@@ -1812,10 +1863,11 @@ def ulp32(x: float) -> float:
     return float(np.spacing(np.float32(x)))
 
 
-def phase_radius_flat(index, pdev, qdev, d100) -> None:
+def phase_radius_flat(index, pdev, qdev, d100):
     """``BruteForce.query_radius_batch`` on the SIFT index: the band form
     on the first 1,024 queries against a plain direct-form mask, then the
-    capped and count forms on all queries."""
+    capped and count forms on all queries.  Returns r, the mask's row sums
+    and each row's pairs within 2 ulp of r."""
     import warnings
 
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
@@ -1899,6 +1951,7 @@ def phase_radius_flat(index, pdev, qdev, d100) -> None:
          count_qps=qs_all.shape[0] / count_s, count_s=count_s,
          over_cap=int((counts > RADIUS_CAP).sum()),
          seconds=time.perf_counter() - t_phase)
+    return r, rowsum, near
 
 
 def check_tree_knn(pdev, qdev, ids, oracle_ids, label: str):
@@ -2011,9 +2064,10 @@ def phase_ball_radius(pt) -> None:
     emit("ball_radius", seconds=time.perf_counter() - t_phase)
 
 
-def phase_ball_device_build(pt, config1_queries) -> None:
+def phase_ball_device_build(pt, config1_queries):
     """The 1M-point "auto" build on the card against the host build, then
-    config 1's queries on it against the f64 oracle."""
+    config 1's queries on it against the f64 oracle.  Returns the
+    device-built tree."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(BALL_SEED)
     pts = rng.normal(size=(BUILD_N, 2)).astype(np.float32)
@@ -2051,6 +2105,7 @@ def phase_ball_device_build(pt, config1_queries) -> None:
          tolerance=BUILD_TOL, queries=BALL_Q, k=BALL_K, qps=BALL_Q / wall,
          batch_s=wall, recall=recall, boundary_swaps=swaps,
          seconds=time.perf_counter() - t_phase)
+    return tree
 
 
 def phase_ball_highdim(pt) -> None:
@@ -2153,7 +2208,8 @@ def phase_vp_knn(pt, wrappers, fold_rows) -> dict:
     4,096 queries under "auto" (the kernel route: capped with the fold
     repair), "per_query" and "tiled"; every query against the f64 oracle;
     then the route's kernels against their plain versions at this shape.
-    Returns the launches of the "auto" runs and the kernels' rows."""
+    Returns the launches of the "auto" runs, the kernels' rows, the tree
+    and its queries."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(VP_SEED)
     pts = rng.normal(size=(VP_N, 2)).astype(np.float32)
@@ -2208,7 +2264,8 @@ def phase_vp_knn(pt, wrappers, fold_rows) -> dict:
     kernels = hold_vp_kernels(tree, qdev, VP_K, repaired_max)
     emit("vp_knn", kernels=kernels, launches=launches,
          seconds=time.perf_counter() - t_phase)
-    return {"launches": launches, "kernels": kernels}
+    return {"launches": launches, "kernels": kernels, "tree": tree,
+            "queries": qdev}
 
 
 def phase_vp_sift(pt, points, qdev, oracle_ids, wrappers, fold_rows) -> dict:
@@ -2898,6 +2955,481 @@ def phase_dual_join(pt, wrappers) -> dict:
     return out
 
 
+# ---- the adapters and the utilities ---------------------------------------
+
+#: the requests of ``bf.knn(backend="auto")`` on the uncentred SIFT points
+#: and the scheme each must take (``pick_scheme(k, n, bcap_planes=False)``)
+ROUTE_K = {10: "capped", 100: "capped", 2000: "merge"}
+#: the flat knn's fault case: N(10^4, 1) rows at d = 64, seed 13
+FAULT_N, FAULT_Q, FAULT_D, FAULT_K, FAULT_SEED = 5_000, 300, 64, 5, 13
+FAULT_OFFSET = 1e4
+#: DynamicIndex off the origin: N(10^3, 1) f32 rows at d = 64, seed 16; the
+#: first DYN64_BASE build it, the rest are added, DYN64_REMOVE ids removed
+DYN64_N, DYN64_BASE, DYN64_D, DYN64_SEED = 200_000, 180_000, 64, 16
+DYN64_OFFSET, DYN64_REMOVE, DYN64_Q, DYN64_K = 1e3, 2_000, 1_024, 10
+#: NearestNeighbors.kneighbors' requests on the SIFT points and the scheme
+#: each must take (BruteForce's, with bcap planes at 1M x 128)
+SKLEARN_K = {10: "bcap", 100: "capped"}
+#: serving: single submits, the group sizes they are flushed in, k, and
+#: the scheme each flush must run
+SERVE_N, SERVE_GROUPS, SERVE_K = 1_000, (1, 10, 100, 1_000), 10
+SERVE_SCHEME = "bcap"
+#: the DBSCAN example on config 4's points
+EX_EPS, EX_MIN_SAMPLES = 0.05, 10
+#: bcap's entry function as the profiler names it (MODE_BCAP = 2 in
+#: knn_fold.cu), demangled or not
+BCAP_KERNEL = r"knn_kernel(<2,|ILi2E)"
+
+
+def host_bits_equal(a, b) -> bool:
+    """Two arrays or tensors equal bit for bit, dtype and shape included."""
+    a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def phase_knn_route(index, pdev, qdev, oracles, flat_qps, wrappers,
+                    fold_rows) -> dict:
+    """``bf.knn`` with backend "auto" on the SIFT points as users pass
+    them (uncentred): it centres them and takes the kernel route (capped
+    at k=10 and 100 on all queries, merge at k=2000 on the first 2,048,
+    fold repairs); ids against the main phases' f64 oracles.  Then the
+    fault case on both backends, recall 1.0 against f64.  Returns the
+    launches of the SIFT calls."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for k, scheme in ROUTE_K.items():
+        qs = qdev if k < 1000 else qdev[:N_Q_LARGE]
+        fold_rows.clear()
+        zero_launches(wrappers)
+        (d, i), wall = timed(lambda: bf.knn(pdev, qs, k))
+        got = read_launches(wrappers)
+        if not got.get(scheme):
+            raise AssertionError(f"knn_route k={k}: no {scheme} kernel "
+                                 f"ran ({got})")
+        for s, c in got.items():
+            launches[s] = launches.get(s, 0) + c
+        if d.shape != (qs.shape[0], k) or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"knn_route k={k}: bad output")
+        if not bool((d[:, 1:] >= d[:, :-1]).all()):
+            raise AssertionError(f"knn_route k={k}: not ascending")
+        recall, swaps, worst = check_vs_oracle(index, pdev, qs, i,
+                                               oracles[k][:, :k])
+        emit("knn_route", k=k, scheme=scheme, queries=qs.shape[0],
+             qps=qs.shape[0] / wall, batch_s=wall,
+             bruteforce_qps=flat_qps[k], launches_in_calls=got, calls=3,
+             repaired_queries_per_call=list(fold_rows), recall=recall,
+             boundary_swaps=swaps, worst_swap_gap_over_band=worst)
+    if not launches.get("fold"):
+        raise AssertionError("knn_route: no fold repair ran")
+
+    rng = np.random.default_rng(FAULT_SEED)
+    fp = torch.from_numpy((rng.normal(size=(FAULT_N, FAULT_D))
+                           + FAULT_OFFSET).astype(np.float32)).cuda()
+    fq = torch.from_numpy((rng.normal(size=(FAULT_Q, FAULT_D))
+                           + FAULT_OFFSET).astype(np.float32)).cuda()
+    c64 = fp.double().mean(0)
+    rd64 = ((fq.double() - c64)[:, None, :]
+            - (fp.double() - c64)[None]).pow(2).sum(-1)
+    want = torch.topk(rd64, FAULT_K, dim=1, largest=False).indices
+    for backend in ("auto", "xla"):
+        zero_launches(wrappers)
+        (d, i), wall = timed(lambda: bf.knn(fp, fq, FAULT_K,
+                                            backend=backend), reps=1)
+        got = read_launches(wrappers)
+        if bool(got) != (backend == "auto"):
+            raise AssertionError(f"knn_route fault case {backend}: "
+                                 f"launches {got}")
+        a = torch.sort(i.long(), dim=1).values
+        b = torch.sort(want, dim=1).values
+        recall = float((a == b).double().mean())
+        if recall != 1.0:
+            raise AssertionError(f"knn_route fault case {backend}: recall "
+                                 f"{recall}")
+        emit("knn_route", case="fault", n=FAULT_N, d=FAULT_D,
+             offset=FAULT_OFFSET, queries=FAULT_Q, k=FAULT_K,
+             backend=backend, recall=recall, launches_in_calls=got,
+             batch_s=wall)
+    emit("knn_route", launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_sklearn(pt, index, points, queries, qdev, flat_radius,
+                  wrappers) -> dict:
+    """``NearestNeighbors`` on the card: fitted on the SIFT points it
+    takes ``BruteForce``, and ``kneighbors`` at k=10 (bcap) and 100
+    (capped) equals ``query_batch`` bit for bit; ``kneighbors_graph``;
+    ``radius_neighbors`` on the first 1,024 queries at radius_flat's r
+    against the mask's row sums; config 1's self-query (k=5, the ball
+    tree) against the f64 oracle of k=6 less each point itself; config
+    4's ``radius_neighbors_graph`` at eps 0.05 against a plain count.
+    Returns the launches of the kneighbors calls."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    nn = pt.NearestNeighbors(n_neighbors=10).fit(points)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if not isinstance(nn._index, pt.BruteForce):
+        raise AssertionError("sklearn: auto did not choose brute on SIFT")
+    launches = {}
+    for k, scheme in SKLEARN_K.items():
+        zero_launches(wrappers)
+        (d, i), wall = timed(lambda: nn.kneighbors(queries, k))
+        got = read_launches(wrappers)
+        if not got.get(scheme):
+            raise AssertionError(f"sklearn k={k}: no {scheme} kernel ran "
+                                 f"({got})")
+        for s, c in got.items():
+            launches[s] = launches.get(s, 0) + c
+        want_d, want_i = index.query_batch(qdev, k)
+        if not (i.dtype == np.int64 and host_bits_equal(d, want_d)
+                and host_bits_equal(i, want_i.long())):
+            raise AssertionError(f"sklearn k={k}: kneighbors differs from "
+                                 "BruteForce.query_batch")
+        emit("sklearn", call="kneighbors", n=N, d=DIM, k=k, queries=N_Q,
+             qps=N_Q / wall, seconds=wall, launches_in_calls=got, calls=3,
+             equal_to_query_batch=True, fit_s=fit_s)
+    g, graph_s = timed(lambda: nn.kneighbors_graph(queries), reps=1,
+                       warm=False)
+    if g.shape != (N_Q, N) or g.nnz != N_Q * 10:
+        raise AssertionError(f"sklearn: kneighbors_graph {g.shape} "
+                             f"nnz {g.nnz}")
+    emit("sklearn", call="kneighbors_graph", k=10, queries=N_Q,
+         qps=N_Q / graph_s, seconds=graph_s, nnz=int(g.nnz))
+
+    r, rowsum, near = flat_radius
+    q1 = queries[:RADIUS_FLAT_Q]
+    (rd, rids), radius_s = timed(lambda: nn.radius_neighbors(q1, r),
+                                 reps=1, warm=False)
+    got = torch.tensor([len(x) for x in rids])
+    if bool(((got - rowsum.cpu()).abs() > near.cpu()).any()):
+        raise AssertionError("sklearn: radius_neighbors counts differ from "
+                             "the mask's away from the boundary")
+    far = max((float(x.max()) for x in rd if len(x)), default=0.0)
+    if far > r + 2 * ulp32(r):
+        raise AssertionError(f"sklearn: a radius neighbour at {far} > {r}")
+    emit("sklearn", call="radius_neighbors", n=N, d=DIM, radius=r,
+         queries=RADIUS_FLAT_Q, qps=RADIUS_FLAT_Q / radius_s,
+         seconds=radius_s, members_per_query=float(got.double().mean()),
+         pairs_within_2ulp=int(near.sum()))
+    del nn, g, rd, rids
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(BALL_SEED)
+    pts1 = rng.normal(size=(BALL_N, 2)).astype(np.float32)
+    nn1 = pt.NearestNeighbors().fit(pts1)
+    if not isinstance(nn1._index, pt.BallTree):
+        raise AssertionError("sklearn: auto did not choose ball_tree at d=2")
+    (d1, i1), self_s = timed(lambda: nn1.kneighbors(n_neighbors=5), reps=1)
+    rows = np.arange(BALL_N)
+    if (i1 == rows[:, None]).any():
+        raise AssertionError("sklearn: a self-query row holds its own id")
+    p1 = nn1._index.points
+    _, oi = f64_oracle_blocks(p1, p1, 6)
+    oi = oi.cpu().numpy()
+    own = oi == rows[:, None]
+    drop = np.where(own.any(axis=1), own.argmax(axis=1), 5)
+    keep = np.ones_like(oi, dtype=bool)
+    keep[rows, drop] = False
+    recall, swaps = check_tree_knn(
+        p1, p1, torch.from_numpy(i1).cuda(),
+        torch.from_numpy(oi[keep].reshape(BALL_N, 5)).cuda(),
+        "sklearn self-query")
+    emit("sklearn", call="kneighbors(X=None)", n=BALL_N, d=2, k=5,
+         queries=BALL_N, qps=BALL_N / self_s, seconds=self_s,
+         recall=recall, boundary_swaps=swaps)
+
+    rng = np.random.default_rng(RADIUS_SEED)
+    pts4 = rng.normal(size=(BALL_N, 2)).astype(np.float32)
+    nn4 = pt.NearestNeighbors(radius=EX_EPS).fit(pts4)
+    g4, g4_s = timed(lambda: nn4.radius_neighbors_graph(pts4[:RADIUS_Q]),
+                     reps=1)
+    p4 = nn4._index.points
+    want, near4 = plain_radius_counts(p4, p4[:RADIUS_Q], EX_EPS,
+                                      strict=False)
+    cnt = torch.from_numpy(np.diff(g4.indptr)).cuda()
+    if g4.shape != (RADIUS_Q, BALL_N) or bool(
+            ((cnt - want).abs() > near4).any()):
+        raise AssertionError("sklearn: radius_neighbors_graph differs from "
+                             "the plain count")
+    qi = torch.from_numpy(np.repeat(np.arange(RADIUS_Q), np.diff(
+        g4.indptr))).cuda()
+    rd4 = ((p4[qi].double() - p4[torch.from_numpy(g4.indices).cuda()]
+            .double()) ** 2).sum(1)
+    if bool((rd4 > EX_EPS ** 2 * (1 + 4 * 2.0 ** -24)).any()):
+        raise AssertionError("sklearn: radius_neighbors_graph lists a "
+                             "non-member")
+    emit("sklearn", call="radius_neighbors_graph", n=BALL_N, d=2,
+         radius=EX_EPS, queries=RADIUS_Q, qps=RADIUS_Q / g4_s,
+         seconds=g4_s, nnz=int(g4.nnz), launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_serving(pt, index, queries, qdev, wrappers) -> dict:
+    """A ``QueryStream`` over the SIFT index at k=10: 1,000 single submits
+    flushed in groups of 1, 10, 100 and 1,000, each group one
+    ``query_batch``; the answers equal one ``query_batch``'s rows bit for
+    bit.  Returns the launches of each group size's run."""
+    t_phase = time.perf_counter()
+    want_d, want_i = index.query_batch(qdev[:SERVE_N], SERVE_K)
+    out = {}
+    for g in SERVE_GROUPS:
+        stream = pt.QueryStream(index, SERVE_K)
+        zero_launches(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = []
+        for s in range(0, SERVE_N, g):
+            handles = [stream.submit(queries[j]) for j in range(s, s + g)]
+            res.extend(h.result() for h in handles)
+        wall = time.perf_counter() - t0
+        got = read_launches(wrappers)
+        if not got.get(SERVE_SCHEME):
+            raise AssertionError(f"serving group {g}: no {SERVE_SCHEME} "
+                                 "kernel ran")
+        ids = np.stack([r[0] for r in res])
+        ds = np.stack([r[1] for r in res])
+        if not (host_bits_equal(ids, want_i.long())
+                and host_bits_equal(ds, want_d)):
+            raise AssertionError(f"serving group {g}: answers differ from "
+                                 "one query_batch")
+        flushes = SERVE_N // g
+        out[g] = got
+        emit("serving", group=g, queries=SERVE_N, k=SERVE_K,
+             flushes=flushes, seconds=wall,
+             ms_per_query=wall * 1e3 / SERVE_N,
+             launches_per_flush={s: c / flushes for s, c in got.items()},
+             equal_to_query_batch=True)
+    emit("serving", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def scratch_dir():
+    """A temporary directory under the checkout's ignored build/, deleted
+    when its ``with`` block ends."""
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=root)
+
+
+def phase_profiling(index, qdev) -> None:
+    """``utils.profiling.trace`` around one SIFT k=10 ``query_batch``: the
+    exported Chrome trace must exist and name the bcap kernel; the traced
+    kernels' device time, and ``wall_time`` of the same call."""
+    import re
+
+    from petal_neighbors_tpu_torch.utils.profiling import trace, wall_time
+
+    index.query_batch(qdev, SERVE_K)
+    torch.cuda.synchronize()
+    with scratch_dir() as tmp:
+        with trace(tmp):
+            index.query_batch(qdev, SERVE_K)
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    bcap = [e for e in events if re.search(BCAP_KERNEL, e.get("name", ""))]
+    if not bcap:
+        raise AssertionError("profiling: the trace names no bcap kernel")
+    timing = {}
+    with wall_time(timing) as o:
+        o["result"] = index.query_batch(qdev, SERVE_K)
+    emit("profiling", k=SERVE_K, queries=N_Q, trace_bytes=trace_bytes,
+         kernels_traced=len(kernels),
+         kernel_ms=sum(e.get("dur", 0) for e in kernels) / 1e3,
+         bcap_kernel=bcap[0]["name"][:60],
+         bcap_ms=sum(e.get("dur", 0) for e in bcap) / 1e3,
+         wall_time_s=timing["seconds"])
+
+
+def phase_dynamic_d64(pt):
+    """``DynamicIndex`` at d = 64 off the origin: 180,000 rows build it,
+    20,000 are added and 2,000 ids removed (no rebuild), and 1,024
+    queries at k=10 must find the f64 oracle's ids over the live rows
+    exactly.  Returns the index and its queries."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(DYN64_SEED)
+    rows = (rng.normal(size=(DYN64_N, DYN64_D))
+            + DYN64_OFFSET).astype(np.float32)
+    qs = (rng.normal(size=(DYN64_Q, DYN64_D))
+          + DYN64_OFFSET).astype(np.float32)
+    t0 = time.perf_counter()
+    idx = pt.DynamicIndex(rows[:DYN64_BASE])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.add(rows[DYN64_BASE:])
+    gone = rng.choice(DYN64_N, DYN64_REMOVE, replace=False)
+    idx.remove(gone)
+    mutate_s = time.perf_counter() - t0
+    if not idx._delta_rows or len(idx._tombstones) != DYN64_REMOVE:
+        raise AssertionError("dynamic d64: the mutations rebuilt the index")
+    qdev = torch.from_numpy(qs).cuda()
+    (d, i), knn_s = timed(lambda: idx.query_batch(qdev, DYN64_K), reps=1)
+    if d.shape != (DYN64_Q, DYN64_K) or not bool(torch.isfinite(d).all()):
+        raise AssertionError("dynamic d64: bad output")
+    by_id = torch.from_numpy(rows).cuda()
+    live = torch.from_numpy(np.setdiff1d(np.arange(DYN64_N), gone)).cuda()
+    c64 = by_id[live].double().mean(0)
+    _, opos = f64_oracle(by_id[live].double() - c64, qdev.double() - c64,
+                         DYN64_K)
+    recall, swaps = check_tree_knn(by_id, qdev, i, live[opos],
+                                   "dynamic d64")
+    if swaps:
+        raise AssertionError(f"dynamic d64: recall {recall}")
+    emit("dynamic", stage="d64 mutated", n=DYN64_BASE, d=DYN64_D,
+         offset=DYN64_OFFSET, added=DYN64_N - DYN64_BASE,
+         removed=DYN64_REMOVE, live=idx.num_points, queries=DYN64_Q,
+         k=DYN64_K, knn_qps=DYN64_Q / knn_s, knn_s=knn_s, recall=recall,
+         build_s=build_s, mutate_s=mutate_s,
+         seconds=time.perf_counter() - t_phase)
+    return idx, qdev
+
+
+def _index_arrays(kind: str, index) -> dict:
+    """The arrays ``save_index`` keeps of an index, and for a flat index
+    the layout its load prepares again, by name."""
+    if kind == "brute":
+        return {"points": index.points, "center": index._center,
+                "ppad": index._pts, "pnorm": index._norms,
+                "bad": index._invalid}
+    if kind == "dynamic":
+        base = index._base
+        return {"points": index._base_rows, "idx": base.idx,
+                "centroids": base.nodes.centroids, "radii": base.nodes.radii,
+                "base_ids": index._base_ids,
+                "delta_rows": np.concatenate(index._delta_rows),
+                "delta_ids": np.concatenate(index._delta_ids),
+                "tombstones": np.asarray(sorted(index._tombstones)),
+                "next_id": np.int64(index._next_id)}
+    out = {"points": index.points}
+    if kind == "ball":
+        out |= {"idx": index.idx, "centroids": index.nodes.centroids,
+                "radii": index.nodes.radii}
+    else:
+        out |= {k: v for k, v in index.nodes.items()}
+        out |= {f"flat_{j}": a for j, a in enumerate(index._flat_tables())}
+        out |= {"root": np.int64(index.root), "depth": np.int64(index.depth)}
+    return out
+
+
+def phase_serialize(pt, kind: str, index, query) -> None:
+    """``save_index`` and ``load_index`` on the card for one kind: after
+    the load every array equals the saved index's bit for bit, and the
+    reloaded index answers ``query`` (its cell's queries) with the same
+    distances and ids bit for bit.  The file is deleted."""
+    with scratch_dir() as tmp:
+        path = os.path.join(tmp, f"{kind}.npz")
+        t0 = time.perf_counter()
+        pt.save_index(index, path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = pt.load_index(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if type(back) is not type(index):
+        raise AssertionError(f"serialize {kind}: loaded a "
+                             f"{type(back).__name__}")
+    want, got = _index_arrays(kind, index), _index_arrays(kind, back)
+    bad = [name for name in want if not host_bits_equal(want[name],
+                                                        got[name])]
+    if bad:
+        raise AssertionError(f"serialize {kind}: arrays differ: {bad}")
+    a, b = query(index), query(back)
+    if not all(host_bits_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"serialize {kind}: the reloaded index answers "
+                             "differently")
+    emit("serialize", kind=kind, file_bytes=nbytes, save_s=save_s,
+         load_s=load_s, arrays_equal=sorted(want), answers_equal=True,
+         queries=a[0].shape[0])
+
+
+def phase_examples(pt) -> None:
+    """The port's examples on the card and with ``device="cpu"``:
+    ``torch_dbscan`` on config 4's points (eps 0.05, min_samples 10) with
+    the same core mask and partition of core points; ``torch_optics`` and
+    ``torch_hdbscan_core`` on their own ``__main__`` data with the same
+    ordering and reachability (within f32), MST weights and labels."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    import torch_dbscan
+    import torch_hdbscan_core as hdb
+    import torch_optics
+
+    rng = np.random.default_rng(RADIUS_SEED)
+    pts4 = rng.normal(size=(BALL_N, 2)).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        core = torch_dbscan.core_mask(pts4, EX_EPS, EX_MIN_SAMPLES,
+                                      device=dev)
+        labels = torch_dbscan.dbscan(pts4, EX_EPS, EX_MIN_SAMPLES,
+                                     device=dev)
+        runs[dev] = (core, labels, time.perf_counter() - t0)
+    (c1, l1, s1), (c2, l2, s2) = runs["cuda"], runs["cpu"]
+    if not np.array_equal(c1, c2):
+        raise AssertionError("examples dbscan: core masks differ")
+    pairs = set(zip(l1[c1].tolist(), l2[c2].tolist()))
+    if len(pairs) != len(set(l1[c1].tolist())) or len(pairs) != len(
+            set(l2[c2].tolist())):
+        raise AssertionError("examples dbscan: core partitions differ")
+    emit("examples", example="torch_dbscan", n=BALL_N, eps=EX_EPS,
+         min_samples=EX_MIN_SAMPLES, core=int(c1.sum()),
+         clusters=int(l1.max()) + 1, noise=int((l1 < 0).sum()),
+         labels_equal=bool(np.array_equal(l1, l2)), cuda_s=s1, cpu_s=s2)
+
+    blobs = torch_optics.demo_points()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = torch_optics.optics(blobs, eps=1.0, min_samples=10, cap=4096,
+                                  device=dev)
+        runs[dev] = (out, time.perf_counter() - t0)
+    (o1, r1, k1), s1 = runs["cuda"]
+    (o2, r2, k2), s2 = runs["cpu"]
+    fin = np.isfinite(r1)
+    if not (np.array_equal(o1, o2) and np.array_equal(fin, np.isfinite(r2))
+            and np.allclose(r1[fin], r2[fin], rtol=2.0 ** -23, atol=0)
+            and np.array_equal(np.isfinite(k1), np.isfinite(k2))):
+        raise AssertionError("examples optics: cuda and cpu runs differ")
+    emit("examples", example="torch_optics", n=len(blobs), eps=1.0,
+         min_samples=10, reachable=int(fin.sum()),
+         reach_max_rel_diff=float(np.max(np.abs(r1[fin] - r2[fin])
+                                         / r2[fin], initial=0.0)),
+         ordering_equal=True, cuda_s=s1, cpu_s=s2)
+
+    pts = hdb.demo_points()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        core = hdb.core_distances(pts, 5, device=dev)
+        w = np.sort([e[2] for e in hdb.mst_edges(pts, 5, device=dev)])
+        labels, _ = hdb.hdbscan_labels(pts, min_cluster_size=10, device=dev)
+        runs[dev] = (core, w, labels, time.perf_counter() - t0)
+    (cd1, w1, lb1, s1), (cd2, w2, lb2, s2) = runs["cuda"], runs["cpu"]
+    tol = 2.0 ** -23
+    if not (np.allclose(cd1, cd2, rtol=tol, atol=0)
+            and np.allclose(w1, w2, rtol=tol, atol=0)
+            and np.array_equal(lb1, lb2)):
+        raise AssertionError("examples hdbscan_core: cuda and cpu differ")
+    emit("examples", example="torch_hdbscan_core", n=len(pts), k=5,
+         mst_weight=float(w1.sum()), clusters=int(lb1.max()) + 1,
+         core_max_rel_diff=float(np.max(np.abs(cd1 - cd2) / cd2)),
+         weight_max_rel_diff=float(np.max(np.abs(w1 - w2) / w2)),
+         cuda_s=s1, cpu_s=s2)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2974,7 +3506,7 @@ def main() -> int:
 
     bf.knn_fold = counted_fold
     pdev = torch.from_numpy(points).cuda()
-    launches, fold_by_path = {}, {}
+    launches, fold_by_path, flat_qps = {}, {}, {}
     for phase, ks, qs, reps, need in (
             ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap")),
             ("main_large_k", LARGE_K, qdev[:N_Q_LARGE], 2,
@@ -3000,6 +3532,7 @@ def main() -> int:
                 if scheme == "merge":
                     radix.append(list(kk.knn_merge.last_passes))
             out[k] = (d, i, min(walls))
+            flat_qps[k] = qs.shape[0] / min(walls)
             radix_passes[k] = radix
             per_k[k] = {s: w.launches - before[s]
                         for s, w in wrappers.items()}
@@ -3020,6 +3553,8 @@ def main() -> int:
         _, oi = f64_oracle(pdev, qs, max(ks))
         if phase == "main":
             main_oracle, main_d100 = oi, out[100][0]
+        else:
+            large_oracle = oi
         for k, scheme in ks.items():
             d, i, wall = out[k]
             if d.shape != (qs.shape[0], k) or not bool(torch.isfinite(d).all()):
@@ -3069,9 +3604,24 @@ def main() -> int:
                                   wrappers, fold_rows).items():
         if s in ("fold_lazy", "subchunk_minima", "bcap_minima"):
             launches[s] = c
-    phase_radius_flat(index, pdev, qdev, main_d100)
+    flat_radius = phase_radius_flat(index, pdev, qdev, main_d100)
     vp_sift = phase_vp_sift(pt, points, qdev, main_oracle, wrappers,
                             fold_rows)
+
+    # ---- the adapters and the utilities --------------------------------
+    phase_serialize(pt, "brute", index,
+                    lambda ix: ix.query_batch(qdev, SERVE_K))
+    adapters = {"knn_route": phase_knn_route(
+        index, pdev, qdev, {10: main_oracle, 100: main_oracle,
+                            2000: large_oracle}, flat_qps, wrappers,
+        fold_rows)}
+    del large_oracle
+    adapters["sklearn"] = phase_sklearn(pt, index, points, queries, qdev,
+                                        flat_radius, wrappers)
+    serving = phase_serving(pt, index, queries, qdev, wrappers)
+    adapters["serving"] = {s: sum(got.get(s, 0) for got in serving.values())
+                           for s in wrappers}
+    phase_profiling(index, qdev)
 
     del index, pdev, qdev
     torch.cuda.empty_cache()
@@ -3081,18 +3631,29 @@ def main() -> int:
 
     config1_queries = phase_ball_knn(pt)
     phase_ball_radius(pt)
-    phase_ball_device_build(pt, config1_queries)
+    tree_1m = phase_ball_device_build(pt, config1_queries)
+    q1_dev = torch.from_numpy(config1_queries).cuda()
+    phase_serialize(pt, "ball", tree_1m,
+                    lambda ix: ix.query_batch(q1_dev, BALL_K))
+    del tree_1m
     phase_ball_highdim(pt)
     vp_config2 = phase_vp_knn(pt, wrappers, fold_rows)
     if not (vp_config2["launches"].get("fold")
             or vp_sift["launches"].get("fold")):
         raise AssertionError("the VP kernel route repaired no query: fold "
                              "did not run on its path")
+    phase_serialize(pt, "vantage", vp_config2["tree"],
+                    lambda ix: ix.query_batch(vp_config2["queries"], VP_K))
     phase_vp_radius(pt)
     phase_vp_device_build(pt, config1_queries)
     phase_dynamic(pt)
+    dyn64, dyn64_q = phase_dynamic_d64(pt)
+    phase_serialize(pt, "dynamic", dyn64,
+                    lambda ix: ix.query_batch(dyn64_q, DYN64_K))
+    del dyn64
     mst = phase_hdbscan(pt, wrappers, fold_rows)
     joins = phase_dual_join(pt, wrappers)
+    phase_examples(pt)
 
     kernels = []
     for scheme, k_req in MAIN_ROW.items():
@@ -3160,6 +3721,11 @@ def main() -> int:
                 "dual_join_kernel": joins["_join_via_kernel"][
                     "launches"].get(scheme, 0)}
             kernels[-1]["mst"] = mst["held"][scheme]
+        # the adapters' paths: bf.knn's kernel route on the
+        # uncentred SIFT points, NearestNeighbors and QueryStream
+        if scheme in ("bcap", "capped", "fold", "merge"):
+            kernels[-1]["adapter_launches"] = {
+                name: got.get(scheme, 0) for name, got in adapters.items()}
         if scheme == "capped":
             kernels[-1]["gist"] = {key: capped_gist[key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -3178,6 +3744,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "route_rows_ms": row.get("route_ms"),
+            "adapter_launches": {name: got.get(kind, 0)
+                                 for name, got in adapters.items()},
             "shape": {"rows": row["rows"], "width": row["width"]}})
     for name in ("subchunk_minima", "bcap_minima"):
         row = rows[name, None]

@@ -9,7 +9,10 @@ tree, ``VantagePointTree`` (its builders, its k-NN on the kernel route and
 the subtree scans, its radius search), the mutable ``DynamicIndex``,
 ``pairwise``, the dual-tree join ``dual_tree_knn`` (``BallTree.query_tree``),
 the mutual-reachability MST (``boruvka_mst``, ``mutual_reachability_mst``)
-and ``hdbscan`` (the ``cluster`` module's host stages on top of the MST).
+and ``hdbscan`` (the ``cluster`` module's host stages on top of the MST),
+with the adapters: the scikit-learn-shaped ``NearestNeighbors``,
+``save_index`` / ``load_index`` (the JAX package's ``.npz`` format, either
+way), the micro-batching ``QueryStream`` and ``utils.profiling``.
 On the card the index runs
 hand-written kernels: Euclidean and Cosine through the fold, capped, bcap
 and merge kernels (``ops/cuda/csrc/knn_fold.cu``) with the row sorts
@@ -32,12 +35,16 @@ from .convert import (balltree_from_jax_arrays, bruteforce_from_jax_arrays,
 from .distance import (Chebyshev, Cosine, Euclidean, Haversine, Manhattan,
                        Metric, Minkowski, SqEuclidean, get_metric, pairwise)
 from .errors import ArrayError, EmptyArrayError, NotContiguousError
+from .sklearn import NearestNeighbors
 from .trees import (BallTree, BruteForce, DynamicIndex, VantagePointTree,
                     boruvka_mst, dual_tree_knn, mutual_reachability_mst)
+from .utils.serialize import load_index, save_index
+from .utils.serving import AsyncResult, QueryStream
 
 __all__ = ["BallTree", "BruteForce", "VantagePointTree", "DynamicIndex",
            "dual_tree_knn", "boruvka_mst", "mutual_reachability_mst",
-           "cluster", "hdbscan",
+           "cluster", "hdbscan", "NearestNeighbors", "save_index",
+           "load_index", "QueryStream", "AsyncResult",
            "Euclidean", "SqEuclidean", "Cosine", "Minkowski",
            "Manhattan", "Chebyshev", "Haversine", "Metric", "get_metric",
            "pairwise", "ArrayError", "EmptyArrayError", "NotContiguousError",

@@ -17,9 +17,12 @@ the exact flat index needs:
   fallback) and bcap2 (block minima, the bcap proof and repair);
 * the Lp route ``lp_knn_prepadded`` (``:1024-1048``): the Lp kernel's
   direct power sums are final, converted by the metric;
-* the streamed scan ``knn`` / ``_knn_impl``: the JAX package's XLA path,
-  which serves f64 indexes, SqEuclidean, Haversine, low dimensions and k
-  beyond the kernels;
+* ``knn`` with the JAX signature: it centres high-dim Euclidean input
+  unless told it is centred, and takes the kernel route (``backend=
+  "pallas"``, or "auto" on the card) or the streamed scan ``_knn_impl``
+  (``backend="xla"``: the JAX package's XLA path, which serves f64
+  indexes, SqEuclidean, Haversine, low dimensions and k beyond the
+  kernels);
 * the radius family (``ops/bruteforce.py:1163-1548``): ``radius_mask``
   (the direct form, or for f32 Euclidean at d > 32 and n >= 4096 the
   matmul form with a rescored boundary band), ``radius_counts``,
@@ -656,15 +659,33 @@ def _pick_chunk(n: int, q: int, dim: int, chunk: int | None,
 
 
 def knn(points, queries, k: int, metric: Metric | None = None,
-        *, chunk: int | None = None, point_norms=None, invalid=None):
-    """Exact k nearest neighbors by the streamed scan (the JAX package's
-    XLA path, ``ops/bruteforce.py:144-200``).
+        *, chunk: int | None = None, point_norms=None,
+        rescore: bool = True, backend: str = "auto",
+        assume_centered: bool = False, invalid=None):
+    """Exact k nearest neighbors of ``queries`` (Q, d) among ``points``
+    (n, d) (``ops/bruteforce.py:144-200``): (distances, ids int32), each
+    (Q, min(k, n)), ascending.
 
-    The caller centers high-dim Euclidean data (``center_of``) and passes
-    the matching ``point_norms`` or none (other metrics ignore them).
-    ``invalid`` (n,) bool marks rows that must never match (an index's
-    zeroed NaN rows).
+    ``backend``: "xla" names the streamed scan (the JAX package's XLA
+    path), "pallas" the hand-written CUDA route (``pad_for_pallas``, then
+    ``knn_prepadded`` with ``pick_scheme(k, n, bcap_planes=False)``), and
+    "auto" takes that route for float32 Euclidean CUDA tensors at d > 32,
+    n >= 4096 and k <= ``PALLAS_K_MAX``, the scan otherwise.  A forced
+    "pallas" outside float32 Euclidean and k <= ``PALLAS_K_MAX`` raises
+    ``ValueError``; on CPU tensors it runs the kernels' plain versions.
+    Nothing falls back from the kernels to the scan.
+
+    ``assume_centered``: set by callers that pass centred data (an index's
+    ``center_of`` copy, with its ``point_norms``); otherwise high-dim
+    Euclidean input is centred here and ``point_norms`` dropped, since the
+    matmul form cancels catastrophically off the origin.  ``rescore``
+    re-scores the scan's top (k + slack) high-dim Euclidean candidates in
+    the direct form.  ``invalid`` (n,) bool marks rows that must never
+    match (an index's zeroed NaN rows): only the scan honours it, so it
+    keeps the call there whatever the backend, as in the JAX package.
     """
+    if backend not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}")
     metric = metric or Euclidean()
     n = points.shape[0]
     k_eff = min(int(k), n)
@@ -674,28 +695,62 @@ def knn(points, queries, k: int, metric: Metric | None = None,
                 torch.zeros((queries.shape[0], 0), dtype=torch.int32,
                             device=points.device))
     dim = points.shape[1]
+    if (not assume_centered and isinstance(metric, Euclidean)
+            and dim > DIRECT_DIM_MAX):
+        mu = center_of(points)
+        points = points - mu
+        queries = queries - mu
+        point_norms = None      # the uncentred data's norms are wrong here
+    if (backend != "xla" and invalid is None
+            and _kernel_eligible(points, queries, k_eff, metric,
+                                 backend == "pallas")):
+        pp, pn = pad_for_pallas(points, point_norms)
+        return knn_prepadded(pp, pn, queries, k_eff, n,
+                             scheme=pick_scheme(k_eff, n, bcap_planes=False))
     direct = dim <= DIRECT_DIM_MAX or not isinstance(metric,
                                                      (Euclidean, Cosine))
     c = _pick_chunk(n, queries.shape[0], dim, chunk, direct)
-    return _knn_impl(points, queries, point_norms, invalid, k_eff, metric, c)
+    return _knn_impl(points, queries, point_norms, invalid, k_eff, metric, c,
+                     rescore)
+
+
+def _kernel_eligible(points, queries, k_eff: int, metric: Metric,
+                     force: bool) -> bool:
+    """Whether ``knn`` takes the kernel route (``_pallas_eligible``,
+    ops/bruteforce.py:202-220, with a CUDA tensor in place of its
+    availability test).  The exact-type test: ``knn_prepadded`` converts
+    with a plain sqrt, wrong for subclasses such as SqEuclidean."""
+    hard = (type(metric) is Euclidean
+            and points.dtype == torch.float32
+            and queries.dtype == torch.float32
+            and k_eff <= PALLAS_K_MAX)
+    if force:
+        if not hard:
+            raise ValueError(
+                "backend='pallas' requires Euclidean metric, f32 data and "
+                f"k <= {PALLAS_K_MAX}")
+        return True
+    return (hard and points.shape[1] > DIRECT_DIM_MAX
+            and points.shape[0] >= 4096 and points.is_cuda)
 
 
 def _knn_impl(points, queries, point_norms, invalid, k: int,
-              metric: Metric, chunk: int):
+              metric: Metric, chunk: int, rescore: bool = True):
     """Exact k nearest neighbors of ``queries`` (Q, d) among ``points``
     (n, d), streamed over point chunks (``ops/bruteforce.py:1064-1160``).
 
     Returns ``(distances, indices)`` with shape (Q, k), sorted ascending;
     the caller guarantees ``1 <= k <= n``.  NaN distances sort as +inf.
 
-    For high-dim Euclidean the streaming pass uses the matmul form; the
-    final top-(k + slack) candidates are re-scored with the direct (q-x)^2
-    form and re-ranked.
+    For high-dim Euclidean the streaming pass uses the matmul form; with
+    ``rescore`` the final top-(k + slack) candidates are re-scored with the
+    direct (q-x)^2 form and re-ranked.
     """
     n, dim = points.shape
     q = queries.shape[0]
     dev = points.device
-    do_rescore = isinstance(metric, Euclidean) and dim > DIRECT_DIM_MAX
+    do_rescore = (rescore and isinstance(metric, Euclidean)
+                  and dim > DIRECT_DIM_MAX)
     k_scan = min(k + RESCORE_SLACK, n) if do_rescore else k
 
     use_norms = isinstance(metric, Euclidean)

@@ -19,7 +19,7 @@ not the reference's 1-2), and a choice of builders.
 
 ``device=None`` means ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` to run on the CPU.  ``query_tree`` is the dual-tree join
-(``trees/dual.py``).  Not carried yet: ``save`` (the serialize slice).
+(``trees/dual.py``); ``save`` writes the ``utils.serialize`` format.
 """
 
 from __future__ import annotations
@@ -213,8 +213,9 @@ class BallTree:
         return self
 
     def save(self, path) -> None:
-        raise NotImplementedError(
-            "saving an index comes with the port's serialize slice")
+        """Checkpoint the index to an ``.npz`` (``utils.serialize``)."""
+        from ..utils.serialize import save_index
+        save_index(self, path)
 
     def _dtype(self) -> torch.dtype:
         return self.points.dtype

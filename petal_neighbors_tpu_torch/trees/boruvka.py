@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from ..distance import DIRECT_DIM_MAX, Euclidean
+from ..distance import Euclidean
 from ..ops import bruteforce as bf
 from ..ops.cuda.mst_kernel import _rd_unrolled, scan_minout
 from ..utils.tree_math import TreeShape
@@ -320,10 +320,9 @@ def _core_distances(pts, *, k: int, qblock: int = 131072):
         return _join_via_kernel(pts, pts, k, qblock)[0][:, -1]
     if k <= 32:
         return _core_scan(pts, k=k)
-    # large k: the streamed scan, on centred data above the direct form's
-    # dims, as the JAX package's knn centres
-    base = pts - bf.center_of(pts) if pts.shape[1] > DIRECT_DIM_MAX else pts
-    return torch.cat([bf.knn(base, base[s:s + qblock], k)[0][:, -1]
+    # large k: the streamed scan (which centres high-dim input itself)
+    return torch.cat([bf.knn(pts, pts[s:s + qblock], k,
+                             backend="xla")[0][:, -1]
                       for s in range(0, n, qblock)]).to(pts.dtype)
 
 

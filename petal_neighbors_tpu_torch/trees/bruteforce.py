@@ -173,6 +173,12 @@ class BruteForce:
         self._qpoints = None
         return self
 
+    def save(self, path) -> None:
+        """Checkpoint the index to an ``.npz`` (``utils.serialize``): its
+        points and metric; a load prepares the layout again."""
+        from ..utils.serialize import save_index
+        save_index(self, path)
+
     @property
     def num_points(self) -> int:
         return self.points.shape[0]
@@ -244,7 +250,8 @@ class BruteForce:
             return d, i
         pts, norms = self._scan_points()
         d, i = bf.knn(pts, self._q(qs), k, self.metric, chunk=chunk,
-                      point_norms=norms, invalid=self._invalid)
+                      point_norms=norms, assume_centered=True, backend="xla",
+                      invalid=self._invalid)
         self.last_backend, self.last_scheme = "scan", None
         return d, i
 

@@ -21,8 +21,8 @@ padding also sets the over-fetch widths, which decide the ids kept at
 ties and when a radius count signals overflow, so the port keeps it.
 
 ``device=None`` means ``"cuda"`` and raises without a card; pass
-``device="cpu"`` to run on the CPU.  Not carried yet: ``save`` (the
-serialize slice).
+``device="cpu"`` to run on the CPU.  ``save`` checkpoints the base tree
+and the pending mutations (``utils.serialize``).
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def _fused_knn(points_perm, perm_norms, orig_ids, leaf_c, leaf_r, center,
                                 metric=metric)
     i = torch.where(i >= 0, base_map[i.clamp_min(0).long()], -1)
     if kd:
-        dd, di = bf.knn(delta_rows, qs, kd, metric)
+        dd, di = bf.knn(delta_rows, qs, kd, metric, backend="xla")
         di = torch.where(di >= 0, delta_map[di.clamp_min(0).long()], -1)
         d = torch.cat([d, dd], dim=1)
         i = torch.cat([i, di], dim=1)
@@ -160,8 +160,9 @@ class DynamicIndex:
         return self
 
     def save(self, path) -> None:
-        raise NotImplementedError(
-            "saving an index comes with the port's serialize slice")
+        """Checkpoint the index to an ``.npz`` (``utils.serialize``)."""
+        from ..utils.serialize import save_index
+        save_index(self, path)
 
     # ------------------------------------------------------------------
     @property

@@ -36,7 +36,7 @@ test read every ``RADIUS_CHECK_EVERY`` steps.
 ``device=None`` means ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` to run on the CPU, where a forced kernel route runs the
 kernels' plain PyTorch versions.  Unlike the JAX package, a kernel failure
-raises under "auto" too.  Not carried yet: ``save`` (the serialize slice).
+raises under "auto" too.
 """
 
 from __future__ import annotations
@@ -626,8 +626,9 @@ class VantagePointTree:
         return self
 
     def save(self, path) -> None:
-        raise NotImplementedError(
-            "saving an index comes with the port's serialize slice")
+        """Checkpoint the index to an ``.npz`` (``utils.serialize``)."""
+        from ..utils.serialize import save_index
+        save_index(self, path)
 
     @property
     def n(self) -> int:
@@ -651,16 +652,21 @@ class VantagePointTree:
         stays cheap."""
         if self._flat is None:
             target = int(min(max(self.n // 256, 64), 2048))
-            flat = _flatten_for_query(
+            self._set_flat(_flatten_for_query(
                 self.nodes["vantage_point"], self.nodes["radius"],
                 self.nodes["near"], self.nodes["far"], self.root,
-                target=target)
-            trunk, members, anc_t, anc_near, anc_rho = (
-                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in flat)
-            self._flat = (trunk.long(), members.long(), anc_t.long(),
-                          anc_near, anc_rho.to(self.points.dtype))
+                target=target))
         return self._flat
+
+    def _set_flat(self, flat) -> None:
+        """Keep the five flat tables (trunk points, members, ancestor
+        slots, sides and radii, as NumPy) on the device: the index tables
+        as int64, the radii in the points' dtype."""
+        trunk, members, anc_t, anc_near, anc_rho = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in flat)
+        self._flat = (trunk.long(), members.long(), anc_t.long(),
+                      anc_near.bool(), anc_rho.to(self.points.dtype))
 
     def _kernel_tables(self):
         """The kernel route's index tables, made on its first query: the

@@ -1,6 +1,6 @@
 """The port stands alone: no module of petal_neighbors_tpu_torch, nor
-chip_smoke.py, fold_profile.py or kernel_ab.py, imports jax or the JAX
-package."""
+chip_smoke.py, fold_profile.py, kernel_ab.py or the port's examples
+(examples/torch_*.py), imports jax or the JAX package."""
 
 import ast
 import os
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "petal_neighbors_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "fold_profile.py", ROOT / "kernel_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "fold_profile.py", ROOT / "kernel_ab.py"
+] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "petal_neighbors_tpu")
 
 
@@ -48,7 +49,9 @@ def test_port_files_found():
             "ball_build.py", "ball_build_device.py", "_auto.py",
             "tree_math.py", "vantage.py", "vantage_build_device.py",
             "dynamic.py", "dual.py", "boruvka.py", "cluster.py",
-            "mst_kernel.py"} <= names
+            "mst_kernel.py", "sklearn.py", "serialize.py", "serving.py",
+            "profiling.py", "torch_dbscan.py", "torch_optics.py",
+            "torch_hdbscan_core.py"} <= names
     port = ROOT / "petal_neighbors_tpu_torch"
     assert port / "native" / "__init__.py" in PORT_FILES
     assert (port / "native" / "src" / "petal_native.cpp").is_file()
@@ -78,7 +81,17 @@ def test_import_leaves_jax_unloaded():
             "petal_neighbors_tpu_torch.trees.boruvka, "
             "petal_neighbors_tpu_torch.cluster, "
             "petal_neighbors_tpu_torch.ops.cuda.mst_kernel, "
-            "petal_neighbors_tpu_torch.utils.tree_math; "
+            "petal_neighbors_tpu_torch.utils.tree_math, "
+            "petal_neighbors_tpu_torch.sklearn, "
+            "petal_neighbors_tpu_torch.utils.serialize, "
+            "petal_neighbors_tpu_torch.utils.serving, "
+            "petal_neighbors_tpu_torch.utils.profiling; "
+            "sys.path.insert(0, 'examples'); "
+            "import torch_dbscan, torch_optics, torch_hdbscan_core; "
+            "torch_dbscan.dbscan(torch_optics.demo_points()[:300], 0.3, 5, "
+            "device='cpu'); "
+            "torch_hdbscan_core.mst_edges(torch_hdbscan_core.demo_points()"
+            "[:100], 3, device='cpu'); "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m.split('.')[0] == 'petal_neighbors_tpu' "
             "for m in sys.modules), 'JAX package loaded'")

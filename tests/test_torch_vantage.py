@@ -221,7 +221,7 @@ def test_device_build_sorts_nan_last(dtype):
     assert np.isnan(tb[1][tb[4]])
 
 
-def test_auto_builder_and_errors():
+def test_auto_builder_and_errors(tmp_path):
     pts = np.random.default_rng(4).normal(size=(50, 3))
     tt = tpn.VantagePointTree(pts, device="cpu")
     assert tt.builder == "host"             # a CPU index never builds on it
@@ -237,8 +237,10 @@ def test_auto_builder_and_errors():
         tpn.VantagePointTree(pts, builder="nope", device="cpu")
     with pytest.raises(ValueError):
         tpn.VantagePointTree(pts, tpn.Haversine(), device="cpu")
-    with pytest.raises(NotImplementedError, match="serialize"):
-        tt.save("x.npz")
+    tt.save(tmp_path / "x.npz")                     # the serialize slice
+    back = tpn.load_index(tmp_path / "x.npz", device="cpu")
+    np.testing.assert_array_equal(back.nodes["vantage_point"],
+                                  tt.nodes["vantage_point"])
     with pytest.raises(ValueError, match="scheme"):
         tt.query_batch(pts, 2, scheme="nope")
     with pytest.raises(ValueError, match="kernel"):
