@@ -238,6 +238,28 @@ Phases, each printed as one JSON line on stdout:
               device="cpu": the same core mask and partition of core
               points; the same ordering and reachability within f32; the
               same MST weights within f32 and the same labels.
+   parallel — the sharded search (``petal_neighbors_tpu_torch.parallel``)
+              at world size 1 on NCCL, through ``default_mesh()``:
+              knn_query_sharded, knn_points_sharded and knn_ring (a 1 x 1
+              mesh) on the SIFT points and all 10,240 queries at k=10 and
+              100 (capped, fold repairs), knn_query_sharded on 2,048 at
+              k=2000 and 3000 (merge, the bitonic and the rank sort), every
+              distance equal to ``bf.knn``'s on the same inputs bit for
+              bit, ids against the main phases' f64 oracles;
+              knn_feature_sharded on 1,024 queries at k=10 against an f64
+              oracle (distances within DIM * 2^-24 relative);
+              tree_query_sharded on config 1's tree (k=2) equal to
+              ``query_batch(scheme="per_query")``; both radius forms on
+              1,024 queries at radius_flat's r, counts and cap 512, equal
+              to ``radius_counts_streaming`` and ``radius_capped``;
+              mutual_reachability_mst_sharded on hdbscan's 1M x 8 points,
+              its sorted weights equal to the single-device MST's and its
+              sum within 1e-6 of 186891.1277.  Each call's seconds, the
+              launches of all of them (fold, capped, merge, both row sorts
+              and mst_scan must run), beside the nvidia-smi line; then
+              ``dryrun_multichip(4, device="cpu")`` (gloo: several ranks
+              cannot share one card under NCCL), and on NCCL over every
+              card where there are two or more.
 9. kernels  — one JSON line: every kernel with its launches on its main
               path, error against its plain version, its time, the plain
               version's time, its bound and a PyTorch yardstick (fold: at
@@ -258,7 +280,9 @@ Phases, each printed as one JSON line on stdout:
               plain version and the cdist yardstick at the reduced shape.
               fold, capped, bcap, merge and the row sorts also carry
               adapter_launches: their launches in knn_route, sklearn and
-              serving.
+              serving;
+              every row carries parallel_launches, its launches in phase
+              parallel.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA card is present or any
@@ -2878,7 +2902,8 @@ def phase_hdbscan(pt, wrappers, fold_rows) -> dict:
          held=held,
          seconds=time.perf_counter() - t_phase)
     return {"scan": scan_row, "launches": launches,
-            "core_launches": rec["core_launches"], "held": held}
+            "core_launches": rec["core_launches"], "held": held,
+            "weights": ws}
 
 
 def phase_dual_join(pt, wrappers) -> dict:
@@ -3430,6 +3455,171 @@ def phase_examples(pt) -> None:
          cuda_s=s1, cpu_s=s2)
 
 
+#: phase parallel: the k of the sharded k-NN on all SIFT queries and on
+#: the large-k batch; the feature-sharded and radius queries; the cap
+PAR_K, PAR_LARGE_K = (10, 100), (2000, 3000)
+PAR_FEATURE_Q, PAR_RADIUS_Q, PAR_CAP = 1024, 1024, 512
+#: feature sharding's distances against f64: the direct form's relative
+#: bound on a sum of DIM f32 squares (the square root halves it)
+FEATURE_RTOL = DIM * 2.0 ** -24
+#: the kernels the phase's sharded calls must launch
+PAR_KERNELS = ("fold", "capped", "merge", "bitonic_sort", "rank_sort",
+               "mst_scan")
+#: ranks of the multi-rank dryrun on the CPU (gloo)
+PAR_CPU_RANKS = 4
+
+
+def phase_parallel(pt, points, queries, oracles, r, mst_weights, wrappers,
+                   smi) -> dict:
+    """The sharded entry points at world size 1 on NCCL, through
+    ``default_mesh()``: each call timed, the launches of all of them read
+    after the last; then each output against the single-device call on
+    the same inputs (distances bit for bit, ids against the f64 oracles),
+    and the multi-rank dryrun on the CPU (gloo), with one on NCCL over
+    every card where there are two or more."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from petal_neighbors_tpu_torch import parallel
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    mesh1 = parallel.default_mesh()
+    mesh2 = parallel.default_mesh(axis_names=("q", "p"))
+    pdev = torch.from_numpy(points).cuda()
+    qdev = torch.from_numpy(queries).cuda()
+    qlarge, qfeat, qrad = (qdev[:N_Q_LARGE], qdev[:PAR_FEATURE_Q],
+                           qdev[:PAR_RADIUS_Q])
+    rng = np.random.default_rng(BALL_SEED)
+    tree = pt.BallTree.euclidean(rng.normal(size=(BALL_N, 2)).astype(
+        np.float32))
+    tq = torch.from_numpy(rng.normal(size=(BALL_Q, 2)).astype(
+        np.float32)).cuda()
+    mst_pts = np.random.default_rng(MST_SEED).random((MST_N, MST_D),
+                                                     dtype=np.float32)
+    torch.cuda.synchronize()
+
+    outs, secs = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    zero_launches(wrappers)
+    for k in PAR_K:
+        run(f"knn_query_sharded k={k}", lambda: parallel.knn_query_sharded(
+            pdev, qdev, k, mesh=mesh1))
+        run(f"knn_points_sharded k={k}", lambda: parallel.knn_points_sharded(
+            pdev, qdev, k, mesh=mesh1))
+        run(f"knn_ring k={k}", lambda: parallel.knn_ring(pdev, qdev, k,
+                                                          mesh=mesh2))
+    for k in PAR_LARGE_K:
+        run(f"knn_query_sharded k={k}", lambda: parallel.knn_query_sharded(
+            pdev, qlarge, k, mesh=mesh1))
+    run("knn_feature_sharded k=10", lambda: parallel.knn_feature_sharded(
+        pdev, qfeat, 10, mesh=mesh1))
+    run(f"tree_query_sharded k={BALL_K}", lambda: parallel.tree_query_sharded(
+        tree, tq, BALL_K, mesh=mesh1))
+    for form in ("query", "points"):
+        fn = getattr(parallel, f"radius_{form}_sharded")
+        run(f"radius_{form}_sharded counts", lambda: fn(pdev, qrad, r,
+                                                        mesh=mesh1))
+        run(f"radius_{form}_sharded cap={PAR_CAP}", lambda: fn(
+            pdev, qrad, r, mesh=mesh1, cap=PAR_CAP))
+    run("mutual_reachability_mst_sharded", lambda:
+        parallel.mutual_reachability_mst_sharded(mst_pts, MST_K, mesh=mesh1))
+    launches = read_launches(wrappers)
+    for need in PAR_KERNELS:
+        if not launches.get(need):
+            raise AssertionError(f"parallel: the sharded calls launched no "
+                                 f"{need} kernel")
+
+    # ---- each output against the single-device call ----
+    checks = {}
+    mu, pp, _, _ = bf.prepare_euclidean_index(pdev)
+    centred = SimpleNamespace(_center=mu, _pts=pp)
+    for name, (d, i) in ((n, o) for n, o in outs.items()
+                         if n.startswith("knn_") and "feature" not in n):
+        k = int(name.rsplit("=", 1)[1])
+        qs = qdev if k in PAR_K else qlarge
+        t0 = time.perf_counter()
+        want_d, want_i = bf.knn(pdev, qs, k)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        if not (d.shape == want_d.shape and same_bits(d, want_d)):
+            raise AssertionError(f"parallel {name}: distances differ from "
+                                 "bf.knn's")
+        recall, swaps, _ = check_vs_oracle(centred, pdev, qs, i,
+                                           oracles[k][:, :k])
+        checks[name] = {"distances_equal_bf_knn": True,
+                        "ids_equal_bf_knn": bool(torch.equal(i, want_i)),
+                        "recall": recall, "boundary_swaps": swaps,
+                        "single_device_s": single_s}
+    d, i = outs["knn_feature_sharded k=10"]
+    od, oi = f64_oracle(pdev, qfeat, 10)
+    rel = float(((d.double() - od).abs() / od.clamp_min(1e-30)).max())
+    if rel > FEATURE_RTOL:
+        raise AssertionError(f"parallel feature: distances {rel} from f64")
+    recall, swaps, _ = check_vs_oracle(centred, pdev, qfeat, i, oi)
+    checks["knn_feature_sharded k=10"] = {
+        "max_rel_err_vs_f64": rel, "recall": recall, "boundary_swaps": swaps}
+    del mu, pp, centred
+    d, i = outs[f"tree_query_sharded k={BALL_K}"]
+    want_d, want_i = tree.query_batch(tq, BALL_K, scheme="per_query")
+    if not (same_bits(d, want_d) and torch.equal(i, want_i)):
+        raise AssertionError("parallel tree: differs from query_batch")
+    checks[f"tree_query_sharded k={BALL_K}"] = {"equal_per_query": True}
+    counts = bf.radius_counts_streaming(pdev, qrad, r)
+    ids, cnt = bf.radius_capped(pdev, qrad, r, cap=PAR_CAP)
+    for form in ("query", "points"):
+        got_ids, got_cnt = outs[f"radius_{form}_sharded cap={PAR_CAP}"]
+        if not (torch.equal(outs[f"radius_{form}_sharded counts"], counts)
+                and torch.equal(got_cnt, cnt) and torch.equal(got_ids, ids)):
+            raise AssertionError(f"parallel radius_{form}_sharded differs "
+                                 "from the single-device forms")
+        checks[f"radius_{form}_sharded"] = {
+            "equal_single_device": True,
+            "members_per_query": float(counts.double().mean())}
+    us, vs, ws = outs["mutual_reachability_mst_sharded"]
+    weight_sum = float(ws.sum())
+    if not (spanning(us, vs, MST_N)
+            and np.array_equal(np.sort(ws), np.sort(mst_weights))
+            and abs(weight_sum - MST_WEIGHT_SUM) / MST_WEIGHT_SUM
+            <= MST_SUM_RTOL):
+        raise AssertionError("parallel MST differs from the single-device "
+                             f"MST (weight sum {weight_sum})")
+    checks["mutual_reachability_mst_sharded"] = {
+        "weights_equal_single_device": True, "weight_sum": weight_sum}
+    world = {"backend": dist.get_backend(), "world_size":
+             dist.get_world_size(), "mesh1": list(mesh1.shape),
+             "mesh2": list(mesh2.shape)}
+    dist.destroy_process_group()
+    del pdev, qdev, qlarge, qfeat, qrad, tree, tq, outs
+    torch.cuda.empty_cache()
+    emit("parallel", nvidia_smi=smi, **world, seconds_per_call=secs,
+         checks=checks, launches=launches)
+
+    # ---- the multi-rank stage ----
+    print(f"parallel: dryrun_multichip({PAR_CPU_RANKS}) runs on the CPU "
+          "(gloo), whatever the card", flush=True)
+    stages = [(PAR_CPU_RANKS, "cpu")]
+    if torch.cuda.device_count() >= 2:
+        stages.append((torch.cuda.device_count(), None))
+    for n, device in stages:
+        t0 = time.perf_counter()
+        dryrun.dryrun_multichip(n, device=device)
+        emit("parallel", stage="dryrun_multichip", ranks=n,
+             backend="gloo" if device == "cpu" else "nccl",
+             seconds=time.perf_counter() - t0)
+    emit("parallel", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3615,7 +3805,6 @@ def main() -> int:
         index, pdev, qdev, {10: main_oracle, 100: main_oracle,
                             2000: large_oracle}, flat_qps, wrappers,
         fold_rows)}
-    del large_oracle
     adapters["sklearn"] = phase_sklearn(pt, index, points, queries, qdev,
                                         flat_radius, wrappers)
     serving = phase_serving(pt, index, queries, qdev, wrappers)
@@ -3654,6 +3843,10 @@ def main() -> int:
     mst = phase_hdbscan(pt, wrappers, fold_rows)
     joins = phase_dual_join(pt, wrappers)
     phase_examples(pt)
+    par_launches = phase_parallel(
+        pt, points, queries, {10: main_oracle, 100: main_oracle,
+                              2000: large_oracle, 3000: large_oracle},
+        flat_radius[0], mst["weights"], wrappers, smi)
 
     kernels = []
     for scheme, k_req in MAIN_ROW.items():
@@ -3784,6 +3977,10 @@ def main() -> int:
         "reduced": scan["reduced"],
         "instructions_per_pair": scan["instructions_per_pair"],
         "small_cases_bit_equal": mst_cases})
+    for row in kernels:
+        # the sharded entry points' launches (phase parallel)
+        row["parallel_launches"] = par_launches.get(row["name"].removeprefix(
+            "knn_"), 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

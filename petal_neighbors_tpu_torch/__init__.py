@@ -12,7 +12,10 @@ the mutual-reachability MST (``boruvka_mst``, ``mutual_reachability_mst``)
 and ``hdbscan`` (the ``cluster`` module's host stages on top of the MST),
 with the adapters: the scikit-learn-shaped ``NearestNeighbors``,
 ``save_index`` / ``load_index`` (the JAX package's ``.npz`` format, either
-way), the micro-batching ``QueryStream`` and ``utils.profiling``.
+way), the micro-batching ``QueryStream`` and ``utils.profiling``; and
+the sharded search on ``torch.distributed`` in ``parallel`` (not imported
+here, as in the JAX package: ``from petal_neighbors_tpu_torch import
+parallel``).
 On the card the index runs
 hand-written kernels: Euclidean and Cosine through the fold, capped, bcap
 and merge kernels (``ops/cuda/csrc/knn_fold.cu``) with the row sorts

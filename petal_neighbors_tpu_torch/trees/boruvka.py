@@ -286,44 +286,61 @@ def _combine_winners(pt_w, pt_j, comp):
 
 # -- core distances (boruvka.py:404-536) --------------------------------------
 
-def _core_scan(pts, *, k: int, qchunk: int = 4096, nchunk: int = 16384):
-    """(n,) k-th-nearest-neighbour distance, self included (the HDBSCAN
+def _core_scan_block(pts, qs, *, k: int, qchunk: int = 4096,
+                     nchunk: int = 16384):
+    """(nq,) k-th-nearest-neighbour distance of the ``qs`` rows against
+    all of ``pts``, a row of ``pts`` counting itself (the HDBSCAN
     convention), exact, by a dense scan over (qchunk x nchunk) tiles of
     direct-form rd (``_rd_unrolled``) with a running k smallest
-    (boruvka.py:405-445, :517-536: the k-th value of the same multiset)."""
+    (boruvka.py:405-445: the k-th value of the same multiset)."""
     n = pts.shape[0]
     out = []
-    for s in range(0, n, qchunk):
-        qs = pts[s:s + qchunk]
-        best = torch.full((qs.shape[0], k), torch.inf, dtype=pts.dtype,
+    for s in range(0, qs.shape[0], qchunk):
+        q = qs[s:s + qchunk]
+        best = torch.full((q.shape[0], k), torch.inf, dtype=pts.dtype,
                           device=pts.device)
         for base in range(0, n, nchunk):
-            rd = _rd_unrolled(qs, pts[base:base + nchunk])
+            rd = _rd_unrolled(q, pts[base:base + nchunk])
             best = torch.topk(torch.cat([rd, best], dim=1), k, dim=1,
                               largest=False).values
         out.append(torch.amax(best, dim=1))
     return _sqrt_rn(torch.cat(out))
 
 
-def _core_distances(pts, *, k: int, qblock: int = 131072):
-    """Core distances (boruvka.py:490-514): the kernel route for a CUDA f32
-    corpus of at least ``CORE_KNN_MIN_N`` points and k <= PALLAS_K_MAX
+def _core_scan(pts, *, k: int, qchunk: int = 4096, nchunk: int = 16384):
+    """``_core_scan_block`` over the whole corpus (boruvka.py:517-536)."""
+    return _core_scan_block(pts, pts, k=k, qchunk=qchunk, nchunk=nchunk)
+
+
+def _core_distances_block(pts, qs, *, k: int, qblock: int = 131072,
+                          qchunk: int = 4096, nchunk: int = 16384):
+    """Core distances of the ``qs`` rows against the corpus ``pts``
+    (boruvka.py:490-514): the kernel route for a CUDA f32 corpus of at
+    least ``CORE_KNN_MIN_N`` points and k <= PALLAS_K_MAX
     (``dual._join_via_kernel``: ``knn_prepadded`` with no bcap planes, the
-    direct-form rescore and the proof), the dense scan at k <= 32
-    elsewhere, the streamed scan above.  A kernel failure raises (the JAX
-    package falls back to the scan)."""
+    direct-form rescore and the proof), the dense scan
+    (``_core_scan_block``, tiles of ``qchunk`` x ``nchunk``) at k <= 32
+    elsewhere, the streamed scan above.  The rule reads only the corpus
+    and k, so every row block of one corpus takes the same route.  A
+    kernel failure raises (the JAX package falls back to the scan)."""
     n = pts.shape[0]
     if (pts.dtype == torch.float32 and n >= CORE_KNN_MIN_N
             and k <= bf.PALLAS_K_MAX and _kernel_available(pts)):
         # the self-join on the kernel route (boruvka.py:448-487, the JAX
         # _core_knn): capped at 1M points, with the fold repair
-        return _join_via_kernel(pts, pts, k, qblock)[0][:, -1]
+        return _join_via_kernel(qs, pts, k, qblock)[0][:, -1]
     if k <= 32:
-        return _core_scan(pts, k=k)
+        return _core_scan_block(pts, qs, k=k, qchunk=qchunk, nchunk=nchunk)
     # large k: the streamed scan (which centres high-dim input itself)
-    return torch.cat([bf.knn(pts, pts[s:s + qblock], k,
+    return torch.cat([bf.knn(pts, qs[s:s + qblock], k,
                              backend="xla")[0][:, -1]
-                      for s in range(0, n, qblock)]).to(pts.dtype)
+                      for s in range(0, qs.shape[0], qblock)]).to(pts.dtype)
+
+
+def _core_distances(pts, *, k: int, qblock: int = 131072):
+    """Core distances of every point (``_core_distances_block`` over the
+    whole corpus)."""
+    return _core_distances_block(pts, pts, k=k, qblock=qblock)
 
 
 # -- the rounds ---------------------------------------------------------------

@@ -51,7 +51,8 @@ def test_port_files_found():
             "dynamic.py", "dual.py", "boruvka.py", "cluster.py",
             "mst_kernel.py", "sklearn.py", "serialize.py", "serving.py",
             "profiling.py", "torch_dbscan.py", "torch_optics.py",
-            "torch_hdbscan_core.py"} <= names
+            "torch_hdbscan_core.py", "api.py", "_comm.py",
+            "dryrun.py"} <= names
     port = ROOT / "petal_neighbors_tpu_torch"
     assert port / "native" / "__init__.py" in PORT_FILES
     assert (port / "native" / "src" / "petal_native.cpp").is_file()
@@ -85,7 +86,9 @@ def test_import_leaves_jax_unloaded():
             "petal_neighbors_tpu_torch.sklearn, "
             "petal_neighbors_tpu_torch.utils.serialize, "
             "petal_neighbors_tpu_torch.utils.serving, "
-            "petal_neighbors_tpu_torch.utils.profiling; "
+            "petal_neighbors_tpu_torch.utils.profiling, "
+            "petal_neighbors_tpu_torch.parallel, "
+            "petal_neighbors_tpu_torch.parallel.dryrun; "
             "sys.path.insert(0, 'examples'); "
             "import torch_dbscan, torch_optics, torch_hdbscan_core; "
             "torch_dbscan.dbscan(torch_optics.demo_points()[:300], 0.3, 5, "
