@@ -9,15 +9,18 @@ Phases, each printed as one JSON line on stdout:
               petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc; then
               build_ptxas, each kernel's registers, spills and stack frame
               from ``-Xptxas -v`` (knn_fold.cu, knn_select.cu,
-              knn_minima.cu).
+              knn_minima.cu, mst_scan.cu).
    tc_probe — the tensor-core tier's integrity probe (knn_kernel.tc_probe):
               its largest |u - u_f64| over the tier's bound, at most 1.
    mst_kernel_small — the Borůvka scan kernel (csrc/mst_scan.cu)
               against its plain version, bw and bj bit for bit: n ragged
-              against the 64-row tiles (1 to 4,097), d = 2, 3, 8, 17 and
-              40, labels all distinct, three components or one (every row
-              (+inf, -1)), small-integer rows with exact ties and
-              duplicates, +inf cores, query rows of their own, f32 and f64.
+              against the 256-row stages (1 to 4,097), d = 1 to 8 (the
+              direct kernel in f32), 17 and 40, labels all distinct, three
+              components or one (every row (+inf, -1)), small-integer rows
+              with exact ties and duplicates, real rows and rows whose
+              exponents spread over 2^-12 to 2^12 (where the fused f32 step
+              and a separately rounded one differ), +inf cores, query rows
+              of their own, f32 and f64.
 3. kernel   — each kernel (fold, fold_lazy, capped, bcap, merge) against
               its plain PyTorch version on the card, with the same launch
               plan: small
@@ -178,11 +181,18 @@ Phases, each printed as one JSON line on stdout:
               timed, with the cluster count; the scan kernel against its
               plain version bit for bit at 16,384 query rows x 1M (a mid-run
               labelling), timed beside the plain version and a chunked
-              ``torch.cdist`` yardstick; capped and fold held to theirs at
-              the core pass's shape (8,192 of its queries; its largest
-              repair); then the generator's first 10,000 points: the MST's
-              sorted weights and total against a dense f64 Prim on the card
-              (the "dual" engine's too), and ``hdbscan`` end to end.
+              ``torch.cdist`` yardstick, with the scan's share of its
+              bound at both shapes; the pruning levers' size round by
+              round (the share of pairs inside one component, and the
+              share of the reduced shape's rows whose best j under round
+              r's labelling lies in another component under round r + 1's,
+              which keep (bw, bj): two reduced launches a pair of rounds,
+              the kept rows checked unchanged); capped and fold held to
+              theirs at the core pass's shape (8,192 of its queries; its
+              largest repair); then the generator's first 10,000 points:
+              the MST's sorted weights and total against a dense f64 Prim
+              on the card (the "dual" engine's too), and ``hdbscan`` end to
+              end.
    dual_join — ``dual_tree_knn`` on each engine, every query's ids
               against the f64 oracle (check_tree_knn): the tree engine on
               config 1's self-join (k=5; ``query_tree`` equal to it), the
@@ -276,7 +286,7 @@ Phases, each printed as one JSON line on stdout:
               core pass and the join's kernel engine) and mst (held at the
               core pass's shape).  The scan kernel's row (mst_scan): its
               launches (one a round), ms a round at full width, its bound
-              (3d + 7 FP32 instructions a pair at 33.5e12 a second), the
+              (2d + 6 FP32 instructions a pair at 33.5e12 a second), the
               plain version and the cdist yardstick at the reduced shape.
               fold, capped, bcap, merge and the row sorts also carry
               adapter_launches: their launches in knn_route, sklearn and
@@ -2523,27 +2533,43 @@ MST_HOLD_Q = 8192
 #: A-tree against config 1's tree at k > 16
 JOIN_K, JOIN_KERNEL_N, JOIN_KERNEL_D, JOIN_KERNEL_SEED = 5, 300_000, 8, 8
 SWEEP_NA, SWEEP_K, SWEEP_SEED = 20_000, 32, 20
-#: mst_kernel_small: (n, d, labels, integer data, +inf cores, separate
-#: query rows, dtype); n ragged against the 64-row tiles
+#: mst_kernel_small: (n, d, labels, data, +inf cores, separate query
+#: rows, dtype); n ragged against the 256-row stages and 64-query blocks.
+#: data: small integers (exact sums, ties), "real" in [0, 1), or "wide",
+#: exponents spread over 2^-12 to 2^12, where the fused f32 step and a
+#: separately rounded one give other bits.  Float32 at d = 1 to 8 runs the
+#: direct kernel, other d and float64 the tile kernel.
 MST_CASES = (
-    (1, 2, "distinct", False, False, False, "f32"),
-    (63, 3, "few", True, False, False, "f32"),
-    (65, 8, "distinct", True, True, False, "f32"),
-    (1000, 17, "few", False, False, False, "f32"),
-    (4097, 8, "few", True, True, False, "f32"),
-    (3001, 2, "single", False, False, False, "f32"),
-    (2049, 40, "few", False, True, True, "f32"),
-    (777, 3, "distinct", True, False, True, "f32"),
-    (1500, 8, "few", True, True, False, "f64"),
-    (300, 17, "single", False, False, True, "f64"),
+    (1, 2, "distinct", "real", False, False, "f32"),
+    (63, 3, "few", "int", False, False, "f32"),
+    (65, 8, "distinct", "int", True, False, "f32"),
+    (1000, 17, "few", "real", False, False, "f32"),
+    (4097, 8, "few", "int", True, False, "f32"),
+    (3001, 2, "single", "real", False, False, "f32"),
+    (2049, 40, "few", "real", True, True, "f32"),
+    (777, 3, "distinct", "int", False, True, "f32"),
+    (1500, 8, "few", "int", True, False, "f64"),
+    (300, 17, "single", "real", False, True, "f64"),
+    (2500, 2, "few", "wide", False, False, "f32"),
+    (2300, 8, "few", "wide", True, True, "f32"),
+    (600, 8, "distinct", "wide", False, False, "f32"),
+    (1300, 1, "few", "real", False, True, "f32"),
+    (1100, 4, "few", "wide", False, False, "f32"),
+    (700, 5, "few", "real", True, False, "f32"),
+    (900, 6, "distinct", "wide", False, True, "f32"),
+    (513, 7, "few", "real", False, False, "f32"),
+    (640, 8, "few", "wide", False, False, "f64"),
 )
 
 
-def mst_instructions(d: int) -> int:
-    """The scan kernel's instructions a pair, from csrc/mst_scan.cu: a
-    sub, a mul and an add a feature, then two max, the label compare and
-    its select, the compare with the running best and its two updates."""
-    return 3 * d + 7
+def mst_instructions(d: int, dtype: str = "f32") -> int:
+    """The scan's least instructions a pair, from csrc/mst_scan.cu.  In
+    float32 (the direct kernel) a sub and one FFMA a feature (the fused
+    step), then two max, the label compare, the compare with the running
+    best (the label test folded into its predicate) and its two updates:
+    2d + 6.  In float64 (the tile kernel) a sub, a mul and an add a
+    feature, and the label's select besides: 3d + 7."""
+    return 2 * d + 6 if dtype == "f32" else 3 * d + 7
 
 
 def mst_bound_ms(nq: int, n: int, d: int, itemsize: int = 4):
@@ -2555,18 +2581,24 @@ def mst_bound_ms(nq: int, n: int, d: int, itemsize: int = 4):
     return (ops, "operations") if ops >= byts else (byts, "bytes")
 
 
-def mst_case(rng, n, d, labels, integer, inf_core, separate, dtype):
-    """A scan input: rows (small integers give exact ties), duplicated
-    rows, core distances (some +inf), labels (all distinct, three large
-    components, or one), and query rows (the corpus, or rows of their
-    own with labels drawn from the corpus's)."""
+def mst_case(rng, n, d, labels, data, inf_core, separate, dtype):
+    """A scan input: rows (small integers give exact ties; "wide" rows
+    spread their exponents), duplicated rows, core distances (some +inf),
+    labels (all distinct, three large components, or one), and query rows
+    (the corpus, or rows of their own with labels drawn from the
+    corpus's)."""
     def rows(m):
-        return (rng.integers(-3, 4, size=(m, d)) if integer
-                else rng.random((m, d)))
+        if data == "int":
+            return rng.integers(-3, 4, size=(m, d))
+        if data == "wide":
+            return rng.standard_normal((m, d)) * 2.0 ** rng.integers(
+                -12, 13, size=(m, d))
+        return rng.random((m, d))
     pts = rows(n)
     if n > 8:
         pts[n // 2:n // 2 + 3] = pts[1]
-    core = rng.integers(0, 4, size=n) if integer else rng.random(n) * 0.3
+    core = (rng.integers(0, 4, size=n) if data == "int"
+            else rng.random(n) * 0.3)
     core_rd = (core * core).astype(np.float64)
     if inf_core:
         core_rd[::7] = np.inf
@@ -2611,12 +2643,27 @@ def phase_mst_kernel_small() -> int:
             raise AssertionError(f"one component must give (+inf, -1): "
                                  f"{case}")
         emit("mst_kernel_small", n=case[0], d=case[1], labels=case[2],
-             integer=case[3], inf_core=case[4], separate_q=case[5],
+             data=case[3], inf_core=case[4], separate_q=case[5],
              dtype=case[6], q=args[3].shape[0],
              finite_rows=int(torch.isfinite(bw).sum()), bits_equal=True)
-    emit("mst_kernel_small", cases=len(MST_CASES),
+    # a d = 8 float32 corpus (16-byte feature planes) as a view 4 bytes off
+    # 16-byte alignment: the wrapper copies it for the direct kernel
+    f32 = (2300, 8, "few", "wide", True, True, "f32")
+    args = list(mst_case(np.random.default_rng(16), *f32))
+    buf = torch.empty(args[0].numel() + 1, device=args[0].device)
+    args[0] = buf[1:].view(args[0].shape).copy_(args[0])
+    if args[0].data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned corpus view is aligned")
+    bw, bj = mk.scan_minout(*args)
+    pw, pj = mk.scan_minout_reference(*args)
+    if not (same_bits(bw, pw) and torch.equal(bj, pj)):
+        raise AssertionError(f"mst scan kernel differs from its plain "
+                             f"version on a misaligned corpus at {f32}")
+    emit("mst_kernel_small", n=f32[0], d=f32[1], misaligned_corpus=True,
+         bits_equal=True)
+    emit("mst_kernel_small", cases=len(MST_CASES) + 1,
          seconds=time.perf_counter() - t_phase)
-    return len(MST_CASES)
+    return len(MST_CASES) + 1
 
 
 def f64_oracle_blocks(points_dev, queries_dev, k: int, qblock: int = 8192):
@@ -2716,6 +2763,41 @@ def spanning(us, vs, n: int) -> bool:
 
     g = coo_matrix((np.ones(len(us)), (us, vs)), shape=(n, n))
     return len(us) == n - 1 and connected_components(g, directed=False)[0] == 1
+
+
+def mst_levers(pdev, core_rd, labels_seen, qn: int) -> list:
+    """What two pruning levers of the scan would cover, round by round
+    (printed only; the MST does not use them).  For each round r: the
+    share of the (q x n) pairs inside one component under its labelling,
+    sum of size^2 / n^2 (what skipping same-component pairs saves); and,
+    for r and r + 1, the share of the first ``qn`` rows whose best j under
+    labelling r still carries another label than the row's under r + 1
+    (those rows keep (bw, bj) exactly, since the eligible rows only
+    shrink), checked by a reduced launch under each labelling."""
+    from petal_neighbors_tpu_torch.ops.cuda import mst_kernel as mk
+
+    n = pdev.shape[0]
+    out = []
+    for r, comp in enumerate(labels_seen):
+        sizes = torch.bincount(comp.long() - int(comp.min())).double()
+        row = {"round": r + 1, "components": int((sizes > 0).sum()),
+               "same_component_share": float((sizes * sizes).sum()) / n / n}
+        if r + 1 < len(labels_seen):
+            nxt = labels_seen[r + 1]
+            args = (pdev, core_rd, comp, pdev[:qn], core_rd[:qn], comp[:qn])
+            bw, bj = mk.scan_minout(*args)
+            bw2, bj2 = mk.scan_minout(pdev, core_rd, nxt, pdev[:qn],
+                                      core_rd[:qn], nxt[:qn])
+            found = bj >= 0
+            keep = found & (nxt[bj.clamp_min(0).long()] != nxt[:qn])
+            row["kept_share"] = float(keep.double().mean())
+            row["kept_but_moved"] = int((keep & ((bw2 != bw) | (bj2 != bj)))
+                                        .sum())
+            if row["kept_but_moved"]:
+                raise AssertionError(f"hdbscan levers: {row} — a kept row "
+                                     "changed its edge")
+        out.append(row)
+    return out
 
 
 def phase_hdbscan(pt, wrappers, fold_rows) -> dict:
@@ -2857,12 +2939,18 @@ def phase_hdbscan(pt, wrappers, fold_rows) -> dict:
                                     / bw.clamp_min(1e-30)).max()),
         "library_j_differs": int((lj != bj).sum()),
         "bound_ms": mst_bound_ms(qn, MST_N, MST_D)[0]}
+    reduced["bound_share"] = reduced["bound_ms"] / reduced["ms"]
     bound, by = mst_bound_ms(MST_N, MST_N, MST_D)
     scan_row = {"ms": kernel_ms, "bound_ms": bound, "bound_by": by,
+                "bound_share": bound / kernel_ms,
                 "plain_ms": reduced["plain_ms"],
                 "library_ms": reduced["library_ms"], "max_abs_err": 0.0,
                 "reduced": reduced,
                 "instructions_per_pair": mst_instructions(MST_D)}
+    emit("hdbscan", scan_ms_per_round=kernel_ms, scan_bound_ms=bound,
+         scan_bound_share=scan_row["bound_share"],
+         reduced_ms=reduced["ms"], reduced_bound_share=reduced["bound_share"],
+         levers=mst_levers(pdev, core_rd, labels_seen, qn))
     mu, pp, pn, _ = bf.prepare_euclidean_index(pdev)
     held = hold_route_kernels(mu, pp, pn, pdev[:MST_HOLD_Q], MST_N, MST_D,
                               MST_K, max([0] + rec["repairs"]))
@@ -3649,7 +3737,8 @@ def main() -> int:
     emit("build_ptxas", **{name: ptxas_summary(log) for name, log in
                            logs.items() if name in ("knn_fold",
                                                     "knn_select",
-                                                    "knn_minima")})
+                                                    "knn_minima",
+                                                    "mst_scan")})
     tc_ratio = phase_tc_probe()
     mst_cases = phase_mst_kernel_small()
 

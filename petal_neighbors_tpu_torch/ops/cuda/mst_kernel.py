@@ -10,10 +10,12 @@ i, over corpus rows j whose label differs (``comp[j] != compq[i]``),
 
 ``bw[i]`` is the least w and ``bj[i]`` the least j that reaches it;
 ``(+inf, −1)`` where no j gives a finite w (one component, or +inf cores).
-Every difference, square and sum is rounded on its own, the first sum
-being ``t*t`` and each next ``acc + t*t``: the kernel rounds each one
-(no FMA), as the plain version's separate tensor ops do, so the two agree
-bit for bit.  Inputs are finite: the MST raises on NaN points.
+The sum's arithmetic, the kernel's to the bit: in float32 each difference
+is rounded, the first square is ``t*t`` and each next step is the fused
+``fma(t, t, acc)``, rounded once (``_fma_rn``: the sum in float64, then
+float32, with the float64 sum rounded to odd where it fell on a float32
+tie); in float64 every difference, square and sum is rounded on its own.
+Inputs are finite: the MST raises on NaN points.
 
 ``scan_minout`` launches ``csrc/mst_scan.cu`` for CUDA tensors and runs
 ``scan_minout_reference`` for CPU tensors.  Nothing else selects between
@@ -34,8 +36,9 @@ __all__ = ["scan_minout", "scan_minout_reference", "QCHUNK", "NCHUNK"]
 QCHUNK, NCHUNK = 4096, 16384
 
 #: the kernel's fixed sizes (csrc/mst_scan.cu): query rows per block,
-#: corpus rows per tile
-TQ, TN = 64, 64
+#: corpus rows per stage of the direct kernel (the tile kernel's 64 divide
+#: it)
+TQ, TN = 64, 256
 
 
 def _check(pts, core_rd, comp, q, cq_rd, compq) -> None:
@@ -61,7 +64,7 @@ def _check(pts, core_rd, comp, q, cq_rd, compq) -> None:
     if pts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"scan_minout runs on CUDA or CPU, not {pts.device}")
     if n >= 2 ** 31 - TN or nq >= 2 ** 31 - TQ:
-        raise ValueError("scan_minout: n and nq must be below 2^31 - 64")
+        raise ValueError("scan_minout: n and nq must be below 2^31 - 256")
 
 
 def _rd_unrolled(q, p):
@@ -71,6 +74,58 @@ def _rd_unrolled(q, p):
     for dd in range(q.shape[1]):
         t = q[:, dd][:, None] - p[:, dd][None, :]
         acc = t * t if acc is None else acc + t * t
+    return acc
+
+
+def _fma_rn(t, acc):
+    """float32 ``fma(t, t, acc)``: the exact ``t*t + acc`` rounded once.
+
+    ``t*t`` of a float32 is exact in float64, so ``s = t*t + acc`` taken
+    in float64 is the exact sum rounded once, and rounding ``s`` to
+    float32 gives the fused bits unless ``s`` is a float32 tie (halfway
+    between two float32 values) that the float64 rounding made: then the
+    second rounding may go the wrong way.  Only those elements, which
+    ``_ties`` finds (with every ``s`` under 2^-126, whose ties it does not
+    test), are rounded to odd: where the TwoSum error of ``s`` is not
+    zero, ``s`` steps one float64 bit toward the exact sum, off the tie
+    (53 >= 24 + 2 bits).  Any float32 ``t`` and ``acc``, infinities
+    included, on any device; the float64 sum is the one full-size
+    temporary, since the plain version calls this on its largest tiles."""
+    s = t.double()
+    s.mul_(s).add_(acc)
+    idx = _ties(s).nonzero(as_tuple=True)
+    if idx[0].numel():
+        p = t[idx].double()
+        p.mul_(p)
+        a = acc[idx].double()
+        st = s[idx]
+        z = st - p                   # TwoSum: p + a == st + err, exactly
+        err = (p - (st - z)) + (a - z)
+        inexact = (err != 0) & torch.isfinite(st)
+        above = inexact & (torch.signbit(err) != torch.signbit(st))
+        bits = st.view(torch.int64)  # |st| > |exact| above: one step down
+        bits.sub_(above.long()).bitwise_or_(inexact.long())
+        s[idx] = st
+    return s.to(torch.float32)
+
+
+def _ties(s):
+    """Where float64 ``s`` may be a float32 tie: its 29 bits below a
+    normal float32's last bit are 1 then 28 zeros, or ``|s| < 2^-126``."""
+    tie = s.view(torch.int64).bitwise_and(0x1FFFFFFF) == 0x10000000
+    return tie.logical_or_(s.abs() < 2.0 ** -126)
+
+
+def _rd_fused(q, p):
+    """(qc, nc) squared Euclidean distances summed over the features in
+    order as the kernel sums them: float32 ``t*t``, then ``fma(t, t,
+    acc)`` a feature (``_fma_rn``); float64 as ``_rd_unrolled``."""
+    if q.dtype != torch.float32:
+        return _rd_unrolled(q, p)
+    acc = None
+    for dd in range(q.shape[1]):
+        t = q[:, dd][:, None] - p[:, dd][None, :]
+        acc = t * t if acc is None else _fma_rn(t, acc)
     return acc
 
 
@@ -91,7 +146,7 @@ def scan_minout_reference(pts, core_rd, comp, q, cq_rd, compq, *,
         tw = torch.full((qq.shape[0],), torch.inf, dtype=dt, device=dev)
         tj = torch.full((qq.shape[0],), -1, dtype=torch.int32, device=dev)
         for base in range(0, n, nchunk):
-            rd = _rd_unrolled(qq, pts[base:base + nchunk])
+            rd = _rd_fused(qq, pts[base:base + nchunk])
             w = torch.maximum(torch.maximum(rd, cq[:, None]),
                               core_rd[base:base + nchunk][None, :])
             w = torch.where(comp[base:base + nchunk][None, :]
@@ -132,7 +187,8 @@ def scan_minout(pts, core_rd, comp, q, cq_rd, compq):
     query rows; float32 or float64 (one type), all on one device.  Returns
     ``(bw (nq,), bj (nq,) int32)``: the least w and the least corpus row
     reaching it, or (+inf, -1).  CUDA tensors launch ``csrc/mst_scan.cu``
-    once (counted in ``scan_minout.launches``); CPU tensors run
+    once (counted in ``scan_minout.launches``), ``pts`` copied first where
+    it is not contiguous or not 16-byte aligned; CPU tensors run
     ``scan_minout_reference``."""
     _check(pts, core_rd, comp, q, cq_rd, compq)
     if pts.device.type == "cpu":
@@ -146,6 +202,8 @@ def scan_minout(pts, core_rd, comp, q, cq_rd, compq):
     if n == 0:
         return bw.fill_(torch.inf), bj.fill_(-1)
     args = [t.contiguous() for t in (pts, core_rd, comp, q, cq_rd, compq)]
+    if args[0].data_ptr() % 16:  # a view: the kernel copies 16-byte planes
+        args[0] = args[0].clone()
     with torch.cuda.device(pts.device):
         err = _lib().mst_scan_launch(
             int(pts.dtype == torch.float64),
