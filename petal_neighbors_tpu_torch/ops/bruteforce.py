@@ -45,6 +45,7 @@ import warnings
 import torch
 
 from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric, _cross
+from ..utils.profiling import count, span
 from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
                               PASSES_MAX, knn_bcap, knn_capped, knn_fold,
                               knn_fold_lazy, knn_merge, tc_proof_err)
@@ -454,16 +455,19 @@ def _two_phase_small_k(pts_padded, xn_padded, queries, k_eff: int):
     than k_eff subchunks (every row is a candidate), NaN for a NaN query.
     The port keeps its 64-row pad: rows past the padded index are missing
     candidates."""
-    minima = subchunk_minima(pts_padded, queries, xn_padded)
-    vals, sid = torch.sort(minima, dim=1, stable=True)
-    nc = minima.shape[1]
-    if k_eff <= nc:
-        thr_u = vals[:, k_eff - 1]
-    else:
-        thr_u = torch.full((queries.shape[0],), torch.inf,
-                           dtype=minima.dtype, device=minima.device)
-    best_rd, best_i = _block_rescore(pts_padded, xn_padded, queries,
-                                     sid[:, :min(k_eff, nc)], k_eff, SUBCHUNK)
+    with span("petal.route.candidates"):
+        minima = subchunk_minima(pts_padded, queries, xn_padded)
+        vals, sid = torch.sort(minima, dim=1, stable=True)
+        nc = minima.shape[1]
+        if k_eff <= nc:
+            thr_u = vals[:, k_eff - 1]
+        else:
+            thr_u = torch.full((queries.shape[0],), torch.inf,
+                               dtype=minima.dtype, device=minima.device)
+    with span("petal.route.rescore"):
+        best_rd, best_i = _block_rescore(pts_padded, xn_padded, queries,
+                                         sid[:, :min(k_eff, nc)], k_eff,
+                                         SUBCHUNK)
     return best_rd, best_i, thr_u
 
 
@@ -474,18 +478,21 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
     run the fold kernel (merge above ``k_scan = 1024``), which is exact
     with the rescore slack, and their rows are replaced.  Shapes are dynamic here, so the uncovered queries
     form one batch of their own size; the JAX package's 256-row cap and
-    whole-batch fallback have no counterpart."""
-    unc = torch.nonzero(~covered).flatten()
-    if unc.numel() == 0:
+    whole-batch fallback have no counterpart.  Counts the uncovered
+    queries in ``route.repaired``."""
+    with span("petal.route.repair"):
+        unc = torch.nonzero(~covered).flatten()
+        count("route.repaired", unc.numel())
+        if unc.numel() == 0:
+            return best_rd, best_i
+        qu = queries[unc]
+        run = knn_fold if k_scan <= FOLD_K_MAX else knn_merge
+        _, idx = run(pts_padded, qu, xn_padded, k=k_scan)
+        fr, fi = _rescore(pts_padded, qu, torch.where(idx < n_real, idx, -1),
+                          k_eff)
+        best_rd = best_rd.index_copy(0, unc, fr)
+        best_i = best_i.index_copy(0, unc, fi)
         return best_rd, best_i
-    qu = queries[unc]
-    run = knn_fold if k_scan <= FOLD_K_MAX else knn_merge
-    _, idx = run(pts_padded, qu, xn_padded, k=k_scan)
-    fr, fi = _rescore(pts_padded, qu, torch.where(idx < n_real, idx, -1),
-                      k_eff)
-    best_rd = best_rd.index_copy(0, unc, fr)
-    best_i = best_i.index_copy(0, unc, fi)
-    return best_rd, best_i
 
 
 def _fold_route(pts_padded, xn_padded, queries, scheme: str, k_eff: int,
@@ -495,10 +502,12 @@ def _fold_route(pts_padded, xn_padded, queries, scheme: str, k_eff: int,
     (rd, ids) ascending, (Q, k_eff)."""
     run = {"fold": knn_fold, "fold_lazy": knn_fold_lazy,
            "merge": knn_merge}[scheme]
-    _, idx = run(pts_padded, queries, xn_padded, k=k_scan)
-    # drop any padded-row ids (none can appear: their norms are +inf)
-    return _rerank(pts_padded, queries, torch.where(idx < n_real, idx, -1),
-                   k_eff, k_scan)
+    with span("petal.route.candidates"):
+        _, idx = run(pts_padded, queries, xn_padded, k=k_scan)
+    with span("petal.route.rescore"):
+        # drop any padded-row ids (none can appear: their norms are +inf)
+        return _rerank(pts_padded, queries,
+                       torch.where(idx < n_real, idx, -1), k_eff, k_scan)
 
 
 def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
@@ -539,110 +548,147 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
       route (fold up to k_scan 1024, merge above), as the reference does;
       ``last_two_phase_fallback`` records whether the last call did.
 
-    ``last_proof_tier`` records the tier of the last call's proof.
+    ``last_proof_tier`` records the tier of the last call's proof.  The
+    call counts its queries in ``route.queries`` and records its stages in
+    ``petal.route.*`` spans (``utils.profiling``).
 
     Returns (distances, ids), (Q, k_eff), ascending; NaN queries and
     missing slots are (+inf, -1)."""
-    global last_two_phase_fallback, last_proof_tier
+    global last_proof_tier
     last_proof_tier = None
-    if center is not None:
-        queries = queries - center
-    if normalize_q:
-        queries = queries / torch.sqrt(
-            torch.sum(queries * queries, dim=-1, keepdim=True))
-    scheme = scheme or pick_scheme(
-        k_eff, n_real, with_bcap_planes(n_real, pts_padded.shape[1],
-                                        normalize_q))
+    count("route.queries", queries.shape[0])
+    with span("petal.route"):
+        scheme = scheme or pick_scheme(
+            k_eff, n_real, with_bcap_planes(n_real, pts_padded.shape[1],
+                                            normalize_q))
+        k_scan = scan_width(scheme, k_eff, n_real)
+        if scheme == "capped" and k_scan > FOLD_K_MAX:
+            # the port's capped kernel keeps at most 1024 (deviation 1)
+            scheme = "merge"
+        if scheme == "fold_lazy" and k_scan > FOLD_K_MAX:
+            raise ValueError(f"fold_lazy keeps at most {FOLD_K_MAX} "
+                             f"candidates, k_scan={k_scan}")
+        proof_gated = scheme not in ("fold", "fold_lazy", "merge")
+        with span("petal.route.prep"):
+            if center is not None:
+                queries = queries - center
+            if normalize_q:
+                queries = queries / torch.sqrt(
+                    torch.sum(queries * queries, dim=-1, keepdim=True))
+            if proof_gated:
+                qn = torch.sum(queries * queries, dim=1)
+                xn_max = torch.max(torch.where(torch.isfinite(xn_padded),
+                                               xn_padded, 0.0))
+                # the tier that made the candidates and thr: every
+                # proof-gated scheme's (capped, bcap, bcap2's block minima,
+                # two_phase's subchunk minima) is the tensor-core product
+                last_proof_tier = "tc"
+                err = _proof_err(queries.shape[1], qn, xn_max,
+                                 tier=last_proof_tier)
+        if not proof_gated:
+            best_rd, best_i = _fold_route(pts_padded, xn_padded, queries,
+                                          scheme, k_eff, k_scan, n_real)
+        elif scheme == "two_phase":
+            best_rd, best_i = _two_phase_route(pts_padded, xn_padded,
+                                               queries, qn, err, k_eff,
+                                               n_real)
+        else:
+            best_rd, best_i = _proved_route(pts_padded, xn_padded, queries,
+                                            qn, err, scheme, k_eff, k_scan,
+                                            n_real)
+        with span("petal.route.out"):
+            # the sqrt needs the ascending clamp; the squared domain does not
+            return (best_rd if out_rdist
+                    else monotone_distances(torch.sqrt(best_rd))), best_i
 
-    def to_out(rd):
-        # the sqrt needs the ascending clamp; the squared domain does not
-        return rd if out_rdist else monotone_distances(torch.sqrt(rd))
 
-    k_scan = scan_width(scheme, k_eff, n_real)
-    if scheme == "capped" and k_scan > FOLD_K_MAX:
-        # the port's capped kernel keeps at most 1024 (deviation 1)
-        scheme = "merge"
-    if scheme == "fold_lazy" and k_scan > FOLD_K_MAX:
-        raise ValueError(f"fold_lazy keeps at most {FOLD_K_MAX} candidates, "
-                         f"k_scan={k_scan}")
-    if scheme in ("fold", "fold_lazy", "merge"):
-        best_rd, best_i = _fold_route(pts_padded, xn_padded, queries, scheme,
-                                      k_eff, k_scan, n_real)
-        return to_out(best_rd), best_i
-    qn = torch.sum(queries * queries, dim=1)
-    xn_max = torch.max(torch.where(torch.isfinite(xn_padded), xn_padded, 0.0))
-    # the tier that made the candidates and thr: every proof-gated scheme's
-    # (capped, bcap, bcap2's block minima, two_phase's subchunk minima) is
-    # the tensor-core product
-    last_proof_tier = "tc"
-    err = _proof_err(queries.shape[1], qn, xn_max, tier=last_proof_tier)
-    if scheme == "two_phase":
-        # ops/bruteforce.py:955-981: one uncovered query sends the whole
-        # batch to the fold route; with the k nearest points in k different
-        # subchunks the k-th rescored distance equals T + ||q||^2 up to
-        # rounding, so at serving scale most batches fall back
-        best_rd, best_i, thr_u = _two_phase_small_k(pts_padded, xn_padded,
-                                                    queries, k_eff)
+def _two_phase_route(pts_padded, xn_padded, queries, qn, err, k_eff: int,
+                     n_real: int):
+    """two_phase's candidates, rescore and whole-batch proof
+    (ops/bruteforce.py:955-981): one uncovered query sends the whole batch
+    to the fold route; with the k nearest points in k different subchunks
+    the k-th rescored distance equals T + ||q||^2 up to rounding, so at
+    serving scale most batches fall back.  Returns (rd, ids) ascending,
+    (Q, k_eff)."""
+    global last_two_phase_fallback
+    best_rd, best_i, thr_u = _two_phase_small_k(pts_padded, xn_padded,
+                                                queries, k_eff)
+    with span("petal.route.proof"):
         kth, thr = best_rd[:, -1], thr_u + qn
         covered = (kth <= thr - err) | (~torch.isfinite(kth)
                                         & ~torch.isfinite(thr))
         last_two_phase_fallback = not bool(torch.all(covered))
-        if last_two_phase_fallback:
-            run = ("fold" if min(k_eff + RESCORE_SLACK, n_real) <= FOLD_K_MAX
-                   else "merge")
-            best_rd, best_i = _fold_route(
-                pts_padded, xn_padded, queries, run, k_eff,
-                scan_width(run, k_eff, n_real), n_real)
-        return to_out(best_rd), best_i
+    if last_two_phase_fallback:
+        run = ("fold" if min(k_eff + RESCORE_SLACK, n_real) <= FOLD_K_MAX
+               else "merge")
+        best_rd, best_i = _fold_route(pts_padded, xn_padded, queries, run,
+                                      k_eff, scan_width(run, k_eff, n_real),
+                                      n_real)
+    return best_rd, best_i
+
+
+def _proved_route(pts_padded, xn_padded, queries, qn, err, scheme: str,
+                  k_eff: int, k_scan: int, n_real: int):
+    """bcap, bcap2 and capped: the candidates, their rescore, the per-query
+    proof against ``thr - err`` and the compacted repair of the uncovered
+    queries (``_prove_repair``).  Returns (rd, ids) ascending, (Q, k_eff)."""
     overflow = None
     if scheme in ("bcap", "bcap2"):
         n_blocks = -(-pts_padded.shape[0] // BCAP_BLOCK)
-        if scheme == "bcap":
-            k_cand = min(max(k_eff + RESCORE_SLACK, 12), BCAP_TILE, n_blocks)
-            passes = capped_passes(k_cand, BCAP_TILE * BCAP_BLOCK, n_real,
-                                   scheme)
-            _, idx, thr = knn_bcap(pts_padded, queries, xn_padded, k=k_cand,
-                                   tile=BCAP_TILE, passes=passes)
-        else:
-            # ops/bruteforce.py:853-905: the k_cand smallest block minima;
-            # an unselected block's minimum is at least the k_cand-th
-            k_cand = min(max(k_eff + RESCORE_SLACK, 12), n_blocks)
-            minima = bcap_minima(pts_padded, queries, xn_padded)
-            vals, idx = torch.topk(minima, k_cand, dim=1, largest=False)
-            thr = vals[:, -1] + qn
+        with span("petal.route.candidates"):
+            if scheme == "bcap":
+                k_cand = min(max(k_eff + RESCORE_SLACK, 12), BCAP_TILE,
+                             n_blocks)
+                passes = capped_passes(k_cand, BCAP_TILE * BCAP_BLOCK,
+                                       n_real, scheme)
+                _, idx, thr = knn_bcap(pts_padded, queries, xn_padded,
+                                       k=k_cand, tile=BCAP_TILE,
+                                       passes=passes)
+            else:
+                # ops/bruteforce.py:853-905: the k_cand smallest block
+                # minima; an unselected block's minimum is at least the
+                # k_cand-th
+                k_cand = min(max(k_eff + RESCORE_SLACK, 12), n_blocks)
+                minima = bcap_minima(pts_padded, queries, xn_padded)
+                vals, idx = torch.topk(minima, k_cand, dim=1, largest=False)
+                thr = vals[:, -1] + qn
         covers_all = k_cand * BCAP_BLOCK >= n_real
-        if k_eff * BCAP_BLOCK > 1024:
-            best_rd, best_i, overflow = _bcap_rescore_large(
-                pts_padded, xn_padded, queries, idx, k_eff)
-        else:
-            best_rd, best_i = _block_rescore(pts_padded, xn_padded, queries,
-                                             idx, k_eff, BCAP_BLOCK)
+        with span("petal.route.rescore"):
+            if k_eff * BCAP_BLOCK > 1024:
+                best_rd, best_i, overflow = _bcap_rescore_large(
+                    pts_padded, xn_padded, queries, idx, k_eff)
+            else:
+                best_rd, best_i = _block_rescore(pts_padded, xn_padded,
+                                                 queries, idx, k_eff,
+                                                 BCAP_BLOCK)
     elif scheme == "capped":
         tile = max(CAPPED_TILE, -(-k_scan // PAD_ROWS) * PAD_ROWS)
         passes = capped_passes(k_scan, tile, n_real, scheme)
-        rd, idx, thr = knn_capped(pts_padded, queries, xn_padded, k=k_scan,
-                                  tile=tile, passes=passes)
+        with span("petal.route.candidates"):
+            rd, idx, thr = knn_capped(pts_padded, queries, xn_padded,
+                                      k=k_scan, tile=tile, passes=passes)
         covers_all = k_scan >= n_real
-        # a seed slot may hold a NaN or padding row at +inf: the direct
-        # form would score its zeroed copy as finite, so it goes as -1
-        ok = torch.isfinite(rd) & (idx < n_real)
-        best_rd, best_i = _rerank(pts_padded, queries,
-                                  torch.where(ok, idx, -1), k_eff, k_scan)
+        with span("petal.route.rescore"):
+            # a seed slot may hold a NaN or padding row at +inf: the direct
+            # form would score its zeroed copy as finite, so it goes as -1
+            ok = torch.isfinite(rd) & (idx < n_real)
+            best_rd, best_i = _rerank(pts_padded, queries,
+                                      torch.where(ok, idx, -1), k_eff, k_scan)
     else:
         raise ValueError(f"unknown scheme {scheme!r}")
-    kth = best_rd[:, -1]
-    covered = covers_all | (kth <= thr - err)
-    if overflow is not None:
-        # ties past the compaction's margin: the row repairs
-        covered = covered & ~overflow
-    # a non-finite k-th is covered only when thr is non-finite too (a NaN
-    # query, or nothing finite skipped); a finite thr means finite scores
-    # were skipped while the set still held +inf seeds (:841-849)
-    covered = covered | (~torch.isfinite(kth) & ~torch.isfinite(thr))
-    best_rd, best_i = _prove_repair(covered, best_rd, best_i, pts_padded,
-                                    xn_padded, queries, k_eff, k_scan,
-                                    n_real)
-    return to_out(best_rd), best_i
+    with span("petal.route.proof"):
+        kth = best_rd[:, -1]
+        covered = covers_all | (kth <= thr - err)
+        if overflow is not None:
+            # ties past the compaction's margin: the row repairs
+            covered = covered & ~overflow
+        # a non-finite k-th is covered only when thr is non-finite too (a
+        # NaN query, or nothing finite skipped); a finite thr means finite
+        # scores were skipped while the set still held +inf seeds
+        # (:841-849)
+        covered = covered | (~torch.isfinite(kth) & ~torch.isfinite(thr))
+    return _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded,
+                         queries, k_eff, k_scan, n_real)
 
 
 def _pick_chunk(n: int, q: int, dim: int, chunk: int | None,

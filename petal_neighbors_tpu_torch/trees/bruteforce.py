@@ -47,6 +47,7 @@ import torch
 from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric, get_metric
 from ..ops import bruteforce as bf
 from ..ops.cuda.lp_kernel import LP_K_MAX, lp_spec_for
+from ..utils.profiling import span
 from ..utils.validation import (check_points, check_points_host, check_query,
                                 check_query_batch, resolve_device)
 
@@ -213,10 +214,13 @@ class BruteForce:
 
     def query(self, point, k: int):
         """(indices, distances) as numpy, ascending; k=0 -> empty; k>n ->
-        n results (ball_tree.rs:102-121)."""
-        q = check_query(point, self.dim, self._dtype(), self.device)
-        d, i = self.query_batch(q[None, :], k)
-        return i[0].cpu().numpy(), d[0].cpu().numpy()
+        n results (ball_tree.rs:102-121).  Recorded in the ``petal.query``
+        span, its copies to the host in ``petal.query.to_host``."""
+        with span("petal.query"):
+            q = check_query(point, self.dim, self._dtype(), self.device)
+            d, i = self.query_batch(q[None, :], k)
+            with span("petal.query.to_host"):
+                return i[0].cpu().numpy(), d[0].cpu().numpy()
 
     def _dtype(self) -> torch.dtype:
         if torch.is_tensor(self.points):
@@ -228,32 +232,35 @@ class BruteForce:
     def query_batch(self, queries, k: int, *, chunk: int | None = None):
         """(distances, ids) tensors on the index's device, (Q, min(k, n)),
         ascending.  NaN queries give (+inf, -1); NaN points are never
-        selected."""
-        qs = check_query_batch(queries, self.dim, self._dtype(), self.device)
-        n = self.num_points
-        k_eff = min(int(k), n)
-        if self._lp_spec is not None and 1 <= k_eff <= LP_K_MAX:
-            d, i = bf.lp_knn_prepadded(self._pts, self._mask, qs, k_eff, n,
-                                       spec=self._lp_spec, metric=self.metric)
-            self.last_backend, self.last_scheme = "kernel", "lp"
+        selected.  Recorded in the ``petal.query_batch`` span."""
+        with span("petal.query_batch"):
+            qs = check_query_batch(queries, self.dim, self._dtype(),
+                                   self.device)
+            n = self.num_points
+            k_eff = min(int(k), n)
+            if self._lp_spec is not None and 1 <= k_eff <= LP_K_MAX:
+                d, i = bf.lp_knn_prepadded(self._pts, self._mask, qs, k_eff,
+                                           n, spec=self._lp_spec,
+                                           metric=self.metric)
+                self.last_backend, self.last_scheme = "kernel", "lp"
+                return d, i
+            if self._norms is not None and 1 <= k_eff <= bf.PALLAS_K_MAX:
+                scheme = bf.pick_scheme(k_eff, n, self._bcap)
+                d, i = bf.knn_prepadded(self._pts, self._norms, qs, k_eff, n,
+                                        self._center, scheme=scheme,
+                                        normalize_q=self._cosine,
+                                        out_rdist=self._cosine)
+                if self._cosine:
+                    # ‖q̂−x̂‖²/2 == 1 − q̂·x̂; /2 is exact and keeps the order
+                    d = d * 0.5
+                self.last_backend, self.last_scheme = "kernel", scheme
+                return d, i
+            pts, norms = self._scan_points()
+            d, i = bf.knn(pts, self._q(qs), k, self.metric, chunk=chunk,
+                          point_norms=norms, assume_centered=True,
+                          backend="xla", invalid=self._invalid)
+            self.last_backend, self.last_scheme = "scan", None
             return d, i
-        if self._norms is not None and 1 <= k_eff <= bf.PALLAS_K_MAX:
-            scheme = bf.pick_scheme(k_eff, n, self._bcap)
-            d, i = bf.knn_prepadded(self._pts, self._norms, qs, k_eff, n,
-                                    self._center, scheme=scheme,
-                                    normalize_q=self._cosine,
-                                    out_rdist=self._cosine)
-            if self._cosine:
-                # ‖q̂−x̂‖²/2 == 1 − q̂·x̂; /2 is exact and keeps the order
-                d = d * 0.5
-            self.last_backend, self.last_scheme = "kernel", scheme
-            return d, i
-        pts, norms = self._scan_points()
-        d, i = bf.knn(pts, self._q(qs), k, self.metric, chunk=chunk,
-                      point_norms=norms, assume_centered=True, backend="xla",
-                      invalid=self._invalid)
-        self.last_backend, self.last_scheme = "scan", None
-        return d, i
 
     # -- radius search --------------------------------------------------------
     def _radius_args(self, qs):

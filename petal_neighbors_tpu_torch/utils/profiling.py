@@ -6,6 +6,29 @@
 synchronising the card first.  The indexes' own counters
 (``query_batch(with_stats=True)``, the kernels' ``launches``) complete the
 picture.
+
+``span`` and ``count`` instrument the flat index's k-NN path.  A span is
+a ``torch.profiler.record_function`` while a profiler is recording, so it
+lands in the same trace as the kernels and copies it launches, on the
+same clock, inside whatever span encloses it on the thread; with no
+profiler recording it is a shared no-op context.  The spans:
+
+* ``petal.query``: ``BruteForce.query``, the whole single-query call, and
+  inside it ``petal.query.to_host``, the answers' two copies to NumPy;
+* ``petal.query_batch``: ``BruteForce.query_batch``, validation and upload,
+  the scheme's pick and the route (the Lp and scan routes have no spans
+  below it);
+* ``petal.route``: ``ops.bruteforce.knn_prepadded``, and inside it
+  ``petal.route.prep`` (centring, normalising, the proof's error bound),
+  ``petal.route.candidates`` (the candidate kernel), ``petal.route.rescore``
+  (the direct-form rescore and re-rank), ``petal.route.proof`` (the k-th
+  distance against the threshold), ``petal.route.repair`` (the body of
+  ``_prove_repair``) and ``petal.route.out`` (sqrt and clamp).
+
+``count`` adds to in-memory integer counters, always on: one dict update,
+never a sync with the card.  ``route.queries`` counts the queries of every
+``knn_prepadded`` call; ``route.repaired`` the queries its proof left to
+the repair.  ``counters`` returns a copy, ``reset_counters`` clears them.
 """
 
 from __future__ import annotations
@@ -16,7 +39,35 @@ import time
 
 import torch
 
-__all__ = ["trace", "wall_time"]
+__all__ = ["trace", "wall_time", "span", "count", "counters",
+           "reset_counters"]
+
+_recording = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+_counters: dict[str, int] = {}
+
+
+def span(name: str):
+    """A ``record_function`` named ``name`` while a profiler is recording,
+    else a shared no-op context: the check costs well under a
+    microsecond, an unused ``record_function`` about ten."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add the host-known integer ``n`` to counter ``name``."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A copy of every counter."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 @contextlib.contextmanager
