@@ -68,11 +68,32 @@ Phases, each printed as one JSON line on stdout:
               exact ties (the select's ids equal the plain version's;
               collect narrows over several passes), the two paths' rdist
               equal bit for bit and fold_lazy equal to both.
-   fold_paths — both fold paths timed in turns over the SIFT index (and,
-              in main_generic, the GIST one) at FOLD_TABLE's queries x
-              k_scan, beside the path ``fold_path`` picks; at the route's
-              repair shapes also the plain version, the library call and
-              the bound.  knn_kernel.FOLD_SELECT_Q was read from it.
+   fold_paths — fold's select and streaming paths timed in turns over
+              the SIFT index (and, in main_generic, the GIST one) at
+              FOLD_TABLE's queries x k_scan, with the few-query kernel
+              where ``fold_path`` picks it; at the route's repair shapes
+              also the plain version, the library call and the bound.
+              knn_kernel.FOLD_SELECT_Q was read from it.
+   few_query — the few-query kernel (csrc/knn_few.cu) timed in turns
+              with fold's select and streaming paths (at k_scan 18 and 1
+              to 4 queries also the tensor-core capped and bcap kernels the
+              single queries ran) over FEW_SWEEP: SIFT (the main index) and
+              GIST 1M x 960, 1M rows of d = 2, 8 (the MST core pass's
+              repair, 31 queries at k_scan 13), 32, 64, 256 and 512, at q =
+              1 to 64 and k_scan 18, 108 and 128; 100k x 2 (config 2's VP
+              repair, 10 queries), 10k x 128 and 10k x 960; beside the
+              bytes bound, the path ``fold_path`` picks and its margin; at
+              one query also the plain version and the library call.  fold
+              mode's rdist equal to the streaming kernel's bit for bit at
+              every point; the three modes against their plain version at
+              FEW_COMPARE_Q queries (SIFT: fold and bcap at k_scan 18,
+              capped at 108; GIST: fold and capped at 18); then the route
+              (its proof and repair unchanged) on 1 to 4 queries at k=10
+              over SIFT (bcap) and GIST (capped) and k=100 over SIFT
+              (capped): the few path taken, no query repaired, ids against
+              an f64 oracle; and 50 single queries a shape through
+              ``BruteForce.query``, every one counted in
+              ``knn.few_queries``.  knn_kernel.FEW_RULE was read from it.
 4. main     — ``BruteForce.euclidean`` over 1M x 128 f32 points (seed 7,
               as bench.py makes them) answering 10,240 queries at k=10
               (bcap), k=100 and k=200 (capped); every kernel's launches in
@@ -337,6 +358,7 @@ SELECT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_select.cu"
 SORT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/row_sort.cu"
 LP_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/lp_knn.cu"
 MINIMA_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_minima.cu"
+FEW_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_few.cu"
 #: the opt-in schemes' requests on the SIFT index, in order
 OPT_IN = (("bcap2", 10), ("bcap2", 100), ("two_phase", 10),
           ("fold_lazy", 10))
@@ -612,10 +634,11 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
          passes: int, splits: int = 1):
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
-    if scheme in FOLD_PATHS:
+    if scheme in FOLD_SCHEMES:
         if plain:
             return kk.knn_fold_reference(pp, qt, pn, k=k) + (None,)
-        return kk.knn_fold(pp, qt, pn, k=k, path=FOLD_PATHS[scheme]) + (None,)
+        return kk.knn_fold(pp, qt, pn, k=k,
+                           path=FOLD_SCHEMES[scheme]) + (None,)
     if scheme in ("fold", "fold_lazy", "merge"):
         run = {("fold", True): kk.knn_fold_reference,
                ("fold", False): kk.knn_fold,
@@ -629,7 +652,7 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
                else kk.knn_bcap_reference)
         return ref(pp, qt, pn, k=k, tile=tile, passes=passes, splits=splits)
     run = kk.knn_capped if scheme == "capped" else kk.knn_bcap
-    return run(pp, qt, pn, k=k, tile=tile, passes=passes)
+    return run(pp, qt, pn, k=k, tile=tile, passes=passes, path="tile")
 
 
 def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
@@ -652,10 +675,15 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
     It also covers the fixed roundings (‖x‖² − 2q·x, + ‖q‖²) and the six
     products a feature of the tensor-core tier, which the accumulation
     term alone leaves out at small d (d = 2: the VP tree's config 2)."""
-    from petal_neighbors_tpu_torch.ops.cuda.knn_kernel import kernel_plan
+    from petal_neighbors_tpu_torch.ops.cuda.knn_kernel import (
+        few_plan, kernel_plan)
 
-    plan = kernel_plan("fold" if scheme == "fold_stream" else scheme,
-                       pp.shape[0], qt.shape[0], pp.shape[1], k, tile)
+    if scheme == "fold_few":
+        plan = (few_plan("fold", pp.shape[0], qt.shape[0], pp.shape[1],
+                         k)["splits"], True)
+    else:
+        plan = kernel_plan("fold" if scheme == "fold_stream" else scheme,
+                           pp.shape[0], qt.shape[0], pp.shape[1], k, tile)
     rd_k, id_k, t_k = _run(scheme, False, pp, qt, pn, k, tile, passes)
     torch.cuda.synchronize()
     if scheme in ("merge", "fold_select") and not bool(
@@ -860,7 +888,8 @@ def bcap_is_minima(pp, qt, pn, k: int, tile: int, passes: int) -> int:
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
     from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
 
-    rd, ids, _ = kk.knn_bcap(pp, qt, pn, k=k, tile=tile, passes=passes)
+    rd, ids, _ = kk.knn_bcap(pp, qt, pn, k=k, tile=tile, passes=passes,
+                             path="tile")
     minima = mk.bcap_minima(pp, qt, pn)
     got = ids >= 0
     u = torch.where(got, torch.gather(minima, 1, ids.clamp_min(0).long()),
@@ -946,6 +975,8 @@ SMALL_CASES = (
 
 #: fold's two paths, forced, as compare_kernel's schemes
 FOLD_PATHS = {"fold_select": "select", "fold_stream": "stream"}
+#: compare_kernel's names of fold's paths, the few-query kernel's too
+FOLD_SCHEMES = dict(FOLD_PATHS, fold_few="few")
 #: fold's two paths against the plain version and each other at small
 #: shapes, on both sides of the cutover: (n, q, d, pad rows, k, points).
 #: "uniform" as small_inputs makes them (NaN rows, NaN queries from q = 8,
@@ -1150,7 +1181,9 @@ def phase_fold_paths_small(rng) -> float:
         spp, spn = bf.pad_for_pallas(torch.from_numpy(pts).to(dev), tn=tn)
         qt = torch.from_numpy(qs).to(dev)
         found = {}
-        for scheme in FOLD_PATHS:
+        for scheme in FOLD_SCHEMES:
+            if scheme == "fold_few" and k > kk.FEW_K_MAX:
+                continue
             err, tied, plan = compare_kernel(scheme, spp, qt, spn, k)
             worst = max(worst, err)
             found[scheme] = dict(max_abs_err=err, tied_rows=tied, plan=plan)
@@ -1161,6 +1194,12 @@ def phase_fold_paths_small(rng) -> float:
                 not torch.equal(rd_s, torch.sort(rd_t, 1).values):
             raise AssertionError(f"fold n={n} q={q} k={k}: the select's "
                                  "rdist differ from the stream's")
+        if "fold_few" in found:
+            rd_f, _ = kk.knn_fold(spp, qt, spn, k=k, path="few")
+            if not torch.equal(rd_s, torch.sort(rd_f, 1).values):
+                raise AssertionError(f"fold n={n} q={q} k={k}: the few "
+                                     "path's rdist differ from the "
+                                     "stream's")
         if kind != "uniform":
             _, want = kk.knn_fold_reference(spp, qt, spn, k=k)
             if not torch.equal(id_s, want):
@@ -1169,21 +1208,23 @@ def phase_fold_paths_small(rng) -> float:
         lazy = {p: lazy_is_fold(spp, qt, spn, k, p)
                 for p in ("select", "stream")}
         emit("kernel", name="knn_fold", paths_case=kind, n=n, q=q, d=d, k=k,
-             rule=kk.fold_path(q, k, d), collect_passes=passes,
+             rule=kk.fold_path(q, k, d, spp.shape[0]),
+             collect_passes=passes,
              finite_rows=int(torch.isfinite(spn).sum()),
              tied_rows_lazy_vs_fold=lazy, **found, ok=True)
     return worst
 
 
 def fold_table(pp, pn, qc, shape: str) -> list:
-    """Both fold paths, forced, timed in turns (three rounds, the least
-    mean of each) on the first q of the centered queries ``qc`` at every
-    FOLD_TABLE point of ``shape``, beside the path ``fold_path`` picks and
-    the other path's time over the picked one's (``margin``, above 1 where
-    the rule picked the faster); at the REPAIR_SHAPES points also the
-    plain version's time, the library call and the bound, the rule's path
-    held to the plain version (compare_kernel) and the two paths' sorted
-    rdist held equal bit for bit.  Returns the rows."""
+    """fold's select and streaming paths, forced, timed in turns (three
+    rounds, the least mean of each) on the first q of the centered queries
+    ``qc`` at every FOLD_TABLE point of ``shape`` (and the few-query
+    kernel beside them where ``fold_path`` picks it), beside the picked
+    path and the best other path's time over the picked one's (``margin``,
+    above 1 where the rule picked the fastest); at the REPAIR_SHAPES points
+    also the plain version's time, the library call and the bound, the
+    rule's path held to the plain version (compare_kernel) and the paths'
+    sorted rdist held equal bit for bit.  Returns the rows."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
     n, d = pp.shape
@@ -1193,29 +1234,35 @@ def fold_table(pp, pn, qc, shape: str) -> list:
         for q in qs_:
             qt = qc[:q]
             reps = 10 if q <= 512 else 1
+            rule = kk.fold_path(q, k, d, n)
+            paths = ("select", "stream") + (("few",) if rule == "few"
+                                            else ())
             ms, passes = {}, None
-            for path in ("select", "stream") * 3:
+            for path in paths * 3:
                 t = cuda_ms(lambda: kk.knn_fold(pp, qt, pn, k=k, path=path),
                             reps=reps)
                 ms[path] = min(ms.get(path, t), t)
                 if path == "select":
                     passes = list(kk.knn_fold.last_passes)
-            rule = kk.fold_path(q, k, d)
             faster = min(ms, key=ms.get)
             row = dict(shape=shape, q=q, k=k, n=n, d=d,
-                       select_ms=ms["select"], stream_ms=ms["stream"],
+                       **{f"{p}_ms": ms[p] for p in paths},
                        rule=rule, faster=faster, rule_is_faster=rule == faster,
-                       margin=ms["stream" if rule == "select" else "select"]
+                       margin=min(t for p, t in ms.items() if p != rule)
                        / ms[rule],
                        collect_passes=passes,
                        plan_select=kk.kernel_plan("fold_select", n, q, d, k),
                        plan_stream=kk.kernel_plan("fold", n, q, d, k))
+            if rule == "few":
+                row["plan_few"] = kk.few_plan("fold", n, q, d, k)
             if (shape, q, k) in REPAIR_SHAPES:
                 rd_s, _ = kk.knn_fold(pp, qt, pn, k=k, path="select")
-                rd_t, _ = kk.knn_fold(pp, qt, pn, k=k, path="stream")
-                if not torch.equal(rd_s, torch.sort(rd_t, 1).values):
-                    raise AssertionError(f"fold {shape} q={q} k={k}: the "
-                                         "paths' rdist differ")
+                for other in paths[1:]:
+                    rd_o, _ = kk.knn_fold(pp, qt, pn, k=k, path=other)
+                    if not torch.equal(rd_s, torch.sort(rd_o, 1).values):
+                        raise AssertionError(f"fold {shape} q={q} k={k}: "
+                                             f"the {other} path's rdist "
+                                             "differ from the select's")
                 err, tied, _ = compare_kernel(f"fold_{rule}", pp, qt, pn, k)
                 bound, by = bound_ms(n, q, d, k)
                 row.update(repair=True, ms=ms[rule], max_abs_err=err,
@@ -1228,6 +1275,276 @@ def fold_table(pp, pn, qc, shape: str) -> list:
             emit("fold_paths", **row, ok=True)
             rows.append(row)
     return rows
+
+
+#: phase few_query's sweep: (label, n, d, k_scan values, query counts);
+#: SIFT runs on the main index, the others on points made on the card
+FEW_SWEEP = (("SIFT", N, DIM, (18, 108, 128),
+              (1, 2, 3, 4, 5, 8, 16, 19, 24, 32, 48, 64)),
+             ("GIST", 1_000_000, 960, (18, 108, 128),
+              (1, 2, 3, 4, 8, 16, 24, 32, 48, 64)),
+             ("MST", 1_000_000, 8, (13, 108, 128),
+              (4, 8, 16, 24, 28, 31, 32, 64)),
+             ("config2", 100_000, 2, (18,), (10, 32, 64, 128)),
+             ("d2", 1_000_000, 2, (18, 108, 128),
+              (1, 4, 8, 16, 24, 32, 48, 64)),
+             ("d32", 1_000_000, 32, (18, 108, 128),
+              (1, 4, 8, 16, 24, 32, 48, 64)),
+             ("d64", 1_000_000, 64, (18, 108, 128),
+              (1, 4, 8, 16, 24, 32, 48, 64)),
+             ("d256", 1_000_000, 256, (18, 108, 128),
+              (1, 4, 16, 24, 32, 48, 64)),
+             ("d512", 1_000_000, 512, (18, 108, 128),
+              (1, 4, 16, 32, 48, 64)),
+             ("n10k", 10_000, 128, (18, 128), (1, 4, 16, 32, 64)),
+             ("n10k_d960", 10_000, 960, (18, 128), (1, 4, 8, 16, 64)))
+#: the single queries' candidate kernels (k_scan 18): the tensor-core
+#: kernel the route ran before, by shape
+FEW_SINGLE = {"SIFT": "bcap", "GIST": "capped"}
+#: the query counts each mode is held to its plain version at: one
+#: query (one row a thread, 128-feature chunks), two, three (a group of
+#: four) and sixteen (the widest group)
+FEW_COMPARE_Q = (1, 2, 3, 16)
+#: the route's repairs the kernels line reports for knn_few: (shape,
+#: repaired queries, k_scan) of the sweep (PERF.md §5)
+FEW_REPAIRS = (("SIFT", 5, 18), ("SIFT", 19, 18), ("GIST", 1, 18),
+               ("GIST", 2, 18), ("MST", 31, 13), ("config2", 10, 18))
+
+
+def few_compare(mode: str, pp, qt, pn, k: int) -> float:
+    """The few-query kernel in ``mode`` against its plain version on the
+    card: sorted rdist and thr within twice the FP32 tier's bound, every
+    id's float64 distance within it of the plain version's, no id twice,
+    NaN queries (+inf, -1) and NaN thr.  Returns the largest error."""
+    from petal_neighbors_tpu_torch.ops.bruteforce import _proof_err
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    out = kk.knn_few(pp, qt, pn, k=k, mode=mode)
+    ref = kk.knn_few_reference(pp, qt, pn, k=k, mode=mode)
+    torch.cuda.synchronize()
+    xn_max = torch.where(torch.isfinite(pn), pn, 0.0).max()
+    band = 2.0 * _proof_err(pp.shape[1], torch.sum(qt * qt, dim=1), xn_max)
+    rd_k, rd_p = torch.sort(out[0], 1).values, torch.sort(ref[0], 1).values
+    fin = torch.isfinite(rd_p)
+    if not torch.equal(fin, torch.isfinite(rd_k)):
+        raise AssertionError(f"few {mode} k={k}: finite slots differ")
+    diff = torch.where(fin, (rd_k - rd_p).abs(), 0.0)
+    err = float(diff.max())
+    if bool((diff > band[:, None]).any()):
+        raise AssertionError(f"few {mode} k={k}: rdist off by {err}")
+    rows = 16 if mode == "bcap" else 1
+
+    def rd64(ids):
+        r = (ids.clamp_min(0).long()[:, :, None] * rows
+             + torch.arange(rows, device=ids.device))
+        ok = (r < pp.shape[0]) & torch.isfinite(pn[r.clamp_max(
+            pp.shape[0] - 1)])
+        diff = qt.double()[:, None, None, :] - pp.double()[
+            r.clamp_max(pp.shape[0] - 1)]
+        v = torch.where(ok, (diff * diff).sum(-1), torch.inf).amin(-1)
+        return torch.sort(torch.where(ids >= 0, v, torch.inf), 1).values
+
+    a, b = rd64(out[1]), rd64(ref[1])
+    gap = torch.where(torch.isfinite(b), (a - b).abs(), 0.0)
+    if bool((gap > band.double()[:, None]).any()):
+        raise AssertionError(f"few {mode} k={k}: ids farther than the "
+                             "plain version's")
+    for r in out[1].tolist():
+        kept = [x for x in r if x >= 0]
+        if len(kept) != len(set(kept)):
+            raise AssertionError(f"few {mode} k={k}: an id twice")
+    nanq = torch.isnan(qt).any(dim=1)
+    if bool((out[1][nanq] != -1).any()):
+        raise AssertionError(f"few {mode}: a NaN query picked up results")
+    if mode != "fold":
+        t_k, t_p = out[2], ref[2]
+        if not torch.equal(torch.isnan(t_k), nanq):
+            raise AssertionError(f"few {mode}: NaN thresholds off NaN "
+                                 "queries")
+        tf = torch.isfinite(t_p)
+        if not torch.equal(tf, torch.isfinite(t_k)):
+            raise AssertionError(f"few {mode}: finite thresholds differ")
+        tdiff = torch.where(tf, (t_k - t_p).abs(), 0.0)
+        if bool((tdiff > band).any()):
+            raise AssertionError(f"few {mode} k={k}: thr off by "
+                                 f"{float(tdiff.max())}")
+        err = max(err, float(tdiff.max()))
+    return err
+
+
+def few_sweep(label: str, pp, pn, qc, ks, qs_) -> list:
+    """fold's three paths, each forced, timed in turns (three rounds, the
+    least mean of each) at every (k_scan, q) of one FEW_SWEEP shape: the
+    few-query kernel ("few") and the select and streaming paths it
+    replaces, beside the bytes bound, the path ``fold_path`` picks
+    (``rule``) and the best other path's time over the picked one's
+    (``margin``, above 1 where the rule picked the fastest); fold mode's
+    sorted rdist held to the streaming kernel's bit for bit.  At k_scan 18
+    and up to 4 queries of SIFT and GIST also the tensor-core kernel the
+    single queries ran (FEW_SINGLE) and the few-query kernel in that mode;
+    at one query the plain version and the library call.  Returns the
+    rows."""
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    n, d = pp.shape
+    rows = []
+    for k in ks:
+        for q in qs_:
+            qt = qc[:q].contiguous()
+            row = dict(shape=label, n=n, d=d, q=q, k=k,
+                       bytes_bound_ms=4.0 * n * d / PEAK_BYTES_S * 1e3,
+                       rule=kk.fold_path(q, k, d, n))
+            paths = ("few", "select", "stream")
+            try:
+                row["plan"] = kk.few_plan("fold", n, q, d, k)
+            except RuntimeError as e:
+                # the group's shared memory is over the card's limit
+                if row["rule"] == "few":
+                    raise AssertionError(f"few_path takes {label} q={q} "
+                                         f"k={k}, which cannot launch")
+                row["refused"] = str(e)
+                paths = paths[1:]
+            ms = {}
+            for path in paths * 3:
+                t = cuda_ms(lambda: kk.knn_fold(pp, qt, pn, k=k, path=path),
+                            reps=10 if path == "few" else 3)
+                ms[path] = min(ms.get(path, t), t)
+            faster = min(ms, key=ms.get)
+            row.update({f"{p}_ms": ms[p] for p in paths}, faster=faster,
+                       rule_is_faster=row["rule"] == faster,
+                       margin=min(t for p, t in ms.items()
+                                  if p != row["rule"]) / ms[row["rule"]])
+            if "few" in ms:
+                rd_f, _ = kk.knn_fold(pp, qt, pn, k=k, path="few")
+                rd_s, _ = kk.knn_fold(pp, qt, pn, k=k, path="stream")
+                row["bits_equal_stream"] = bool(torch.equal(
+                    torch.sort(rd_f, 1).values, torch.sort(rd_s, 1).values))
+                if not row["bits_equal_stream"]:
+                    raise AssertionError(f"few {label} q={q} k={k}: fold "
+                                         "mode's rdist differ from the "
+                                         "streaming kernel's")
+            mode = FEW_SINGLE.get(label)
+            if mode and k == 18 and q <= 4:
+                kb, tile, passes = kernel_args(mode, 10, n)
+                run = kk.knn_bcap if mode == "bcap" else kk.knn_capped
+                row[f"{mode}_tile_ms"] = cuda_ms(lambda: run(
+                    pp, qt, pn, k=kb, tile=tile, passes=passes,
+                    path="tile"), reps=3)
+                row[f"{mode}_few_ms"] = cuda_ms(lambda: run(
+                    pp, qt, pn, k=kb, tile=tile, passes=passes,
+                    path="few"), reps=10)
+            if q == 1:
+                row["plain_ms"] = cuda_ms(lambda: kk.knn_few_reference(
+                    pp, qt, pn, k=k), reps=1, warm=0)
+                row["library_ms"] = cuda_ms(lambda: library_topk(
+                    pp, qt, pn, k), reps=2)
+            emit("few_query", **row, ok=True)
+            rows.append(row)
+    return rows
+
+
+def few_route(label: str, index, pdev, qdev, k: int, scheme: str) -> dict:
+    """The route on 1 to 4 queries at ``k`` (``scheme`` its pick): the
+    candidate kernel takes the few path, the proof leaves no query to the
+    repair, and every id is the f64 oracle's but for swaps f32 cannot
+    order.  Returns the counts."""
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+    from petal_neighbors_tpu_torch.utils import profiling
+
+    run = kk.knn_bcap if scheme == "bcap" else kk.knn_capped
+    out = {"queries": 0, "repaired": 0, "swaps": 0}
+    for q in (1, 2, 3, 4):
+        qs = qdev[:q]
+        before = profiling.counters()
+        few_before = kk.knn_few.launches
+        _, ids = index.query_batch(qs, k)
+        torch.cuda.synchronize()
+        if (index.last_scheme, run.last_path) != (scheme, "few"):
+            raise AssertionError(f"{label} q={q}: {index.last_scheme} on the "
+                                 f"{run.last_path} path")
+        after = profiling.counters()
+        rep = after.get("route.repaired", 0) - before.get("route.repaired", 0)
+        few = (after.get("knn.few_queries", 0)
+               - before.get("knn.few_queries", 0))
+        if kk.knn_few.launches == few_before or few < q:
+            raise AssertionError(f"{label} q={q}: the few-query kernel did "
+                                 "not run")
+        _, oi = f64_oracle(pdev, qs, k)
+        _, swaps, _ = check_vs_oracle(index, pdev, qs, ids, oi)
+        out["queries"] += q
+        out["repaired"] += rep
+        out["swaps"] += swaps
+    if out["repaired"]:
+        raise AssertionError(f"{label}: the proof repaired "
+                             f"{out['repaired']} queries of exact candidates")
+    emit("few_query", route=label, scheme=scheme, k=k, **out, ok=True)
+    return out
+
+
+def few_single(label: str, index, qdev, k: int = 10, calls: int = 50):
+    """``calls`` single queries through ``BruteForce.query``, as the
+    benchmark's single cells send them, after the counters are cleared:
+    every query the route took (``route.queries``) ran on the few-query
+    kernel (``knn.few_queries``)."""
+    from petal_neighbors_tpu_torch.utils import profiling
+
+    profiling.reset_counters()
+    for j in range(calls):
+        index.query(qdev[j], k)
+    c = profiling.counters()
+    if not c.get("knn.few_queries") == c.get("route.queries") == calls:
+        raise AssertionError(f"{label}: single queries counted {c}")
+    emit("few_query", single=label, k=k, calls=calls,
+         route_queries=c["route.queries"],
+         few_queries=c["knn.few_queries"],
+         repaired=c.get("route.repaired", 0), ok=True)
+
+
+def phase_few_query(pt, index, pdev, qdev) -> tuple[list, float]:
+    """Phase few_query (docstring): the sweep over FEW_SWEEP, the three
+    modes against their plain version, and the route over them.  Returns
+    every sweep row and the largest error against the plain version."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
+    qc = qdev - index._center
+    rows = few_sweep("SIFT", index._pts, index._norms, qc, *FEW_SWEEP[0][3:])
+    errs = {f"SIFT {m} q={q}": few_compare(m, index._pts,
+                                           qc[:q].contiguous(),
+                                           index._norms, k)
+            for m, k in (("fold", 18), ("capped", 108), ("bcap", 18))
+            for q in FEW_COMPARE_Q}
+    few_route("SIFT k=10", index, pdev, qdev, 10, "bcap")
+    few_route("SIFT k=100", index, pdev, qdev, 100, "capped")
+    few_single("SIFT", index, qdev)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for label, n, d, ks, qs_ in FEW_SWEEP[1:]:
+        if label == "GIST":
+            pts = torch.rand((n, d), generator=gen, device="cuda")
+            queries = torch.rand((64, d), generator=gen, device="cuda")
+            gist = pt.BruteForce.euclidean(pts)
+            gq = queries - gist._center
+            rows += few_sweep(label, gist._pts, gist._norms, gq, ks, qs_)
+            errs |= {f"GIST {m} q={q}": few_compare(m, gist._pts,
+                                                    gq[:q].contiguous(),
+                                                    gist._norms, 18)
+                     for m in ("fold", "capped") for q in FEW_COMPARE_Q}
+            few_route("GIST k=10", gist, pts, queries, 10, "capped")
+            few_single("GIST", gist, queries)
+            del gist, pts, queries, gq
+        else:
+            pts = torch.randn((n, d), generator=gen, device="cuda")
+            queries = torch.randn((max(qs_), d), generator=gen, device="cuda")
+            mu = bf.center_of(pts)
+            pp, pn = bf.pad_for_pallas(pts - mu)
+            rows += few_sweep(label, pp, pn, queries - mu, ks, qs_)
+            del pp, pn, pts, queries
+        torch.cuda.empty_cache()
+    emit("few_query", max_abs_err=errs, rule=kk.FEW_RULE,
+         rule_is_faster_at=sum(r["rule_is_faster"] for r in rows),
+         least_margin=min(r["margin"] for r in rows if "margin" in r),
+         table_points=len(rows), ok=True)
+    return rows, max(errs.values())
 
 
 def phase_kernel(pp, pn, queries_c):
@@ -1777,8 +2094,8 @@ def phase_main_generic(wrappers, fold_rows):
                 kernel["repair_fold_stream_ms"] = cuda_ms(
                     lambda: kk.knn_fold(index._pts, qr, index._norms, k=k,
                                         path="stream"), reps=2)
-                kernel["repair_fold_path"] = kk.fold_path(qr.shape[0], k,
-                                                          GIST_D)
+                kernel["repair_fold_path"] = kk.fold_path(
+                    qr.shape[0], k, GIST_D, GIST_N)
             if name == "euclidean":
                 gist_fold = fold_table(index._pts, index._norms, qk, "GIST")
         emit("main_generic", index=name, scheme=scheme, k=GIST_K,
@@ -2233,7 +2550,7 @@ def hold_route_kernels(mu, pp, pn, qdev, n: int, d: int, k: int,
                                                        k_scan), reps=2),
             "bound_ms": bound, "bound_by": by}
         if scheme == "fold":
-            out[scheme]["path"] = kk.fold_path(qs.shape[0], k_scan, d)
+            out[scheme]["path"] = kk.fold_path(qs.shape[0], k_scan, d, n)
     return out
 
 
@@ -3288,6 +3605,8 @@ def phase_serving(pt, index, queries, qdev, wrappers) -> dict:
     flushed in groups of 1, 10, 100 and 1,000, each group one
     ``query_batch``; the answers equal one ``query_batch``'s rows bit for
     bit.  Returns the launches of each group size's run."""
+    from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
+
     t_phase = time.perf_counter()
     want_d, want_i = index.query_batch(qdev[:SERVE_N], SERVE_K)
     out = {}
@@ -3302,9 +3621,11 @@ def phase_serving(pt, index, queries, qdev, wrappers) -> dict:
             res.extend(h.result() for h in handles)
         wall = time.perf_counter() - t0
         got = read_launches(wrappers)
-        if not got.get(SERVE_SCHEME):
-            raise AssertionError(f"serving group {g}: no {SERVE_SCHEME} "
-                                 "kernel ran")
+        # a flush of few queries runs the few-query kernel in bcap's mode
+        kb = kernel_args(SERVE_SCHEME, SERVE_K, N)[0]
+        ran = "few" if kk.few_path(g, DIM, kb, N) else SERVE_SCHEME
+        if not got.get(ran):
+            raise AssertionError(f"serving group {g}: no {ran} kernel ran")
         ids = np.stack([r[0] for r in res])
         ds = np.stack([r[1] for r in res])
         if not (host_bits_equal(ids, want_i.long())
@@ -3756,6 +4077,8 @@ def main() -> int:
     rows, errs = phase_kernel(index._pts, index._norms, qdev - index._center)
     fold_rows_sift = fold_table(index._pts, index._norms,
                                 qdev - index._center, "SIFT")
+    few_rows, few_err = phase_few_query(pt, index,
+                                        torch.from_numpy(points).cuda(), qdev)
     sorts = phase_sorts(index, qdev)
     errs["lp_knn"] = phase_lp_small()
 
@@ -3770,12 +4093,12 @@ def main() -> int:
                 "fold_lazy": kk.knn_fold_lazy,
                 "subchunk_minima": mk.subchunk_minima,
                 "bcap_minima": mk.bcap_minima,
-                "mst_scan": msk.scan_minout}
+                "mst_scan": msk.scan_minout, "few": kk.knn_few}
     # the route's fold calls, with their query counts: under bcap and
     # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
     # the path each of the route's fold calls took, per phase
-    fold_paths = {"select": 0, "stream": 0}
+    fold_paths = {"few": 0, "select": 0, "stream": 0}
 
     def counted_fold(points, queries, norms, *, k):
         fold_rows.append(queries.shape[0])
@@ -3787,12 +4110,12 @@ def main() -> int:
     pdev = torch.from_numpy(points).cuda()
     launches, fold_by_path, flat_qps = {}, {}, {}
     for phase, ks, qs, reps, need in (
-            ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap")),
+            ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap", "few")),
             ("main_large_k", LARGE_K, qdev[:N_Q_LARGE], 2,
              ("capped", "merge", "bitonic_sort", "rank_sort"))):
         for w in wrappers.values():
             w.launches = 0
-        fold_paths.update(select=0, stream=0)
+        fold_paths.update(few=0, select=0, stream=0)
         out, per_k, repaired, radix_passes, tiers = {}, {}, {}, {}, {}
         for k, scheme in ks.items():
             before = {s: w.launches for s, w in wrappers.items()}
@@ -3869,7 +4192,7 @@ def main() -> int:
                     lambda: run(index._pts, qr, index._norms, k=k_scan),
                     reps=2) for name, run in runs.items()}
                 extra["repair_fold_path"] = kk.fold_path(
-                    qr.shape[0], k_scan, DIM)
+                    qr.shape[0], k_scan, DIM, N)
             emit(phase, k=k, scheme=scheme, queries=qs.shape[0],
                  qps=qs.shape[0] / wall, batch_s=wall, kernel_ms=kernel_ms,
                  launches_in_calls={s: c for s, c in per_k[k].items() if c},
@@ -3916,8 +4239,8 @@ def main() -> int:
     del tree_1m
     phase_ball_highdim(pt)
     vp_config2 = phase_vp_knn(pt, wrappers, fold_rows)
-    if not (vp_config2["launches"].get("fold")
-            or vp_sift["launches"].get("fold")):
+    if not any(vp["launches"].get(s) for vp in (vp_config2, vp_sift)
+               for s in ("fold", "few")):
         raise AssertionError("the VP kernel route repaired no query: fold "
                              "did not run on its path")
     phase_serialize(pt, "vantage", vp_config2["tree"],
@@ -3970,21 +4293,23 @@ def main() -> int:
                 shape={key: repair[key] for key in ("n", "q", "d", "k")}
                 | {"plan": repair[f"plan_{repair['rule']}"]},
                 full_batch={"path": kk.fold_path(row["q"], row["k"],
-                                                 row["d"]),
+                                                 row["d"], row["n"]),
                             **{key: row[key] for key in (
                                 "q", "k", "ms", "plain_ms", "bound_ms",
                                 "library_ms", "plan")}},
                 select_source=SELECT_SOURCE,
                 launches_by_path=fold_by_path,
                 cutover={"select_q_by_d_and_k": kk.FOLD_SELECT_Q,
+                         "few_rule": kk.FEW_RULE,
                          "rule_is_faster_at": sum(r["rule_is_faster"]
                                                   for r in table),
                          "least_margin": min(r["margin"] for r in table),
                          "table_points": len(table)},
-                repairs=[{key: r[key] for key in (
+                repairs=[{key: r.get(key) for key in (
                     "shape", "q", "k", "rule", "ms", "select_ms",
-                    "stream_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "max_abs_err", "collect_passes")}
+                    "stream_ms", "few_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err",
+                    "collect_passes")}
                     for r in table if r.get("repair")])
         if scheme in ("capped", "fold"):
             # the VP tree's kernel route (PR 14): its launches in the
@@ -4018,6 +4343,37 @@ def main() -> int:
                                                       "bound_ms",
                                                       "simt_bound_ms",
                                                       "radix_passes")}
+    # the few-query kernel (no TPU counterpart): the main path's launches
+    # (the k=10 repairs), timed at the single queries' shapes (SIFT's bcap
+    # and GIST's capped at one query, k_scan 18) and at the route's repair
+    # shapes of the sweep, beside the paths the rule did not pick
+    few_at = {(r["shape"], r["q"], r["k"]): r for r in few_rows}
+    one = few_at["SIFT", 1, 18]
+    bound, by = bound_ms(one["n"], 1, one["d"], 18)
+    kernels.append({
+        "name": "knn_few", "route": "cuda", "source": FEW_SOURCE,
+        "replaces": None, "launches": launches["few"],
+        "max_abs_err": few_err, "ms": one["few_ms"],
+        "plain_ms": one["plain_ms"], "bound_ms": bound, "bound_by": by,
+        "library_ms": one["library_ms"], "tier": "fp32",
+        "shape": {key: one[key] for key in ("n", "q", "d", "k", "plan")},
+        "gist": {key: few_at["GIST", 1, 18][key] for key in (
+            "few_ms", "plain_ms", "library_ms", "bytes_bound_ms",
+            "capped_tile_ms", "capped_few_ms", "plan")},
+        "sift_bcap": {key: one[key] for key in ("bcap_tile_ms",
+                                                "bcap_few_ms")},
+        "repairs": [{key: few_at[at].get(key) for key in (
+            "shape", "q", "k", "rule", "few_ms", "select_ms", "stream_ms",
+            "bytes_bound_ms")} for at in FEW_REPAIRS],
+        "rule": kk.FEW_RULE,
+        "vp_launches": {"config2": vp_config2["launches"].get("few", 0),
+                        "sift": vp_sift["launches"].get("few", 0)},
+        "mst_launches": {
+            "hdbscan_core": mst["core_launches"].get("few", 0),
+            "dual_join_kernel": joins["_join_via_kernel"][
+                "launches"].get("few", 0)},
+        "adapter_launches": {name: got.get("few", 0)
+                             for name, got in adapters.items()}})
     for kind, row in sorts.items():
         kernels.append({
             "name": kind, "route": "cuda", "source": SORT_SOURCE,

@@ -17,6 +17,9 @@ order-identical in u; ``‖q‖²`` is added back once at the output.
   ``BCAP_BLOCK`` contiguous rows; returns block ids (``_knn_kernel_bcap``).
 * ``knn_merge``: the exact k smallest u per query for k up to 4096,
   sorted (``_knn_kernel_merge`` + ``_bitonic_merge_sorted``).
+* ``knn_few``: the exact k smallest u (or 16-row block minima) of 1 to a
+  few live queries in one pass over the index (no TPU counterpart): fold,
+  capped and bcap take it for CUDA tensors where ``few_path`` says so.
 
 Two precision tiers.  fold and fold_lazy compute u in FP32 on the SIMT
 cores (``_u``).  capped, bcap and merge compute it as the TPU kernels do at
@@ -34,9 +37,12 @@ each), fold_lazy a kernel of its own there on a wider FP32 tile product
 (128 queries × 128 rows a block) that sums each pair in fold's order; merge
 launches the radix-select passes of
 ``csrc/knn_select.cu`` and the word sort of ``csrc/row_sort.cu``.  fold
-takes one of two paths by shape (``fold_path``): small batches (the
-route's repairs) run those radix-select passes on fold's own FP32 product,
-larger ones the streaming kernel.  Each
+takes one of three paths by shape (``fold_path``): a few queries the
+few-query kernel, small batches (the route's repairs) those radix-select
+passes on fold's own FP32 product, larger ones the streaming kernel.
+capped and bcap launch the few-query kernel (``csrc/knn_few.cu``) under
+the same rule (``few_path``), whose u is FP32 in fold's order (so fold's
+bits) and whose selection is exact.  Each
 wrapper launches its kernels for CUDA tensors and runs its plain PyTorch
 version for CPU tensors.  Nothing else selects between them: a CUDA tensor
 launches the kernel or raises.
@@ -55,14 +61,17 @@ import math
 import numpy as np
 import torch
 
+from ...utils.profiling import count
+
 __all__ = ["knn_fold", "knn_fold_reference", "knn_fold_lazy",
            "knn_fold_lazy_reference", "knn_capped",
            "knn_capped_reference", "knn_bcap", "knn_bcap_reference",
            "knn_merge", "knn_merge_reference", "kernel_plan", "tc_tile",
            "split_bf16x3", "tc_proof_err", "tc_probe", "check_tc_product",
            "merge_layout", "fold_path", "FOLD_SELECT_Q",
-           "FOLD_K_MAX", "MERGE_K_MAX", "PASSES_MAX", "BCAP_BLOCK",
-           "TILE_ROWS"]
+           "knn_few", "knn_few_reference", "few_path", "few_plan",
+           "FEW_RULE", "FEW_K_MAX", "FOLD_K_MAX", "MERGE_K_MAX",
+           "PASSES_MAX", "BCAP_BLOCK", "TILE_ROWS"]
 
 #: largest working set the kernels take (knn_kernel.py:1011-1012)
 FOLD_K_MAX = 1024
@@ -198,24 +207,36 @@ def knn_merge_reference(points, queries, point_norms, *, k: int):
 
 
 def _running_topk(points, queries, point_norms, k: int, u_of=_u):
-    nq = queries.shape[0]
+    best_u, best_i = _exact_topk(
+        lambda s, e: u_of(points, queries, point_norms, s, e),
+        points.shape[0], queries.shape[0], queries.device, k)
+    qn = torch.sum(queries * queries, dim=1, keepdim=True)
+    rd = torch.where(best_i < 0, torch.inf, torch.clamp_min(best_u + qn, 0.0))
+    return rd, best_i
+
+
+def _exact_topk(scores, ncols: int, nq: int, device, k: int,
+                chunk: int = 4096):
+    """The k smallest of the (Q, ncols) scores ``scores(s, e)`` gives for
+    columns [s, e), NaN counted as +inf: a running set before each chunk in
+    a stable sort, so that a candidate enters only strictly below the k-th
+    kept value, ties inside a chunk go to the smaller column and +inf never
+    displaces an empty (+inf, -1) slot.  Returns (u (Q, k) ascending, ids
+    (Q, k) int32)."""
     best_u = torch.full((nq, k), torch.inf, dtype=torch.float32,
-                        device=queries.device)
-    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=queries.device)
-    chunk = 4096
-    for s in range(0, points.shape[0], chunk):
-        u = u_of(points, queries, point_norms, s, s + chunk)
+                        device=device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=device)
+    for s in range(0, ncols, chunk):
+        u = scores(s, min(s + chunk, ncols))
         u = torch.where(torch.isnan(u), torch.inf, u)
         ids = torch.arange(s, s + u.shape[1], dtype=torch.int32,
-                           device=queries.device).expand(nq, -1)
+                           device=device).expand(nq, -1)
         cat_u = torch.cat([best_u, u], dim=1)
         cat_i = torch.cat([best_i, ids], dim=1)
         best_u, pos = torch.sort(cat_u, dim=1, stable=True)
         best_u = best_u[:, :k]
         best_i = torch.gather(cat_i, 1, pos[:, :k])
-    qn = torch.sum(queries * queries, dim=1, keepdim=True)
-    rd = torch.where(best_i < 0, torch.inf, torch.clamp_min(best_u + qn, 0.0))
-    return rd, best_i
+    return best_u, best_i
 
 
 def _capped_select(scores, ncols: int, nq: int, device, *, k: int,
@@ -307,21 +328,26 @@ def knn_bcap_reference(points, queries, point_norms, *, k: int, tile: int,
     reproduces a launch plan's row ranges."""
     _check(points, queries, point_norms, k, "knn_bcap")
     _check_capped(k, tile, passes, "knn_bcap")
-    n = points.shape[0]
+    bd, bi, thr = _capped_select(
+        _block_minima(_u_tc, points, queries, point_norms),
+        -(-points.shape[0] // BCAP_BLOCK), queries.shape[0], queries.device,
+        k=k, tile=tile, passes=passes, splits=splits)
+    return _capped_out(queries, bd, bi, thr)
+
+
+def _block_minima(u_of, points, queries, point_norms):
+    """scores(s, e): the minima of ``u_of``'s u over the blocks [s, e) of
+    ``BCAP_BLOCK`` rows, the last block's missing rows +inf; ``amin``
+    propagates NaN, so a NaN query's minima stay NaN."""
     b = BCAP_BLOCK
 
     def scores(s, e):
-        u = _u_tc(points, queries, point_norms, s * b, e * b)
+        u = u_of(points, queries, point_norms, s * b, e * b)
         short = (e - s) * b - u.shape[1]      # the last block's missing rows
         if short:
             u = torch.nn.functional.pad(u, (0, short), value=float("inf"))
-        # amin propagates NaN: a NaN query's minima stay NaN
         return torch.amin(u.reshape(u.shape[0], e - s, b), dim=2)
-
-    bd, bi, thr = _capped_select(scores, -(-n // b), queries.shape[0],
-                                 queries.device, k=k, tile=tile,
-                                 passes=passes, splits=splits)
-    return _capped_out(queries, bd, bi, thr)
+    return scores
 
 
 @functools.lru_cache(maxsize=None)
@@ -631,26 +657,213 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
 #: k, and ties it for a few queries at k_scan 18 (the select's device time
 #: is lower, its host's launches and one read per pass are not; PERF.md §6).
 #: Past the 64 queries measured at d = 960 the streaming kernel stays.
+#: ``fold_path`` reads it only outside ``FEW_RULE``: there, at k_scan 128
+#: or less, the few-query kernel runs first; the rows still decide past
+#: the rule's counts, past k_scan 128 and past its widest width.
 FOLD_SELECT_Q = {
     128: ((18, 8, 64), (108, 1, 384), (208, 1, 768), (1008, 1, None)),
     960: ((18, 3, 64), (108, 1, 64), (208, 1, 64), (1008, 1, 64)),
 }
 
 
-def fold_path(q: int, k: int, d: int) -> str:
-    """The path ``knn_fold`` takes on the card for Q queries, k and width
-    d (``FOLD_SELECT_Q``): "select", the radix select over fold's FP32
-    product (two product passes over row ranges that fill the card), or
-    "stream", the streaming kernel (one product pass).  A rule on the shape
-    alone; nothing is timed at run time."""
+def fold_path(q: int, k: int, d: int, n: int) -> str:
+    """The path ``knn_fold`` takes on the card for Q queries, k, width d
+    and n index rows: "few", the few-query kernel, where ``few_path`` says
+    so; else by ``FOLD_SELECT_Q`` "select", the radix select over fold's
+    FP32 product (two product passes over row ranges that fill the card),
+    or "stream", the streaming kernel (one product pass).  A rule on the
+    shape alone; nothing is timed at run time."""
     if not 1 <= k <= FOLD_K_MAX:
         raise ValueError(f"knn_fold takes 1 <= k <= {FOLD_K_MAX}, got {k}")
+    if few_path(q, d, k, n):
+        return "few"
     tier = min((t for t in FOLD_SELECT_Q if d <= t),
                default=max(FOLD_SELECT_Q))
     rows = FOLD_SELECT_Q[tier]
     _, fewest, most = max((r for r in rows if r[0] <= k), default=rows[0])
     return "select" if fewest <= q and (most is None or q <= most) \
         else "stream"
+
+
+#: the few-query kernel's largest k (``csrc/knn_few.cu``'s K_MAX)
+FEW_K_MAX = 128
+
+#: ``few_path``'s rule: {measured width d: ((largest k, most queries),
+#: ...)}.  A row holds for k up to its largest k (the first row at or
+#: above k; none past them), and the few-query kernel runs for 1 <= Q <=
+#: most queries.  A width between two measured ones takes the smaller
+#: count of the two (the kernel's lead over the other paths grows with d,
+#: and its shared memory too), a width below them all the narrowest's,
+#: and none runs past the widest.  Read from chip_smoke.py's phase
+#: few_query on an NVIDIA H100 80GB HBM3 at 700 W: the kernel against
+#: fold's select and streaming paths at 1M rows of each width, k_scan 13
+#: (d = 8) or 18, 108 and 128, q = 1 to 64; each count is the largest at
+#: which the kernel was at least 5% faster than both other paths in every
+#: run (one to four runs a point).  Indexes of 10k and 100k rows gave the
+#: kernel a wider lead at every count than 1M rows did.
+FEW_RULE = {
+    2: ((18, 24), (128, 8)),
+    8: ((18, 28), (128, 8)),
+    32: ((18, 24), (128, 8)),
+    64: ((18, 32), (128, 16)),
+    128: ((18, 48), (128, 24)),
+    256: ((18, 64), (128, 48)),
+    512: ((18, 64), (128, 64)),
+    960: ((18, 64), (128, 8)),
+}
+
+
+def few_path(q: int, d: int, k: int, n: int) -> bool:
+    """Whether ``knn_fold``, ``knn_capped`` and ``knn_bcap`` take the
+    few-query kernel on the card for Q queries of width d, k and n index
+    rows (``FEW_RULE``; the kernel's ids are int32, so n < 2^31).  A rule
+    on the shape alone; nothing is timed at run time.  Outside it the
+    other kernels run as before."""
+    widths = sorted(FEW_RULE)
+    if not (1 <= q and 1 <= k <= FEW_K_MAX and 1 <= n < 2 ** 31
+            and 1 <= d <= widths[-1]):
+        return False
+    near = {max((t for t in widths if t <= d), default=widths[0]),
+            min(t for t in widths if t >= d)}
+    return q <= min(next((m for kk, m in FEW_RULE[t] if k <= kk), 0)
+                    for t in near)
+
+
+#: the few-query kernel's selections: rows (fold, capped) or 16-row block
+#: minima (bcap)
+_FEW_MODES = ("fold", "capped", "bcap")
+
+
+def knn_few_reference(points, queries, point_norms, *, k: int,
+                      mode: str = "fold"):
+    """Plain PyTorch version of the few-query kernel: the exact k smallest
+    FP32 u (``_u``) per query, of rows (``mode`` "fold" and "capped") or of
+    the minima of u over blocks of ``BCAP_BLOCK`` rows ("bcap"; the last
+    block's missing rows +inf), NaN counted as +inf, ties to the smaller id.
+    Returns (rdist (Q, k), ids (Q, k)) for "fold", and (rdist, ids, thr
+    (Q,)) otherwise, where thr is the k-th u + ‖q‖² (+inf where fewer than k
+    are finite, NaN for a NaN query): every row or block left out has rdist
+    at or above it.  rdist is u + ‖q‖² clamped at 0, (+inf, -1) in empty
+    slots; rows ascending."""
+    if mode not in _FEW_MODES:
+        raise ValueError(f"knn_few mode is one of {_FEW_MODES}, got "
+                         f"{mode!r}")
+    _check(points, queries, point_norms, k, "knn_few", FEW_K_MAX)
+    n = points.shape[0]
+    if mode == "bcap":
+        scores = _block_minima(_u, points, queries, point_norms)
+        ncols = -(-n // BCAP_BLOCK)
+    else:
+        def scores(s, e):
+            return _u(points, queries, point_norms, s, e)
+        ncols = n
+    best_u, best_i = _exact_topk(scores, ncols, queries.shape[0],
+                                 queries.device, k)
+    qn = torch.sum(queries * queries, dim=1)
+    rd = torch.where(best_i < 0, torch.inf,
+                     torch.clamp_min(best_u + qn[:, None], 0.0))
+    if mode == "fold":
+        return rd, best_i
+    return rd, best_i, best_u[:, -1] + qn
+
+
+@functools.lru_cache(maxsize=None)
+def _few_lib():
+    from ._build import load
+
+    lib = load("knn_few")
+    p = ctypes.POINTER(ctypes.c_int)
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.few_k_max.argtypes = []
+    lib.few_k_max.restype = ctypes.c_int
+    lib.few_plan.argtypes = [i, ll, i, i, i, p, p, p]
+    lib.few_plan.restype = ctypes.c_int
+    lib.few_launch.argtypes = [i] + [vp] * 8 + [ll, i, i, i, i, vp]
+    lib.few_launch.restype = ctypes.c_int
+    if lib.few_k_max() != FEW_K_MAX:
+        raise RuntimeError(f"csrc/knn_few.cu's K_MAX {lib.few_k_max()} "
+                           f"disagrees with FEW_K_MAX {FEW_K_MAX}")
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _few_plan(device_index: int, blocks: int, n: int, q: int, d: int,
+              k: int) -> dict[str, int]:
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = _few_lib().few_plan(blocks, n, q, d, k,
+                              *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"knn_few planning failed at n={n}, q={q}, d={d}, "
+                           f"k={k}: cudaError {err}")
+    return dict(zip(("tile_rows", "splits", "smem"), (v.value for v in vals)))
+
+
+def few_plan(mode: str, n: int, q: int, d: int, k: int) -> dict[str, int]:
+    """The few-query kernel's launch plan on the current card: rows a
+    tile, row ranges (splits) and the scan block's shared memory bytes."""
+    return _few_plan(torch.cuda.current_device(), int(mode == "bcap"), n, q,
+                     d, k)
+
+
+def knn_few(points, queries, point_norms, *, k: int, mode: str = "fold"):
+    """The exact k smallest u of 1 to a few live queries in one pass over
+    the index (``csrc/knn_few.cu``; no TPU kernel: it serves the shapes
+    where the wide-tile kernels had one live query in 128 or 64).
+
+    Inputs as ``knn_fold``, ``1 <= k <= FEW_K_MAX``; ``mode`` "fold",
+    "capped" or "bcap" names the contract it fills (``knn_few_reference``):
+    u is FP32, each pair summed in fold's order, so "fold" gives the
+    streaming fold kernel's rdist bits; "capped" and "bcap" add thr, the
+    exact k-th (the proof's bound on the FP32 tier,
+    ``(4 + d/2)·2⁻²³·(‖q‖² + max ‖x‖²)``, lies under the tensor-core
+    tier's at every d).  Queries run in groups of up to 16, one pass over
+    the index each.  CUDA tensors launch the scan and its merge (counted
+    in ``knn_few.launches`` and, by queries, in the profiling counter
+    ``knn.few_queries``); CPU tensors run ``knn_few_reference``.  Rows of
+    the output in no promised order; at a tie on the k-th value any of
+    the tied ids may be kept."""
+    if mode not in _FEW_MODES:
+        raise ValueError(f"knn_few mode is one of {_FEW_MODES}, got "
+                         f"{mode!r}")
+    _check(points, queries, point_norms, k, "knn_few", FEW_K_MAX)
+    if points.device.type == "cpu":
+        return knn_few_reference(points, queries, point_norms, k=k,
+                                 mode=mode)
+    out = _few(points, queries, point_norms, k, mode)
+    return out[:2] if mode == "fold" else out
+
+
+def _few(points, queries, point_norms, k: int, mode: str):
+    n, d = points.shape
+    nq = queries.shape[0]
+    if n >= 2 ** 31 or nq >= 2 ** 31:
+        raise ValueError("knn_few ids are int32: N and Q must be < 2^31")
+    points = points.contiguous()
+    queries = queries.contiguous()
+    point_norms = point_norms.contiguous()
+    dev = queries.device
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    out_t = torch.empty((0 if mode == "fold" else nq,), dtype=torch.float32,
+                        device=dev)
+    if nq == 0:
+        return out_d, out_i, out_t
+    blocks = int(mode == "bcap")
+    with torch.cuda.device(dev):
+        splits = _few_plan(_device_index(dev), blocks, n, nq, d, k)["splits"]
+        part_u = torch.empty((splits, nq, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
+        err = _few_lib().few_launch(
+            blocks, points.data_ptr(), queries.data_ptr(),
+            point_norms.data_ptr(), part_u.data_ptr(), part_i.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
+            out_t.data_ptr() if mode != "fold" else None, n, nq, d, k,
+            splits, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"knn_few kernel launch failed: cudaError {err}")
+    knn_few.launches += 1
+    count("knn.few_queries", nq)
+    return out_d, out_i, out_t
 
 
 def knn_fold(points, queries, point_norms, *, k: int,
@@ -665,31 +878,37 @@ def knn_fold(points, queries, point_norms, *, k: int,
     order: rdist is ``u + ‖q‖²`` clamped at 0; empty slots and NaN query
     rows are (+inf, -1); ids of +inf-norm rows never appear.
 
-    CUDA tensors take one of two paths by shape (``fold_path``): the
-    streaming kernel of ``csrc/knn_fold.cu``, or the radix select of
-    ``csrc/knn_select.cu`` over the same FP32 u (rows sorted); ``path``
-    ("select" or "stream") forces one, for measurement.  Both give the
-    same u and rdist bits; at a tie at the k-th value they may keep
-    different ids.  ``knn_fold.launches`` counts one per call,
+    CUDA tensors take one of three paths by shape (``fold_path``): the
+    few-query kernel (``knn_few``), the streaming kernel of
+    ``csrc/knn_fold.cu`` or the radix select of ``csrc/knn_select.cu``
+    over the same FP32 u (rows sorted); ``path`` ("few", "select" or
+    "stream") forces one, for measurement.  All give the same u and rdist
+    bits; at a tie at the k-th value they may keep different ids.
+    ``knn_fold.launches`` counts one per call on the select or stream path
+    (the few path counts in ``knn_few.launches``),
     ``knn_fold.last_path`` names the path of the last call and
     ``knn_fold.last_passes`` holds the select's collect passes per chunk of
-    queries (empty for the stream).  CPU tensors run
+    queries (empty for the others).  CPU tensors run
     ``knn_fold_reference``.
     """
     _check(points, queries, point_norms, k, "knn_fold")
-    if path not in (None, "select", "stream"):
-        raise ValueError(f"knn_fold path is 'select' or 'stream', got "
-                         f"{path!r}")
+    if path not in (None, "few", "select", "stream"):
+        raise ValueError(f"knn_fold path is 'few', 'select' or 'stream', "
+                         f"got {path!r}")
     if points.device.type == "cpu":
         return knn_fold_reference(points, queries, point_norms, k=k)
     if path is None:
-        path = fold_path(queries.shape[0], k, points.shape[1])
-    if path == "select":
+        path = fold_path(queries.shape[0], k, points.shape[1],
+                         points.shape[0])
+    passes = []
+    if path == "few":
+        out_d, out_i, _ = _few(points, queries, point_norms, k, "fold")
+    elif path == "select":
         out_d, out_i, passes = _fold_select(points, queries, point_norms, k)
     else:
         out_d, out_i, _ = _launch("fold", points, queries, point_norms, k)
-        passes = []
-    knn_fold.launches += 1
+    if path != "few":
+        knn_fold.launches += 1
     knn_fold.last_path = path
     knn_fold.last_passes = passes
     return out_d, out_i
@@ -734,7 +953,7 @@ def knn_fold_lazy(points, queries, point_norms, *, k: int):
 
 
 def knn_capped(points, queries, point_norms, *, k: int, tile: int,
-               passes: int):
+               passes: int, path: str | None = None):
     """Capped-pass streaming top-k (``_knn_kernel_capped``,
     knn_kernel.py:429): each tile of ``tile`` rows folds at most
     ``passes`` of its candidates into the working set, so true top-k
@@ -746,22 +965,46 @@ def knn_capped(points, queries, point_norms, *, k: int, tile: int,
     ``0 <= passes <= 15``; on the card ``tile`` is a multiple of 64 rows.
     Returns ``(rdist (Q, k), ids (Q, k), thr (Q,))``, unsorted, thr in the
     rdist domain (NaN for a NaN query).  Seed slots of +inf-norm rows may
-    hold (+inf, id).  CUDA tensors launch ``csrc/knn_fold.cu`` (counted in
-    ``knn_capped.launches``); CPU tensors run ``knn_capped_reference``.
+    hold (+inf, id).  CUDA tensors launch ``csrc/knn_fold.cu`` (path
+    "tile"), or, where ``few_path`` says so, the few-query kernel (path
+    "few", ``knn_few(mode="capped")``): there the set is the exact top k,
+    thr its k-th, and u the FP32 tier's, whose bound lies under
+    ``tc_proof_err``; ``path`` forces one, for measurement.  Calls on the
+    "tile" path count in ``knn_capped.launches`` (the few path in
+    ``knn_few.launches``), the last call's path is
+    ``knn_capped.last_path``; CPU tensors run ``knn_capped_reference``.
     """
     _check(points, queries, point_norms, k, "knn_capped")
     _check_capped(k, tile, passes, "knn_capped")
+    path = _capped_path("capped", path, points, queries, k)
     if points.device.type == "cpu":
         return knn_capped_reference(points, queries, point_norms, k=k,
                                     tile=tile, passes=passes)
     tc_probe(points.device)
-    out = _launch("capped", points, queries, point_norms, k, tile, passes)
-    knn_capped.launches += 1
+    if path == "few":
+        out = _few(points, queries, point_norms, k, "capped")
+    else:
+        out = _launch("capped", points, queries, point_norms, k, tile,
+                      passes)
+        knn_capped.launches += 1
+    knn_capped.last_path = path
     return out
 
 
+def _capped_path(scheme: str, path, points, queries, k: int) -> str:
+    """capped's or bcap's path on the card: ``path`` if given ("few" or
+    "tile"), else "few" where ``few_path`` says so."""
+    if path not in (None, "few", "tile"):
+        raise ValueError(f"knn_{scheme} path is 'few' or 'tile', got "
+                         f"{path!r}")
+    if path is not None:
+        return path
+    n, d = points.shape
+    return "few" if few_path(queries.shape[0], d, k, n) else "tile"
+
+
 def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
-             passes: int):
+             passes: int, path: str | None = None):
     """Block-capped streaming top-k (``_knn_kernel_bcap``,
     knn_kernel.py:546): the capped scheme over the minima of u over blocks
     of ``BCAP_BLOCK`` = 16 contiguous rows (block id b = rows [16b,
@@ -777,18 +1020,29 @@ def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
     ``tile`` is a multiple of 4 blocks (``TILE_ROWS`` rows; ValueError
     otherwise).  Returns ``(block-min rdist (Q, k), block ids (Q, k), thr
     (Q,))`` as ``knn_capped``.  CUDA tensors launch ``csrc/knn_fold.cu``
-    (counted in ``knn_bcap.launches``); CPU tensors run
+    (path "tile"), or, where ``few_path`` says so, the few-query kernel
+    (path "few", ``knn_few(mode="bcap")``): the exact k smallest block
+    minima of the FP32 tier's u, thr the k-th.  The block minima equal
+    ``bcap_minima``'s bit for bit on the "tile" path only.  ``path``
+    forces one, for measurement; calls on the "tile" path count in
+    ``knn_bcap.launches`` (the few path in ``knn_few.launches``), the last
+    call's path is ``knn_bcap.last_path``; CPU tensors run
     ``knn_bcap_reference``.
     """
     _check(points, queries, point_norms, k, "knn_bcap")
     _check_capped(k, tile, passes, "knn_bcap")
+    path = _capped_path("bcap", path, points, queries, k)
     if points.device.type == "cpu":
         return knn_bcap_reference(points, queries, point_norms, k=k,
                                   tile=tile, passes=passes)
     _tile_tiles("bcap", tile)
     tc_probe(points.device)
-    out = _launch("bcap", points, queries, point_norms, k, tile, passes)
-    knn_bcap.launches += 1
+    if path == "few":
+        out = _few(points, queries, point_norms, k, "bcap")
+    else:
+        out = _launch("bcap", points, queries, point_norms, k, tile, passes)
+        knn_bcap.launches += 1
+    knn_bcap.last_path = path
     return out
 
 
@@ -955,4 +1209,7 @@ knn_fold.last_path = None
 knn_fold.last_passes = []
 knn_fold_lazy.launches = 0
 knn_capped.launches = 0
+knn_capped.last_path = None
 knn_bcap.launches = 0
+knn_bcap.last_path = None
+knn_few.launches = 0

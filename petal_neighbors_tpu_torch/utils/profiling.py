@@ -28,7 +28,9 @@ profiler recording it is a shared no-op context.  The spans:
 ``count`` adds to in-memory integer counters, always on: one dict update,
 never a sync with the card.  ``route.queries`` counts the queries of every
 ``knn_prepadded`` call; ``route.repaired`` the queries its proof left to
-the repair.  ``counters`` returns a copy, ``reset_counters`` clears them.
+the repair; ``knn.few_queries`` the queries of every launch of the
+few-query kernel (``ops.cuda.knn_kernel.knn_few``).  ``counters`` returns
+a copy, ``reset_counters`` clears them.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""fold for the shapes the route runs it at: the cutover between its two
+"""fold for the shapes the route runs it at: the choice between its
 paths on the card (``fold_path``), the select path's layout, and
 ``knn_fold`` (its plain version on the CPU) against the JAX fold kernel in
 interpret mode at the route's repair shapes; then the route's repair
@@ -23,9 +23,10 @@ TQ, TN, D = 8, 512, 64
 
 #: the route's fold repairs at 1M rows (PERF.md §5): (queries, k_scan, d,
 #: the path fold_path must take there)
-REPAIRS = ((5, 18, 128, "stream"), (187, 108, 128, "select"),
+REPAIRS = ((5, 18, 128, "few"), (187, 108, 128, "select"),
            (47, 208, 128, "select"), (56, 1008, 128, "select"),
-           (1, 18, 960, "stream"), (2, 18, 960, "stream"))
+           (1, 18, 960, "few"), (2, 18, 960, "few"))
+N_ROWS = 10 ** 6
 
 
 def _inputs(seed, n, q, nan_rows=(), nan_queries=()):
@@ -72,10 +73,11 @@ def _boundary_tied(pts, q, k):
 @pytest.mark.parametrize("q,k,d,path", REPAIRS)
 def test_repairs_take_the_faster_path(q, k, d, path):
     """Every repair shape of the route takes the path chip_smoke.py's
-    timing on the card (phase fold_paths) found faster there, or the
-    streaming kernel where the two tie within its run-to-run spread
-    (k_scan 18 with a few queries: SIFT's 5, GIST's one and two)."""
-    assert kk.fold_path(q, k, d) == path
+    timing on the card (phases fold_paths and few_query) found fastest
+    there: the few-query kernel at k_scan 18 with a few queries (SIFT's 5,
+    GIST's one and two), the select above FEW_K_MAX or the rule's
+    counts."""
+    assert kk.fold_path(q, k, d, N_ROWS) == path
 
 
 @pytest.mark.parametrize("k", [18, 108, 208])
@@ -83,8 +85,8 @@ def test_full_batches_at_small_k_stay_on_the_streaming_kernel(k):
     """10,240 queries at k_scan 18, 108 and 208 take the streaming kernel
     (two product passes cost more than fold's one there); at k_scan 1008
     the select is faster even there."""
-    assert kk.fold_path(10240, k, 128) == "stream"
-    assert kk.fold_path(10240, 1008, 128) == "select"
+    assert kk.fold_path(10240, k, 128, N_ROWS) == "stream"
+    assert kk.fold_path(10240, 1008, 128, N_ROWS) == "select"
 
 
 @pytest.mark.parametrize("tier", sorted(kk.FOLD_SELECT_Q))
@@ -92,7 +94,22 @@ def test_fold_path_follows_its_table(tier):
     """The rule is FOLD_SELECT_Q read as documented: a width takes the
     narrowest tier at or above it (the widest past them all), a k the row
     of the largest k_scan at or below it (the first below them all), and
-    a row selects for fewest <= Q <= most."""
+    a row selects for fewest <= Q <= most; wherever ``few_path`` takes
+    the shape, the few-query kernel runs first."""
+    def path(q, k, d):
+        got = kk.fold_path(q, k, d, N_ROWS)
+        if kk.few_path(q, d, k, N_ROWS):
+            assert got == "few"
+            return table(q, k, d)
+        return got
+
+    def table(q, k, d):
+        _, fewest, most = max((r for r in kk.FOLD_SELECT_Q[tier]
+                               if r[0] <= k),
+                              default=kk.FOLD_SELECT_Q[tier][0])
+        return "select" if fewest <= q and (most is None or q <= most) \
+            else "stream"
+
     rows = kk.FOLD_SELECT_Q[tier]
     assert [r[0] for r in rows] == sorted(r[0] for r in rows)
     assert rows[0][0] <= 18 and rows[-1][0] <= kk.FOLD_K_MAX
@@ -106,20 +123,20 @@ def test_fold_path_follows_its_table(tier):
         for d in widths:
             for k in ks:
                 if fewest > 1:
-                    assert kk.fold_path(fewest - 1, k, d) == "stream"
+                    assert path(fewest - 1, k, d) == "stream"
                 if most is None:
-                    assert kk.fold_path(10 ** 6, k, d) == "select"
+                    assert path(10 ** 6, k, d) == "select"
                     continue
                 if fewest <= most:
-                    assert kk.fold_path(fewest, k, d) == "select"
-                    assert kk.fold_path(most, k, d) == "select"
-                assert kk.fold_path(most + 1, k, d) == "stream"
+                    assert path(fewest, k, d) == "select"
+                    assert path(most, k, d) == "select"
+                assert path(most + 1, k, d) == "stream"
 
 
 @pytest.mark.parametrize("k", [0, kk.FOLD_K_MAX + 1])
 def test_fold_path_rejects_k_out_of_range(k):
     with pytest.raises(ValueError):
-        kk.fold_path(5, k, 128)
+        kk.fold_path(5, k, 128, N_ROWS)
 
 
 @pytest.mark.parametrize("n", [1, 700, 70001, 1_000_000])
