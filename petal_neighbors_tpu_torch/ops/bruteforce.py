@@ -549,8 +549,9 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
       ``last_two_phase_fallback`` records whether the last call did.
 
     ``last_proof_tier`` records the tier of the last call's proof.  The
-    call counts its queries in ``route.queries`` and records its stages in
-    ``petal.route.*`` spans (``utils.profiling``).
+    call counts its queries in ``route.queries`` (the normalised ones also
+    in ``route.normalized``) and records its stages in ``petal.route.*``
+    spans (``utils.profiling``).
 
     Returns (distances, ids), (Q, k_eff), ascending; NaN queries and
     missing slots are (+inf, -1)."""
@@ -573,8 +574,10 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
             if center is not None:
                 queries = queries - center
             if normalize_q:
-                queries = queries / torch.sqrt(
-                    torch.sum(queries * queries, dim=-1, keepdim=True))
+                count("route.normalized", queries.shape[0])
+                with span("petal.route.normalize"):
+                    queries = queries / torch.sqrt(
+                        torch.sum(queries * queries, dim=-1, keepdim=True))
             if proof_gated:
                 qn = torch.sum(queries * queries, dim=1)
                 xn_max = torch.max(torch.where(torch.isfinite(xn_padded),

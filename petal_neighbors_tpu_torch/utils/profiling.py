@@ -19,7 +19,9 @@ profiler recording it is a shared no-op context.  The spans:
   the scheme's pick and the route (the Lp and scan routes have no spans
   below it);
 * ``petal.route``: ``ops.bruteforce.knn_prepadded``, and inside it
-  ``petal.route.prep`` (centring, normalising, the proof's error bound),
+  ``petal.route.prep`` (centring, normalising, the proof's error bound;
+  inside it ``petal.route.normalize``, a cosine index's query
+  normalisation),
   ``petal.route.candidates`` (the candidate kernel), ``petal.route.rescore``
   (the direct-form rescore and re-rank), ``petal.route.proof`` (the k-th
   distance against the threshold), ``petal.route.repair`` (the body of
@@ -27,8 +29,9 @@ profiler recording it is a shared no-op context.  The spans:
 
 ``count`` adds to in-memory integer counters, always on: one dict update,
 never a sync with the card.  ``route.queries`` counts the queries of every
-``knn_prepadded`` call; ``route.repaired`` the queries its proof left to
-the repair; ``knn.few_queries`` the queries of every launch of the
+``knn_prepadded`` call; ``route.normalized`` those it normalised (a
+cosine index's); ``route.repaired`` the queries its proof left to the
+repair; ``knn.few_queries`` the queries of every launch of the
 few-query kernel (``ops.cuda.knn_kernel.knn_few``).  ``counters`` returns
 a copy, ``reset_counters`` clears them.
 """
