@@ -9,7 +9,9 @@ Phases, each printed as one JSON line on stdout:
               petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc; then
               build_ptxas, each kernel's registers, spills and stack frame
               from ``-Xptxas -v`` (knn_fold.cu, knn_select.cu,
-              knn_minima.cu, mst_scan.cu).
+              knn_minima.cu, mst_scan.cu), and the kernels of the
+              tensor-core core whose wgmma ptxas serialized
+              (``wgmma_notes``).
    tc_probe — the tensor-core tier's integrity probe (knn_kernel.tc_probe):
               its largest |u - u_f64| over the tier's bound, at most 1.
    mst_kernel_small — the Borůvka scan kernel (csrc/mst_scan.cu)
@@ -404,6 +406,17 @@ def ptxas_summary(log: str) -> list:
             if m:
                 cur[1] = int(m.group(1))
     return out
+
+
+def wgmma_notes(log: str) -> list:
+    """ptxas's notes that it serialized a kernel's wgmma (its "Potential
+    Performance Loss" lines, such as C7518 and C7520): [code, entry]
+    each."""
+    import re
+
+    return [[m.group(1), m.group(2)] for m in re.finditer(
+        r"\((C\d+)\) Potential Performance Loss: wgmma[^\n]*?serialized"
+        r"[^\n]*?function '([^']+)'", log)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -4059,7 +4072,9 @@ def main() -> int:
                            logs.items() if name in ("knn_fold",
                                                     "knn_select",
                                                     "knn_minima",
-                                                    "mst_scan")})
+                                                    "mst_scan")},
+         wgmma_notes={name: wgmma_notes(log) for name, log in logs.items()
+                      if name in ("knn_fold", "knn_select", "knn_minima")})
     tc_ratio = phase_tc_probe()
     mst_cases = phase_mst_kernel_small()
 

@@ -16,8 +16,8 @@
 // fold_lazy on its wider sibling wide::scan (lazy_kernel below; the same
 // FP32 sums, bit for bit); capped and bcap on the split-bf16 tensor-core
 // product (knn_tc.cuh), the TPU kernels' "highest" arithmetic: capped reads its u
-// tile (tc::scan), bcap only the 16-row block minima reduced in the mma
-// registers (tc::scan_minima), bit for bit knn_minima.cu's.  The Euclidean merge
+// tile (tc::scan), bcap only the 16-row block minima reduced in the
+// accumulator registers (tc::scan_minima), bit for bit knn_minima.cu's.  The Euclidean merge
 // (_knn_kernel_merge) lives in knn_select.cu, on the tensor-core product.
 // MODE_FOLD serves fold's large batches; small ones (the route's repairs)
 // run knn_select.cu's radix select over the same u (fold_pass_kernel), as
@@ -995,14 +995,19 @@ void knn_constants(int* tq, int* lazy_tq, int* tn, int* block,
 }
 
 // The tensor-core product's tile: queries and rows per tile, features per
-// staged chunk, bf16 pieces per element and piece products per pair.
-void knn_tc_constants(int* tq, int* tn, int* dc, int* pieces,
-                      int* products) {
+// staged chunk, bf16 pieces per element and piece products per pair; one
+// warpgroup's wgmma (query rows, point rows) and the plane buffers of a
+// streamed operand.
+void knn_tc_constants(int* tq, int* tn, int* dc, int* pieces, int* products,
+                      int* wg_m, int* wg_n, int* bufs) {
   *tq = tc::TQ;
   *tn = tc::TN;
   *dc = tc::DC;
   *pieces = tc::PIECES;
   *products = tc::PRODUCTS;
+  *wg_m = tc::WG_M;
+  *wg_n = tc::WG_N;
+  *bufs = tc::BUFS;
 }
 
 // The launch plan for a problem: where the working set lives (shared

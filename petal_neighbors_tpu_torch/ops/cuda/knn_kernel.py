@@ -26,8 +26,9 @@ cores (``_u``).  capped, bcap and merge compute it as the TPU kernels do at
 ``precision="highest"``, a six-pass bf16 product: each operand element is
 split into three bf16 pieces (``split_bf16x3``) and the six products hh,
 hm, mh, hl, lh and mm are summed in f32 (``_u_tc``), on the card by the
-tensor cores (``csrc/knn_tc.cuh``; bcap reduces each 16-row block to its
-minimum in the mma registers).  ``tc_proof_err`` is that tier's
+tensor cores (``csrc/knn_tc.cuh``: asynchronous ``wgmma`` on swizzled piece
+planes; bcap reduces each 16-row block to its minimum in the accumulator
+registers).  ``tc_proof_err`` is that tier's
 pointwise error bound, and ``tc_probe`` holds the card's product to it once
 per process and device before the first tensor-core launch, raising
 ``RuntimeError`` on a breach.
@@ -358,7 +359,7 @@ def _lib():
     p = ctypes.POINTER(ctypes.c_int)
     lib.knn_constants.argtypes = [p] * 6
     lib.knn_constants.restype = None
-    lib.knn_tc_constants.argtypes = [p] * 5
+    lib.knn_tc_constants.argtypes = [p] * 8
     lib.knn_tc_constants.restype = None
     lib.knn_plan.argtypes = [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -431,11 +432,13 @@ def _constants() -> dict[str, int]:
 def tc_tile() -> dict[str, int]:
     """The tensor-core product's tile on the card (``csrc/knn_tc.cuh``):
     queries and point rows per tile, features per staged chunk, bf16 pieces
-    per element and piece products per pair."""
-    vals = [ctypes.c_int(0) for _ in range(5)]
+    per element and piece products per pair; the query and point rows of
+    one warpgroup's ``wgmma`` (``wg_m``, ``wg_n``) and the plane buffers
+    of a streamed operand."""
+    vals = [ctypes.c_int(0) for _ in range(8)]
     _lib().knn_tc_constants(*(ctypes.byref(v) for v in vals))
-    return dict(zip(("tq", "tn", "dc", "pieces", "products"),
-                    (v.value for v in vals)))
+    return dict(zip(("tq", "tn", "dc", "pieces", "products", "wg_m", "wg_n",
+                     "bufs"), (v.value for v in vals)))
 
 
 def _block_queries(scheme: str) -> int:

@@ -1,6 +1,8 @@
 """The tensor-core tier of the port (the split-bf16 product of the capped
 and merge kernels), as it runs on the CPU: the three-piece split, the
-plain product ``_u_tc`` against f64 within its proof bound, the integrity
+plain product ``_u_tc`` and the card's accumulation order (one float32
+rounding per piece product per 16-feature step, ``_u_core_order``) against
+f64 within its proof bound, the integrity
 check and its ``RuntimeError``, the capped and merge plain versions on
 ``_u_tc`` against the JAX kernels at ``precision="highest"`` in interpret
 mode, and the merge's layout (merge's edge rows are in
@@ -72,6 +74,53 @@ def test_u_tc_within_bound_of_f64(d):
     bound = kk.tc_proof_err(d, torch.sum(q * q, 1).double(),
                             xn.double().max())[:, None]
     assert bool(((u.double() - u64).abs() <= bound).all())
+
+
+#: the piece products in the order the card's core issues them each k-step
+#: (csrc/knn_tc.cuh ``issue``): hh, hm, mh, hl, lh, mm as (query piece,
+#: point piece)
+_PRODUCT_ORDER = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
+
+
+def _u_core_order(points, queries, point_norms):
+    """u as the card's core accumulates it: features zero-padded to a
+    multiple of 16; for each 16-feature k-step in ascending order, the six
+    piece products in ``_PRODUCT_ORDER``, each adding the exact sum of its
+    16 piece products (bf16 x bf16 is exact; summed in float64) to the
+    float32 accumulator with one float32 rounding; then u = ||x||^2 -
+    2 acc in float32."""
+    pad = (-points.shape[1]) % 16
+    qp = [t.double() for t in kk.split_bf16x3(
+        torch.nn.functional.pad(queries, (0, pad)))]
+    xp = [t.double() for t in kk.split_bf16x3(
+        torch.nn.functional.pad(points, (0, pad)))]
+    acc = torch.zeros((queries.shape[0], points.shape[0]),
+                      dtype=torch.float32)
+    for k0 in range(0, points.shape[1] + pad, 16):
+        for a, b in _PRODUCT_ORDER:
+            step = qp[a][:, k0:k0 + 16] @ xp[b][:, k0:k0 + 16].T
+            acc = (acc.double() + step).float()
+    return point_norms[None, :] - 2.0 * acc
+
+
+@pytest.mark.parametrize("d", [2, 100, 128, 960])
+def test_core_accumulation_order_within_bound(d):
+    """The core's accumulation order (one float32 rounding per product per
+    16-feature step, ``_u_core_order``) on the probe distribution stays
+    within ``tc_proof_err`` of the f64 u at one k-step (d = 2), at a width
+    no multiple of 16 (d = 100) and at the cells' 128 and 960."""
+    pts, qs = kk._probe_inputs(d)
+    p, q = torch.from_numpy(pts), torch.from_numpy(qs)
+    xn = torch.sum(p * p, dim=1)
+    u = _u_core_order(p, q, xn)
+    u64 = xn.double()[None, :] - 2.0 * (q.double() @ p.double().T)
+    bound = kk.tc_proof_err(d, torch.sum(q * q, 1).double(),
+                            xn.double().max())[:, None]
+    assert bool(((u.double() - u64).abs() <= bound).all())
+    # the order is not the only one within the bound: the plain product's
+    # float32 sums of whole matmuls lie within it too
+    u_plain = kk._u_tc(p, q, xn, 0, p.shape[0])
+    assert bool(((u_plain.double() - u64).abs() <= bound).all())
 
 
 def test_proof_err_tiers():
