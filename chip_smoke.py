@@ -78,22 +78,23 @@ Phases, each printed as one JSON line on stdout:
               knn_kernel.FOLD_SELECT_Q was read from it.
    few_query — the few-query kernel (csrc/knn_few.cu) timed in turns
               with fold's select and streaming paths (at k_scan 18 and 1
-              to 4 queries also the tensor-core capped and bcap kernels the
-              single queries ran) over FEW_SWEEP: SIFT (the main index) and
+              to 4 queries also the tensor-core capped and bcap kernels
+              the single queries' schemes name, and ``knn_few`` itself,
+              each called directly) over FEW_SWEEP: SIFT (the main index) and
               GIST 1M x 960, 1M rows of d = 2, 8 (the MST core pass's
               repair, 31 queries at k_scan 13), 32, 64, 256 and 512, at q =
               1 to 64 and k_scan 18, 108 and 128; 100k x 2 (config 2's VP
               repair, 10 queries), 10k x 128 and 10k x 960; beside the
               bytes bound, the path ``fold_path`` picks and its margin; at
-              one query also the plain version and the library call.  fold
-              mode's rdist equal to the streaming kernel's bit for bit at
-              every point; the three modes against their plain version at
-              FEW_COMPARE_Q queries (SIFT: fold and bcap at k_scan 18,
-              capped at 108; GIST: fold and capped at 18); then the route
-              (its proof and repair unchanged) on 1 to 4 queries at k=10
-              over SIFT (bcap) and GIST (capped) and k=100 over SIFT
-              (capped): the few path taken, no query repaired, ids against
-              an f64 oracle; and 50 single queries a shape through
+              one query also the plain version and the library call.  The
+              kernel's rdist equal to the streaming kernel's bit for bit at
+              every point; the kernel against its plain version at
+              FEW_COMPARE_Q queries (SIFT: k_scan 18 and 108; GIST: 18);
+              then the route on 1 to 4 queries at k=10 over SIFT (bcap)
+              and GIST (capped) and k=100 over SIFT (capped): the fold
+              route on the few-query kernel, no tile kernel, no query
+              repaired, ids against an f64 oracle; and 50 single queries a
+              shape through
               ``BruteForce.query``, every one counted in
               ``knn.few_queries``.  knn_kernel.FEW_RULE was read from it.
 4. main     — ``BruteForce.euclidean`` over 1M x 128 f32 points (seed 7,
@@ -665,7 +666,7 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
                else kk.knn_bcap_reference)
         return ref(pp, qt, pn, k=k, tile=tile, passes=passes, splits=splits)
     run = kk.knn_capped if scheme == "capped" else kk.knn_bcap
-    return run(pp, qt, pn, k=k, tile=tile, passes=passes, path="tile")
+    return run(pp, qt, pn, k=k, tile=tile, passes=passes)
 
 
 def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
@@ -676,24 +677,25 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
 
     Tolerance: the two sum the d-term dot product in different orders, so
     a score may differ by the f32 accumulation bound d*2^-24*(‖q‖²+‖x‖²)
-    (the JAX package's _proof_err accumulation term); sorted rdist and
+    (the accumulation term of the FP32 tier's bound); sorted rdist and
     thresholds must agree within twice that.  Where a row's id sets
     differ, its differing ids, paired in rdist order, must lie within that
     band of each other: near ties may fall either way, in the capped and
     bcap schemes also at a pass's `u < tau` test.
 
     ``tier_band`` takes instead twice the proof bound of the tier that
-    made the scores (``_proof_err``: "tc" for capped, bcap and merge,
-    "fp32" for the folds): each side lies within it of the exact score.
+    made the scores (``tc_proof_err`` for capped, bcap and merge,
+    ``fp32_err`` for the folds): each side lies within it of the exact
+    score.
     It also covers the fixed roundings (‖x‖² − 2q·x, + ‖q‖²) and the six
     products a feature of the tensor-core tier, which the accumulation
     term alone leaves out at small d (d = 2: the VP tree's config 2)."""
     from petal_neighbors_tpu_torch.ops.cuda.knn_kernel import (
-        few_plan, kernel_plan)
+        few_plan, kernel_plan, tc_proof_err)
 
     if scheme == "fold_few":
-        plan = (few_plan("fold", pp.shape[0], qt.shape[0], pp.shape[1],
-                         k)["splits"], True)
+        plan = (few_plan(pp.shape[0], qt.shape[0], pp.shape[1], k)["splits"],
+                True)
     else:
         plan = kernel_plan("fold" if scheme == "fold_stream" else scheme,
                            pp.shape[0], qt.shape[0], pp.shape[1], k, tile)
@@ -712,10 +714,8 @@ def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
     qn = torch.sum(qt * qt, dim=1)
     band = 2.0 * pp.shape[1] * 2.0 ** -24 * (qn + xn_max)
     if tier_band:
-        from petal_neighbors_tpu_torch.ops.bruteforce import _proof_err
-
-        band = 2.0 * _proof_err(pp.shape[1], qn, xn_max, tier="tc" if
-                                scheme in TC_SCHEMES else "fp32")
+        tier_err = tc_proof_err if scheme in TC_SCHEMES else fp32_err
+        band = 2.0 * tier_err(pp.shape[1], qn, xn_max)
     fin = torch.isfinite(rd_p)
     if not torch.equal(fin, torch.isfinite(rd_k)):
         raise AssertionError(f"{scheme} k={k}: finite slots differ")
@@ -901,8 +901,7 @@ def bcap_is_minima(pp, qt, pn, k: int, tile: int, passes: int) -> int:
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
     from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
 
-    rd, ids, _ = kk.knn_bcap(pp, qt, pn, k=k, tile=tile, passes=passes,
-                             path="tile")
+    rd, ids, _ = kk.knn_bcap(pp, qt, pn, k=k, tile=tile, passes=passes)
     minima = mk.bcap_minima(pp, qt, pn)
     got = ids >= 0
     u = torch.where(got, torch.gather(minima, 1, ids.clamp_min(0).long()),
@@ -1267,7 +1266,7 @@ def fold_table(pp, pn, qc, shape: str) -> list:
                        plan_select=kk.kernel_plan("fold_select", n, q, d, k),
                        plan_stream=kk.kernel_plan("fold", n, q, d, k))
             if rule == "few":
-                row["plan_few"] = kk.few_plan("fold", n, q, d, k)
+                row["plan_few"] = kk.few_plan(n, q, d, k)
             if (shape, q, k) in REPAIR_SHAPES:
                 rd_s, _ = kk.knn_fold(pp, qt, pn, k=k, path="select")
                 for other in paths[1:]:
@@ -1311,10 +1310,10 @@ FEW_SWEEP = (("SIFT", N, DIM, (18, 108, 128),
               (1, 4, 16, 32, 48, 64)),
              ("n10k", 10_000, 128, (18, 128), (1, 4, 16, 32, 64)),
              ("n10k_d960", 10_000, 960, (18, 128), (1, 4, 8, 16, 64)))
-#: the single queries' candidate kernels (k_scan 18): the tensor-core
-#: kernel the route ran before, by shape
+#: the tile kernel of the single queries' scheme by shape (k_scan 18),
+#: which the route replaces with the few-query kernel
 FEW_SINGLE = {"SIFT": "bcap", "GIST": "capped"}
-#: the query counts each mode is held to its plain version at: one
+#: the query counts the kernel is held to its plain version at: one
 #: query (one row a thread, 128-feature chunks), two, three (a group of
 #: four) and sixteen (the widest group)
 FEW_COMPARE_Q = (1, 2, 3, 16)
@@ -1324,64 +1323,53 @@ FEW_REPAIRS = (("SIFT", 5, 18), ("SIFT", 19, 18), ("GIST", 1, 18),
                ("GIST", 2, 18), ("MST", 31, 13), ("config2", 10, 18))
 
 
-def few_compare(mode: str, pp, qt, pn, k: int) -> float:
-    """The few-query kernel in ``mode`` against its plain version on the
-    card: sorted rdist and thr within twice the FP32 tier's bound, every
-    id's float64 distance within it of the plain version's, no id twice,
-    NaN queries (+inf, -1) and NaN thr.  Returns the largest error."""
-    from petal_neighbors_tpu_torch.ops.bruteforce import _proof_err
+def fp32_err(dim: int, qn, xn_max):
+    """The FP32 SIMT product's pointwise bound on |u − true u| (fold,
+    fold_lazy and the few-query kernel): 4x the f32 rounding plus the
+    sequential-sum term d·2⁻²⁴, times ‖q‖² + max ‖x‖²."""
+    return (4.0 * 2.0 ** -23 + dim * 2.0 ** -24) * (qn + xn_max)
+
+
+def few_compare(pp, qt, pn, k: int) -> float:
+    """The few-query kernel against its plain version on the card: sorted
+    rdist within twice the FP32 tier's bound, every id's float64 distance
+    within it of the plain version's, no id twice, NaN queries (+inf, -1).
+    Returns the largest error."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
-    out = kk.knn_few(pp, qt, pn, k=k, mode=mode)
-    ref = kk.knn_few_reference(pp, qt, pn, k=k, mode=mode)
+    out = kk.knn_few(pp, qt, pn, k=k)
+    ref = kk.knn_few_reference(pp, qt, pn, k=k)
     torch.cuda.synchronize()
     xn_max = torch.where(torch.isfinite(pn), pn, 0.0).max()
-    band = 2.0 * _proof_err(pp.shape[1], torch.sum(qt * qt, dim=1), xn_max)
+    band = 2.0 * fp32_err(pp.shape[1], torch.sum(qt * qt, dim=1), xn_max)
     rd_k, rd_p = torch.sort(out[0], 1).values, torch.sort(ref[0], 1).values
     fin = torch.isfinite(rd_p)
     if not torch.equal(fin, torch.isfinite(rd_k)):
-        raise AssertionError(f"few {mode} k={k}: finite slots differ")
+        raise AssertionError(f"few k={k}: finite slots differ")
     diff = torch.where(fin, (rd_k - rd_p).abs(), 0.0)
     err = float(diff.max())
     if bool((diff > band[:, None]).any()):
-        raise AssertionError(f"few {mode} k={k}: rdist off by {err}")
-    rows = 16 if mode == "bcap" else 1
+        raise AssertionError(f"few k={k}: rdist off by {err}")
 
     def rd64(ids):
-        r = (ids.clamp_min(0).long()[:, :, None] * rows
-             + torch.arange(rows, device=ids.device))
-        ok = (r < pp.shape[0]) & torch.isfinite(pn[r.clamp_max(
-            pp.shape[0] - 1)])
-        diff = qt.double()[:, None, None, :] - pp.double()[
-            r.clamp_max(pp.shape[0] - 1)]
-        v = torch.where(ok, (diff * diff).sum(-1), torch.inf).amin(-1)
+        r = ids.clamp_min(0).long()
+        diff = qt.double()[:, None, :] - pp.double()[r]
+        v = torch.where(torch.isfinite(pn[r]), (diff * diff).sum(-1),
+                        torch.inf)
         return torch.sort(torch.where(ids >= 0, v, torch.inf), 1).values
 
     a, b = rd64(out[1]), rd64(ref[1])
     gap = torch.where(torch.isfinite(b), (a - b).abs(), 0.0)
     if bool((gap > band.double()[:, None]).any()):
-        raise AssertionError(f"few {mode} k={k}: ids farther than the "
-                             "plain version's")
+        raise AssertionError(f"few k={k}: ids farther than the plain "
+                             "version's")
     for r in out[1].tolist():
         kept = [x for x in r if x >= 0]
         if len(kept) != len(set(kept)):
-            raise AssertionError(f"few {mode} k={k}: an id twice")
+            raise AssertionError(f"few k={k}: an id twice")
     nanq = torch.isnan(qt).any(dim=1)
     if bool((out[1][nanq] != -1).any()):
-        raise AssertionError(f"few {mode}: a NaN query picked up results")
-    if mode != "fold":
-        t_k, t_p = out[2], ref[2]
-        if not torch.equal(torch.isnan(t_k), nanq):
-            raise AssertionError(f"few {mode}: NaN thresholds off NaN "
-                                 "queries")
-        tf = torch.isfinite(t_p)
-        if not torch.equal(tf, torch.isfinite(t_k)):
-            raise AssertionError(f"few {mode}: finite thresholds differ")
-        tdiff = torch.where(tf, (t_k - t_p).abs(), 0.0)
-        if bool((tdiff > band).any()):
-            raise AssertionError(f"few {mode} k={k}: thr off by "
-                                 f"{float(tdiff.max())}")
-        err = max(err, float(tdiff.max()))
+        raise AssertionError("few: a NaN query picked up results")
     return err
 
 
@@ -1391,12 +1379,12 @@ def few_sweep(label: str, pp, pn, qc, ks, qs_) -> list:
     few-query kernel ("few") and the select and streaming paths it
     replaces, beside the bytes bound, the path ``fold_path`` picks
     (``rule``) and the best other path's time over the picked one's
-    (``margin``, above 1 where the rule picked the fastest); fold mode's
-    sorted rdist held to the streaming kernel's bit for bit.  At k_scan 18
-    and up to 4 queries of SIFT and GIST also the tensor-core kernel the
-    single queries ran (FEW_SINGLE) and the few-query kernel in that mode;
-    at one query the plain version and the library call.  Returns the
-    rows."""
+    (``margin``, above 1 where the rule picked the fastest); the
+    few-query kernel's sorted rdist held to the streaming kernel's bit for
+    bit.  At k_scan 18 and up to 4 queries of SIFT and GIST also the tile
+    kernel of the single queries' scheme (FEW_SINGLE) and ``knn_few``,
+    each called directly; at one query the plain version and the library
+    call.  Returns the rows."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
     n, d = pp.shape
@@ -1409,7 +1397,7 @@ def few_sweep(label: str, pp, pn, qc, ks, qs_) -> list:
                        rule=kk.fold_path(q, k, d, n))
             paths = ("few", "select", "stream")
             try:
-                row["plan"] = kk.few_plan("fold", n, q, d, k)
+                row["plan"] = kk.few_plan(n, q, d, k)
             except RuntimeError as e:
                 # the group's shared memory is over the card's limit
                 if row["rule"] == "few":
@@ -1433,19 +1421,17 @@ def few_sweep(label: str, pp, pn, qc, ks, qs_) -> list:
                 row["bits_equal_stream"] = bool(torch.equal(
                     torch.sort(rd_f, 1).values, torch.sort(rd_s, 1).values))
                 if not row["bits_equal_stream"]:
-                    raise AssertionError(f"few {label} q={q} k={k}: fold "
-                                         "mode's rdist differ from the "
-                                         "streaming kernel's")
-            mode = FEW_SINGLE.get(label)
-            if mode and k == 18 and q <= 4:
-                kb, tile, passes = kernel_args(mode, 10, n)
-                run = kk.knn_bcap if mode == "bcap" else kk.knn_capped
-                row[f"{mode}_tile_ms"] = cuda_ms(lambda: run(
-                    pp, qt, pn, k=kb, tile=tile, passes=passes,
-                    path="tile"), reps=3)
-                row[f"{mode}_few_ms"] = cuda_ms(lambda: run(
-                    pp, qt, pn, k=kb, tile=tile, passes=passes,
-                    path="few"), reps=10)
+                    raise AssertionError(f"few {label} q={q} k={k}: the "
+                                         "few-query kernel's rdist differ "
+                                         "from the streaming kernel's")
+            scheme = FEW_SINGLE.get(label)
+            if scheme and k == 18 and q <= 4:
+                kb, tile, passes = kernel_args(scheme, 10, n)
+                run = kk.knn_bcap if scheme == "bcap" else kk.knn_capped
+                row[f"{scheme}_tile_ms"] = cuda_ms(lambda: run(
+                    pp, qt, pn, k=kb, tile=tile, passes=passes), reps=3)
+                row["knn_few_ms"] = cuda_ms(lambda: kk.knn_few(
+                    pp, qt, pn, k=k), reps=10)
             if q == 1:
                 row["plain_ms"] = cuda_ms(lambda: kk.knn_few_reference(
                     pp, qt, pn, k=k), reps=1, warm=0)
@@ -1458,25 +1444,29 @@ def few_sweep(label: str, pp, pn, qc, ks, qs_) -> list:
 
 def few_route(label: str, index, pdev, qdev, k: int, scheme: str) -> dict:
     """The route on 1 to 4 queries at ``k`` (``scheme`` its pick): the
-    candidate kernel takes the few path, the proof leaves no query to the
-    repair, and every id is the f64 oracle's but for swaps f32 cannot
-    order.  Returns the counts."""
+    fold route on the few-query kernel, no tile kernel launched, nothing
+    proved or repaired, and every id the f64 oracle's but for swaps f32
+    cannot order.  Returns the counts."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
     from petal_neighbors_tpu_torch.utils import profiling
 
-    run = kk.knn_bcap if scheme == "bcap" else kk.knn_capped
-    out = {"queries": 0, "repaired": 0, "swaps": 0}
+    tile = kk.knn_bcap if scheme == "bcap" else kk.knn_capped
+    out = {"queries": 0, "swaps": 0}
     for q in (1, 2, 3, 4):
         qs = qdev[:q]
         before = profiling.counters()
-        few_before = kk.knn_few.launches
+        few_before, tile_before = kk.knn_few.launches, tile.launches
         _, ids = index.query_batch(qs, k)
         torch.cuda.synchronize()
-        if (index.last_scheme, run.last_path) != (scheme, "few"):
-            raise AssertionError(f"{label} q={q}: {index.last_scheme} on the "
-                                 f"{run.last_path} path")
+        if (index.last_scheme, kk.knn_fold.last_path) != (scheme, "few"):
+            raise AssertionError(f"{label} q={q}: {index.last_scheme}, "
+                                 f"fold on the {kk.knn_fold.last_path} path")
+        if tile.launches != tile_before:
+            raise AssertionError(f"{label} q={q}: the {scheme} tile kernel "
+                                 "ran")
         after = profiling.counters()
-        rep = after.get("route.repaired", 0) - before.get("route.repaired", 0)
+        if after.get("route.repaired", 0) != before.get("route.repaired", 0):
+            raise AssertionError(f"{label} q={q}: the route repaired")
         few = (after.get("knn.few_queries", 0)
                - before.get("knn.few_queries", 0))
         if kk.knn_few.launches == few_before or few < q:
@@ -1485,11 +1475,7 @@ def few_route(label: str, index, pdev, qdev, k: int, scheme: str) -> dict:
         _, oi = f64_oracle(pdev, qs, k)
         _, swaps, _ = check_vs_oracle(index, pdev, qs, ids, oi)
         out["queries"] += q
-        out["repaired"] += rep
         out["swaps"] += swaps
-    if out["repaired"]:
-        raise AssertionError(f"{label}: the proof repaired "
-                             f"{out['repaired']} queries of exact candidates")
     emit("few_query", route=label, scheme=scheme, k=k, **out, ok=True)
     return out
 
@@ -1514,19 +1500,17 @@ def few_single(label: str, index, qdev, k: int = 10, calls: int = 50):
 
 
 def phase_few_query(pt, index, pdev, qdev) -> tuple[list, float]:
-    """Phase few_query (docstring): the sweep over FEW_SWEEP, the three
-    modes against their plain version, and the route over them.  Returns
-    every sweep row and the largest error against the plain version."""
+    """Phase few_query (docstring): the sweep over FEW_SWEEP, the kernel
+    against its plain version, and the route over it.  Returns every sweep
+    row and the largest error against the plain version."""
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
     qc = qdev - index._center
     rows = few_sweep("SIFT", index._pts, index._norms, qc, *FEW_SWEEP[0][3:])
-    errs = {f"SIFT {m} q={q}": few_compare(m, index._pts,
-                                           qc[:q].contiguous(),
-                                           index._norms, k)
-            for m, k in (("fold", 18), ("capped", 108), ("bcap", 18))
-            for q in FEW_COMPARE_Q}
+    errs = {f"SIFT k={k} q={q}": few_compare(index._pts, qc[:q].contiguous(),
+                                             index._norms, k)
+            for k in (18, 108) for q in FEW_COMPARE_Q}
     few_route("SIFT k=10", index, pdev, qdev, 10, "bcap")
     few_route("SIFT k=100", index, pdev, qdev, 100, "capped")
     few_single("SIFT", index, qdev)
@@ -1538,10 +1522,10 @@ def phase_few_query(pt, index, pdev, qdev) -> tuple[list, float]:
             gist = pt.BruteForce.euclidean(pts)
             gq = queries - gist._center
             rows += few_sweep(label, gist._pts, gist._norms, gq, ks, qs_)
-            errs |= {f"GIST {m} q={q}": few_compare(m, gist._pts,
-                                                    gq[:q].contiguous(),
-                                                    gist._norms, 18)
-                     for m in ("fold", "capped") for q in FEW_COMPARE_Q}
+            errs |= {f"GIST k=18 q={q}": few_compare(gist._pts,
+                                                     gq[:q].contiguous(),
+                                                     gist._norms, 18)
+                     for q in FEW_COMPARE_Q}
             few_route("GIST k=10", gist, pts, queries, 10, "capped")
             few_single("GIST", gist, queries)
             del gist, pts, queries, gq
@@ -2126,7 +2110,7 @@ def phase_main_generic(wrappers, fold_rows):
 
 
 def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
-                      fold_rows):
+                      fold_rows, proofs):
     """The opt-in schemes over the SIFT index's arrays through
     ``knn_prepadded`` (as ``benchmarks/bcap2_probe.py`` drives the JAX
     one), every request on all 10,240 queries: a warm call and 3 timed
@@ -2146,6 +2130,7 @@ def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
     for scheme, k in OPT_IN:
         before = {s: w.launches for s, w in wrappers.items()}
         fold_rows.clear()
+        proofs.clear()
         fallbacks, walls = [], []
         for call in range(4):                        # warm, then 3 timed
             t0 = time.perf_counter()
@@ -2156,7 +2141,7 @@ def phase_main_opt_in(index, pdev, qdev, oracle_ids, rows, wrappers,
                 walls.append(time.perf_counter() - t0)
             if scheme == "two_phase":
                 fallbacks.append(bf.last_two_phase_fallback)
-        tier = bf.last_proof_tier
+        tier = "tc" if proofs else None
         got = {s: w.launches - before[s] for s, w in wrappers.items()}
         if d.shape != (N_Q, k) or not bool(torch.isfinite(d).all()):
             raise AssertionError(f"{scheme} k={k}: bad output "
@@ -3618,6 +3603,7 @@ def phase_serving(pt, index, queries, qdev, wrappers) -> dict:
     flushed in groups of 1, 10, 100 and 1,000, each group one
     ``query_batch``; the answers equal one ``query_batch``'s rows bit for
     bit.  Returns the launches of each group size's run."""
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
     t_phase = time.perf_counter()
@@ -3634,9 +3620,11 @@ def phase_serving(pt, index, queries, qdev, wrappers) -> dict:
             res.extend(h.result() for h in handles)
         wall = time.perf_counter() - t0
         got = read_launches(wrappers)
-        # a flush of few queries runs the few-query kernel in bcap's mode
-        kb = kernel_args(SERVE_SCHEME, SERVE_K, N)[0]
-        ran = "few" if kk.few_path(g, DIM, kb, N) else SERVE_SCHEME
+        # a flush of few queries takes the fold route on the few-query
+        # kernel
+        k_scan = bf.scan_width(SERVE_SCHEME, SERVE_K, N)
+        ran = ("few" if kk.fold_path(g, k_scan, DIM, index._pts.shape[0])
+               == "few" else SERVE_SCHEME)
         if not got.get(ran):
             raise AssertionError(f"serving group {g}: no {ran} kernel ran")
         ids = np.stack([r[0] for r in res])
@@ -4122,6 +4110,16 @@ def main() -> int:
         return out
 
     bf.knn_fold = counted_fold
+    # the route's proofs: a proof-gated call takes the tensor-core tier's
+    # bound once
+    proofs = []
+    proof_err = bf.tc_proof_err
+
+    def counted_proof_err(dim, qn, xn_max):
+        proofs.append(dim)
+        return proof_err(dim, qn, xn_max)
+
+    bf.tc_proof_err = counted_proof_err
     pdev = torch.from_numpy(points).cuda()
     launches, fold_by_path, flat_qps = {}, {}, {}
     for phase, ks, qs, reps, need in (
@@ -4135,6 +4133,7 @@ def main() -> int:
         for k, scheme in ks.items():
             before = {s: w.launches for s, w in wrappers.items()}
             fold_rows.clear()
+            proofs.clear()
             d, i = index.query_batch(qs, k)          # warm
             torch.cuda.synchronize()
             if (index.last_backend, index.last_scheme) != ("kernel", scheme):
@@ -4154,7 +4153,7 @@ def main() -> int:
             per_k[k] = {s: w.launches - before[s]
                         for s, w in wrappers.items()}
             repaired[k] = list(fold_rows) if scheme != "fold" else []
-            tiers[k] = bf.last_proof_tier
+            tiers[k] = "tc" if proofs else None
         got = {s: w.launches for s, w in wrappers.items()}
         for s in need:
             if got[s] == 0:
@@ -4218,7 +4217,7 @@ def main() -> int:
         emit(phase, launches=got, fold_launches_by_path=fold_by_path[phase])
 
     for s, c in phase_main_opt_in(index, pdev, qdev, main_oracle, rows,
-                                  wrappers, fold_rows).items():
+                                  wrappers, fold_rows, proofs).items():
         if s in ("fold_lazy", "subchunk_minima", "bcap_minima"):
             launches[s] = c
     flat_radius = phase_radius_flat(index, pdev, qdev, main_d100)
@@ -4359,9 +4358,10 @@ def main() -> int:
                                                       "simt_bound_ms",
                                                       "radix_passes")}
     # the few-query kernel (no TPU counterpart): the main path's launches
-    # (the k=10 repairs), timed at the single queries' shapes (SIFT's bcap
-    # and GIST's capped at one query, k_scan 18) and at the route's repair
-    # shapes of the sweep, beside the paths the rule did not pick
+    # (the k=10 repairs), timed at the single queries' shapes (one query,
+    # k_scan 18, beside SIFT's bcap and GIST's capped tile kernels) and at
+    # the route's repair shapes of the sweep, beside the paths the rule did
+    # not pick
     few_at = {(r["shape"], r["q"], r["k"]): r for r in few_rows}
     one = few_at["SIFT", 1, 18]
     bound, by = bound_ms(one["n"], 1, one["d"], 18)
@@ -4374,9 +4374,9 @@ def main() -> int:
         "shape": {key: one[key] for key in ("n", "q", "d", "k", "plan")},
         "gist": {key: few_at["GIST", 1, 18][key] for key in (
             "few_ms", "plain_ms", "library_ms", "bytes_bound_ms",
-            "capped_tile_ms", "capped_few_ms", "plan")},
+            "capped_tile_ms", "knn_few_ms", "plan")},
         "sift_bcap": {key: one[key] for key in ("bcap_tile_ms",
-                                                "bcap_few_ms")},
+                                                "knn_few_ms")},
         "repairs": [{key: few_at[at].get(key) for key in (
             "shape", "q", "k", "rule", "few_ms", "select_ms", "stream_ms",
             "bytes_bound_ms")} for at in FEW_REPAIRS],

@@ -11,7 +11,9 @@ the exact flat index needs:
   ``k_scan = k + RESCORE_SLACK``, a direct-form rescore (re-ranked by the
   row-sort kernels from ``k_scan >= 512``, ``_rescore_large``), and for
   bcap and capped the per-batch proof with the compacted repair on the
-  fold or merge kernel; it serves ``k <= PALLAS_K_MAX = 4088``.  The
+  fold or merge kernel (on the card, at the shapes where fold runs the
+  few-query kernel, bcap and capped take the fold route instead); it
+  serves ``k <= PALLAS_K_MAX = 4088``.  The
   opt-in schemes, which ``pick_scheme`` never takes: fold_lazy (the lazy
   fold kernel), two_phase (subchunk minima, a whole-batch proof and
   fallback) and bcap2 (block minima, the bcap proof and repair);
@@ -47,8 +49,9 @@ import torch
 from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric, _cross
 from ..utils.profiling import count, span
 from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
-                              PASSES_MAX, knn_bcap, knn_capped, knn_fold,
-                              knn_fold_lazy, knn_merge, tc_proof_err)
+                              PASSES_MAX, fold_path, knn_bcap, knn_capped,
+                              knn_fold, knn_fold_lazy, knn_merge,
+                              tc_proof_err)
 from .cuda.lp_kernel import lp_knn, pad_for_lp
 from .cuda.minima_kernel import SUBCHUNK, bcap_minima, subchunk_minima
 from .cuda.rank_sort_kernel import rank_sort_pairs
@@ -97,11 +100,6 @@ BITONIC_WIDTH_MAX = 2048
 #: bcap tile in blocks: 2048 rows, the JAX package's bcap_tile_n
 BCAP_TILE = 128
 
-#: pointwise |computed u − true u| bound of the FP32 score product
-#: (ops/bruteforce.py:274, "highest"), with the sequential-sum term; the
-#: tensor-core tier has its own (``_proof_err(tier="tc")``)
-PROOF_EPS = 2.0 ** -23
-
 #: entries past the exact k-th cutoff that the large-k bcap compaction
 #: absorbs before a row must repair (ops/bruteforce.py:418-420)
 BCAP_TIE_MARGIN = 64
@@ -117,11 +115,6 @@ last_two_phase_fallback = False
 #: ``radius_mask`` call found ambiguous (int64, (Q,)); more than its cap
 #: in some row sent the call to the direct form
 last_band_ambiguous: torch.Tensor | None = None
-
-#: the tier whose bound the most recent proof-gated call proved its
-#: queries on ("tc", the tier of every proof-gated scheme's candidates);
-#: None after a call on the fold route
-last_proof_tier: str | None = None
 
 
 def center_of(points: torch.Tensor) -> torch.Tensor:
@@ -281,41 +274,6 @@ def scan_width(scheme: str, k_eff: int, n_real: int) -> int:
     if scheme in ("merge", "capped") and k_scan > FOLD_K_MAX:
         k_scan = max(min(-(-k_scan // 128) * 128, MERGE_K_MAX), k_eff)
     return k_scan
-
-
-def _proof_err(dim: int, qn, xn_max, tier: str = "fp32"):
-    """Pointwise |computed u − true u| bound of the product tier that made
-    the candidates, times ‖q‖² + max ‖x‖².
-
-    ``"fp32"`` (fold and fold_lazy: the FP32 SIMT product;
-    ops/bruteforce.py:277-281 at "highest"): 4x the f32 rounding plus the
-    sequential-sum accumulation term d·2⁻²⁴.
-
-    ``"tc"`` (capped, bcap, the block minima of bcap2 and the subchunk
-    minima of two_phase: the split-bf16 tensor-core product, ``_u_tc``,
-    ``csrc/knn_tc.cuh``),
-    ``(4 + 12·⌈d/16⌉)·2⁻²³``
-    (``knn_kernel.tc_proof_err``).  With S = Σ|q_i x_i| ≤ ‖q‖‖x‖ ≤
-    (‖q‖² + ‖x‖²)/2 and s = 6·⌈d/16⌉ mma steps:
-      * the split: hi + mid + lo == x exactly, |mid| ≤ 2⁻⁸|x|, |lo| ≤
-        2⁻¹⁶|x|, so the dropped ml, lm and ll terms sum to at most
-        (2·2⁻²⁴ + 2⁻³²)·S ≤ 2⁻²³·S;
-      * the accumulation: each of the s mma steps adds 16 exact products
-        of bf16 pieces to the f32 accumulator.  Hopper's mma accumulation
-        is not specified as IEEE round-to-nearest (earlier tensor cores
-        were measured aligning the addends and truncating), so each step
-        is taken at 2⁻²² (two units of 2⁻²³) of the magnitudes it adds,
-        which never exceed S: at most s·2⁻²²·S;
-      * u = ‖x‖² − 2·dot doubles those and rounds once more: 2⁻²⁴·(‖x‖²
-        + 2S) ≤ 2⁻²³·(‖q‖² + ‖x‖²).
-    Together 2·(2⁻²³ + s·2⁻²²)·S + 2⁻²³·(‖q‖² + ‖x‖²) ≤ (2 + 2s)·2⁻²³·
-    (‖q‖² + ‖x‖²) = (2 + 12·⌈d/16⌉)·2⁻²³·(...); the 4 in place of 2 is
-    margin.  ``knn_kernel.tc_probe`` holds the card's product to this
-    bound, f64 against f32 on the reference's probe distribution, before
-    the first tensor-core launch."""
-    if tier == "tc":
-        return tc_proof_err(dim, qn, xn_max)
-    return (4.0 * PROOF_EPS + dim * 2.0 ** -24) * (qn + xn_max)
 
 
 def _rescore(pts_padded, queries, idx, k_eff: int):
@@ -539,24 +497,26 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
       ``passes`` survivors, and bcap2 keeps the blocks of its smallest
       block minima.  Their threshold ``thr`` lower-bounds every
       point left out, so a query is covered when its re-scored k-th
-      distance is at most ``thr − err`` (``_proof_err`` of the tier that
-      made the candidates: the tensor-core one for all three); uncovered
-      queries are recomputed by the fold kernel (``_prove_repair``);
+      distance is at most ``thr − err`` (``tc_proof_err``, the bound of
+      the tensor-core tier that made the candidates of all three);
+      uncovered queries are recomputed by the fold kernel
+      (``_prove_repair``).  On the card, bcap and capped (picked or
+      forced) take the fold route instead wherever ``knn_fold`` would run
+      the few-query kernel at their queries and ``k_scan``
+      (``_few_takes_fold``): its exact FP32 top k_scan is what the repair
+      would compute, so there is nothing to prove;
     * two_phase's threshold is the k-th smallest subchunk minimum, on the
       tensor-core tier, and proves on its bound.  If the
       proof leaves any query uncovered, the whole batch re-runs the fold
       route (fold up to k_scan 1024, merge above), as the reference does;
       ``last_two_phase_fallback`` records whether the last call did.
 
-    ``last_proof_tier`` records the tier of the last call's proof.  The
-    call counts its queries in ``route.queries`` (the normalised ones also
-    in ``route.normalized``) and records its stages in ``petal.route.*``
-    spans (``utils.profiling``).
+    The call counts its queries in ``route.queries`` (the normalised ones
+    also in ``route.normalized``) and records its stages in
+    ``petal.route.*`` spans (``utils.profiling``).
 
     Returns (distances, ids), (Q, k_eff), ascending; NaN queries and
     missing slots are (+inf, -1)."""
-    global last_proof_tier
-    last_proof_tier = None
     count("route.queries", queries.shape[0])
     with span("petal.route"):
         scheme = scheme or pick_scheme(
@@ -566,6 +526,8 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
         if scheme == "capped" and k_scan > FOLD_K_MAX:
             # the port's capped kernel keeps at most 1024 (deviation 1)
             scheme = "merge"
+        elif _few_takes_fold(scheme, queries, k_scan, pts_padded.shape[0]):
+            scheme = "fold"
         if scheme == "fold_lazy" and k_scan > FOLD_K_MAX:
             raise ValueError(f"fold_lazy keeps at most {FOLD_K_MAX} "
                              f"candidates, k_scan={k_scan}")
@@ -582,12 +544,7 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
                 qn = torch.sum(queries * queries, dim=1)
                 xn_max = torch.max(torch.where(torch.isfinite(xn_padded),
                                                xn_padded, 0.0))
-                # the tier that made the candidates and thr: every
-                # proof-gated scheme's (capped, bcap, bcap2's block minima,
-                # two_phase's subchunk minima) is the tensor-core product
-                last_proof_tier = "tc"
-                err = _proof_err(queries.shape[1], qn, xn_max,
-                                 tier=last_proof_tier)
+                err = tc_proof_err(queries.shape[1], qn, xn_max)
         if not proof_gated:
             best_rd, best_i = _fold_route(pts_padded, xn_padded, queries,
                                           scheme, k_eff, k_scan, n_real)
@@ -603,6 +560,20 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
             # the sqrt needs the ascending clamp; the squared domain does not
             return (best_rd if out_rdist
                     else monotone_distances(torch.sqrt(best_rd))), best_i
+
+
+def _few_takes_fold(scheme: str, queries, k_scan: int, n_padded: int) -> bool:
+    """Whether a bcap or capped call takes the fold route: on the card,
+    where ``knn_fold`` would run the few-query kernel for these queries at
+    ``k_scan`` (``fold_path``'s "few").  That kernel's candidates are the
+    exact FP32 top k_scan, which the repair would compute, so a proof
+    could only confirm them; the answers rest on the premise of every
+    repair, that the true k nearest lie in the FP32 top k_eff + 8.  On CPU
+    tensors the routes stay as they are."""
+    q, dim = queries.shape
+    return (queries.is_cuda and scheme in ("bcap", "capped")
+            and k_scan <= FOLD_K_MAX
+            and fold_path(q, k_scan, dim, n_padded) == "few")
 
 
 def _two_phase_route(pts_padded, xn_padded, queries, qn, err, k_eff: int,

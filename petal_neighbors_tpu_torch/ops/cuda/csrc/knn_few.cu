@@ -7,23 +7,20 @@
 // kernel on a 64-query SIMT tile over at most 64 row ranges, fold's select
 // path in two product passes.  With one live query each of them sat about
 // 10x over the least time the card needs to read the index once.  This
-// kernel serves knn_fold, knn_capped and knn_bcap (knn_kernel.py) for the
-// shapes where it is faster (knn_kernel.few_path, a rule read from a sweep
-// on the card); the other paths keep every other shape.
+// kernel is knn_fold's path (knn_kernel.py) for the shapes where it is
+// faster (knn_kernel.fold_path's "few", a rule read from a sweep on the
+// card); the route takes fold at those shapes whatever scheme it picked,
+// and fold's other paths keep every other shape.
 //
-// What it computes: for each query q and every point row x
+// What it computes, fold's contract: for each query q and every point row x
 //     u = ||x||^2 - 2 q.x
 // in FP32 on the SIMT cores, each pair summed with fmaf over the features
 // in ascending order from 0 (DotScore's order in knn_tiles.cuh), so that u
-// is the streaming fold kernel's bit for bit; then the exact k smallest per
-// query, of rows (fold, capped) or of the minima of u over the 16-row
-// blocks (bcap: block b = rows [16b, 16b + 16)).  Output, per query:
+// is the streaming fold kernel's bit for bit; then the exact k smallest
+// rows per query.  Output, per query:
 //   out_d (k,)  u + ||q||^2 clamped at 0 (||q||^2 summed as knn_fold.cu's
 //               output sums it), +inf in empty slots;
-//   out_i (k,)  row or block ids, -1 in empty slots;
-//   out_t       (capped, bcap; may be null) the k-th smallest u + ||q||^2:
-//               every row or block left out has u at or above it; +inf
-//               where fewer than k are finite, NaN for a NaN query.
+//   out_i (k,)  row ids, -1 in empty slots.
 // Rows in no promised order.  Rows with +inf norms (NaN and padding rows)
 // and a NaN query's NaN scores never enter.  Ties at the k-th value keep
 // any of the tied ids.
@@ -49,9 +46,8 @@
 //     each row and one broadcast float4 of each query, 4*QG*RR FMA.
 //   * selection: each query keeps a buffer of (u, id) in shared memory
 //     and a threshold, +inf at first.  After each tile, in rounds of one
-//     candidate a thread (bcap: the min over a half-warp's 16 rows, one a
-//     half-warp), a candidate under the threshold is appended (one shared
-//     atomic a warp).  When a buffer holds more than its keep width KW
+//     candidate a thread, a candidate under the threshold is appended (one
+//     shared atomic a warp).  When a buffer holds more than its keep width KW
 //     (at least 2k) its warp selects the k smallest by bisection over the
 //     ordered float bits, keeps them in place, and the k-th becomes the
 //     threshold; so only rows under a running k-th do any work past a
@@ -76,7 +72,6 @@ constexpr int QG_MAX = 16;                 // queries a group
 constexpr int K_MAX = 128;
 constexpr int MIN_TILES = 4;               // tiles a range, at least
 constexpr int MERGE_NT = 256;
-constexpr int BLOCK = 16;                  // rows a bcap block
 static_assert(MERGE_NT == 256, "one histogram bin a thread");
 
 // The scan's shape by group (measured on an H100 at 1M x 128 and 1M x
@@ -106,16 +101,12 @@ __host__ __device__ inline int keep_of(int k) {
   const int w = 2 * k > 64 ? 2 * k : 64;
   return (w + 31) & ~31;
 }
-// candidates a round may append to one query's buffer
-__host__ __device__ constexpr int room_of(bool blocks) {
-  return blocks ? NT / BLOCK : NT;
-}
 
-size_t smem_bytes(int qg, bool blocks, int d, int k) {
+size_t smem_bytes(int qg, int d, int k) {
   const int tr = NT * rr_of(qg);
   const int dsf = chunk_of(qg) + 4;
   const int dq = (d + 3) & ~3;
-  const int cap = keep_of(k) + room_of(blocks);
+  const int cap = keep_of(k) + NT;   // a round appends at most NT a query
   return sizeof(float) * (static_cast<size_t>(stages_of(qg)) * tr * (dsf + 1) +
                           static_cast<size_t>(qg) * dq) +
          8 * static_cast<size_t>(qg) * (cap + 1);
@@ -197,7 +188,7 @@ __device__ __forceinline__ void offer(float* bu, int* bi, int* cnt, bool pass,
 // grid = (splits, ceil(q / QG)); block (s, g) scans tiles [s * per, (s + 1)
 // * per) of TR rows for queries [g * QG, g * QG + QG) and writes their k
 // smallest (u, id) of the range to part_u / part_i (splits, q, k).
-template <int QG, bool BLOCKS, bool VEC>
+template <int QG, bool VEC>
 __global__ void __launch_bounds__(NT)
 scan_kernel(const float* __restrict__ points, const float* __restrict__ queries,
             const float* __restrict__ norms, float* __restrict__ part_u,
@@ -208,7 +199,6 @@ scan_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   constexpr int DCF = chunk_of(QG);
   constexpr int STAGES = stages_of(QG);
   constexpr int DSF = DCF + 4;
-  constexpr int ROOM = room_of(BLOCKS);
   static_assert(DCF % 4 == 0 && DCF >= 4, "chunk of whole float4s");
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);   // [STAGES][TR][DSF]
@@ -216,7 +206,7 @@ scan_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   float* qs = xnr + STAGES * TR;                    // [QG][dq]
   const int dq = (d + 3) & ~3;
   const int kw = keep_of(k);
-  const int cap = kw + ROOM;
+  const int cap = kw + NT;
   float* bu = qs + QG * dq;                         // [QG][cap]
   int* bi = reinterpret_cast<int*>(bu + QG * cap);  // [QG][cap]
   int* cnt = bi + QG * cap;                         // [QG]
@@ -365,18 +355,9 @@ scan_kernel(const float* __restrict__ points, const float* __restrict__ queries,
 #pragma unroll
       for (int j = 0; j < QG; ++j) {
         if (j >= live) break;
-        float u = row < n ? xn[i] - 2.f * acc[j][i] : INFINITY;
-        int id = static_cast<int>(row);
-        bool lead = true;
-        if (BLOCKS) {
-#pragma unroll
-          for (int off = 8; off > 0; off >>= 1)
-            u = fminf(u, __shfl_xor_sync(FULL, u, off));
-          id = static_cast<int>(row >> 4);
-          lead = (lane & 15) == 0;
-        }
-        offer(bu + j * cap, bi + j * cap, cnt + j, lead && u < thr[j], u,
-              id, lane);
+        const float u = row < n ? xn[i] - 2.f * acc[j][i] : INFINITY;
+        offer(bu + j * cap, bi + j * cap, cnt + j, u < thr[j], u,
+              static_cast<int>(row), lane);
       }
       __syncthreads();
       for (int j = warp; j < live; j += NW)
@@ -416,12 +397,11 @@ scan_kernel(const float* __restrict__ points, const float* __restrict__ queries,
 
 // grid = (q,): query blockIdx.x's exact k smallest of its splits x k
 // entries (radix select on the ordered bits, 8 bits a pass), written with
-// rd = max(u + ||q||^2, 0) and, where out_t, thr = the k-th u + ||q||^2.
+// rd = max(u + ||q||^2, 0).
 __global__ void __launch_bounds__(MERGE_NT)
 merge_kernel(const float* __restrict__ part_u, const int* __restrict__ part_i,
              const float* __restrict__ queries, float* __restrict__ out_d,
-             int* __restrict__ out_i, float* __restrict__ out_t, int q, int d,
-             int k, int splits) {
+             int* __restrict__ out_i, int q, int d, int k, int splits) {
   __shared__ int hist[256];
   __shared__ unsigned s_prefix, s_mask;
   __shared__ int s_need, s_lt, s_eq;
@@ -520,79 +500,75 @@ merge_kernel(const float* __restrict__ part_u, const int* __restrict__ part_i,
       oi[p] = id;
     }
   }
-  if (out_t != nullptr && tid == 0) out_t[gq] = from_order_bits(t) + qn;
 }
 
-template <int QG, bool BLOCKS>
+template <int QG>
 cudaError_t set_smem(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<QG, BLOCKS, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      scan_kernel<QG, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(scan_kernel<QG, BLOCKS, false>,
+  return cudaFuncSetAttribute(scan_kernel<QG, false>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <int QG, bool BLOCKS>
+template <int QG>
 cudaError_t occupancy(size_t smem, int* per_sm) {
-  cudaError_t err = set_smem<QG, BLOCKS>(smem);
+  cudaError_t err = set_smem<QG>(smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, scan_kernel<QG, BLOCKS, true>, NT, smem);
+      per_sm, scan_kernel<QG, true>, NT, smem);
 }
 
-template <bool BLOCKS>
 cudaError_t set_smem_of(int qg, size_t smem) {
   switch (qg) {
-    case 1: return set_smem<1, BLOCKS>(smem);
-    case 2: return set_smem<2, BLOCKS>(smem);
-    case 4: return set_smem<4, BLOCKS>(smem);
-    case 8: return set_smem<8, BLOCKS>(smem);
-    default: return set_smem<16, BLOCKS>(smem);
+    case 1: return set_smem<1>(smem);
+    case 2: return set_smem<2>(smem);
+    case 4: return set_smem<4>(smem);
+    case 8: return set_smem<8>(smem);
+    default: return set_smem<16>(smem);
   }
 }
 
-template <bool BLOCKS>
 cudaError_t occupancy_of(int qg, size_t smem, int* per_sm) {
   switch (qg) {
-    case 1: return occupancy<1, BLOCKS>(smem, per_sm);
-    case 2: return occupancy<2, BLOCKS>(smem, per_sm);
-    case 4: return occupancy<4, BLOCKS>(smem, per_sm);
-    case 8: return occupancy<8, BLOCKS>(smem, per_sm);
-    default: return occupancy<16, BLOCKS>(smem, per_sm);
+    case 1: return occupancy<1>(smem, per_sm);
+    case 2: return occupancy<2>(smem, per_sm);
+    case 4: return occupancy<4>(smem, per_sm);
+    case 8: return occupancy<8>(smem, per_sm);
+    default: return occupancy<16>(smem, per_sm);
   }
 }
 
-template <int QG, bool BLOCKS>
+template <int QG>
 void scan(bool vec, dim3 grid, size_t smem, cudaStream_t s,
           const float* points, const float* queries, const float* norms,
           float* part_u, int* part_i, long long n, int q, int d, int k,
           long long per) {
   if (vec)
-    scan_kernel<QG, BLOCKS, true><<<grid, NT, smem, s>>>(
+    scan_kernel<QG, true><<<grid, NT, smem, s>>>(
         points, queries, norms, part_u, part_i, n, q, d, k, per);
   else
-    scan_kernel<QG, BLOCKS, false><<<grid, NT, smem, s>>>(
+    scan_kernel<QG, false><<<grid, NT, smem, s>>>(
         points, queries, norms, part_u, part_i, n, q, d, k, per);
 }
 
-template <bool BLOCKS>
 void scan_of(int qg, bool vec, dim3 grid, size_t smem, cudaStream_t s,
              const float* points, const float* queries, const float* norms,
              float* part_u, int* part_i, long long n, int q, int d, int k,
              long long per) {
   switch (qg) {
-    case 1: scan<1, BLOCKS>(vec, grid, smem, s, points, queries, norms,
-                            part_u, part_i, n, q, d, k, per); break;
-    case 2: scan<2, BLOCKS>(vec, grid, smem, s, points, queries, norms,
-                            part_u, part_i, n, q, d, k, per); break;
-    case 4: scan<4, BLOCKS>(vec, grid, smem, s, points, queries, norms,
-                            part_u, part_i, n, q, d, k, per); break;
-    case 8: scan<8, BLOCKS>(vec, grid, smem, s, points, queries, norms,
-                            part_u, part_i, n, q, d, k, per); break;
-    default: scan<16, BLOCKS>(vec, grid, smem, s, points, queries, norms,
-                              part_u, part_i, n, q, d, k, per);
+    case 1: scan<1>(vec, grid, smem, s, points, queries, norms, part_u,
+                    part_i, n, q, d, k, per); break;
+    case 2: scan<2>(vec, grid, smem, s, points, queries, norms, part_u,
+                    part_i, n, q, d, k, per); break;
+    case 4: scan<4>(vec, grid, smem, s, points, queries, norms, part_u,
+                    part_i, n, q, d, k, per); break;
+    case 8: scan<8>(vec, grid, smem, s, points, queries, norms, part_u,
+                    part_i, n, q, d, k, per); break;
+    default: scan<16>(vec, grid, smem, s, points, queries, norms, part_u,
+                      part_i, n, q, d, k, per);
   }
 }
 
@@ -605,12 +581,11 @@ extern "C" {
 int few_k_max() { return few::K_MAX; }
 
 // The launch plan: rows a tile, the row ranges (splits) and the scan
-// block's shared memory for blocks (0 rows, 1 bcap's 16-row blocks), n
-// rows, q queries, width d and k.  Returns cudaErrorInvalidValue where
-// the shape is out of range or the block's shared memory exceeds the
-// card's opt-in limit.
-int few_plan(int blocks, long long n, int q, int d, int k, int* tile_rows,
-             int* splits, int* smem) {
+// block's shared memory for n rows, q queries, width d and k.  Returns
+// cudaErrorInvalidValue where the shape is out of range or the block's
+// shared memory exceeds the card's opt-in limit.
+int few_plan(long long n, int q, int d, int k, int* tile_rows, int* splits,
+             int* smem) {
   if (n < 1 || n >= (1ll << 31) || q < 1 || d < 1 || k < 1 ||
       k > few::K_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -618,12 +593,11 @@ int few_plan(int blocks, long long n, int q, int d, int k, int* tile_rows,
   cudaError_t err = card_limits(&sms, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int qg = few::group_of(q);
-  const size_t bytes = few::smem_bytes(qg, blocks != 0, d, k);
+  const size_t bytes = few::smem_bytes(qg, d, k);
   if (bytes > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
   int per_sm = 0;
-  err = blocks ? few::occupancy_of<true>(qg, bytes, &per_sm)
-               : few::occupancy_of<false>(qg, bytes, &per_sm);
+  err = few::occupancy_of(qg, bytes, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tr = few::NT * few::rr_of(qg);
   const long long ntiles = (n + tr - 1) / tr;
@@ -638,23 +612,20 @@ int few_plan(int blocks, long long n, int q, int d, int k, int* tile_rows,
   return 0;
 }
 
-// blocks: 0 rows (fold, capped), 1 the minima of 16-row blocks (bcap).
 // points (n, d), queries (q, d), norms (n,) float32 row-major; scratch
 // part_u (splits, q, k) float32 and part_i (splits, q, k) int32; outputs
-// out_d (q, k) float32, out_i (q, k) int32 and, unless null, out_t (q,)
-// float32.  splits as few_plan returned it for the same blocks, n, q, d
-// and k.  Two launches on `stream`: the scan, then the merge.
-int few_launch(int blocks, const float* points, const float* queries,
-               const float* norms, float* part_u, int* part_i, float* out_d,
-               int* out_i, float* out_t, long long n, int q, int d, int k,
-               int splits, void* stream) {
+// out_d (q, k) float32 and out_i (q, k) int32.  splits as few_plan
+// returned it for the same n, q, d and k.  Two launches on `stream`: the
+// scan, then the merge.
+int few_launch(const float* points, const float* queries, const float* norms,
+               float* part_u, int* part_i, float* out_d, int* out_i,
+               long long n, int q, int d, int k, int splits, void* stream) {
   if (n < 1 || n >= (1ll << 31) || q < 1 || d < 1 || k < 1 ||
       k > few::K_MAX || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int qg = few::group_of(q);
-  const size_t smem = few::smem_bytes(qg, blocks != 0, d, k);
-  cudaError_t err = blocks ? few::set_smem_of<true>(qg, smem)
-                           : few::set_smem_of<false>(qg, smem);
+  const size_t smem = few::smem_bytes(qg, d, k);
+  cudaError_t err = few::set_smem_of(qg, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tr = few::NT * few::rr_of(qg);
   const long long ntiles = (n + tr - 1) / tr;
@@ -664,16 +635,12 @@ int few_launch(int blocks, const float* points, const float* queries,
                    reinterpret_cast<uintptr_t>(queries) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(splits, (q + qg - 1) / qg);
-  if (blocks)
-    few::scan_of<true>(qg, vec, grid, smem, s, points, queries, norms,
-                       part_u, part_i, n, q, d, k, per);
-  else
-    few::scan_of<false>(qg, vec, grid, smem, s, points, queries, norms,
-                        part_u, part_i, n, q, d, k, per);
+  few::scan_of(qg, vec, grid, smem, s, points, queries, norms, part_u, part_i,
+               n, q, d, k, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   few::merge_kernel<<<q, few::MERGE_NT, 0, s>>>(part_u, part_i, queries,
-                                                out_d, out_i, out_t, q, d, k,
+                                                out_d, out_i, q, d, k,
                                                 splits);
   return static_cast<int>(cudaGetLastError());
 }

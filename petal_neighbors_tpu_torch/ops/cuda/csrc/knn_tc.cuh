@@ -26,8 +26,8 @@
 //     pieces whose product is exact in f32, accumulated in f32 16 features
 //     at a time (one wgmma.m64n64k16 a product, k-step and warpgroup); the
 //     dropped ml, lm and ll terms are at most 2^-23 |q_i x_i| together.  The
-//     route's proof bound for this tier is derived in ops/bruteforce.py
-//     (_proof_err) and held on the card by knn_kernel.tc_probe;
+//     route's proof bound for this tier is derived in knn_kernel.py
+//     (tc_proof_err) and held on the card by knn_kernel.tc_probe;
 //   * not 3xTF32: its two pieces hold 22 of f32's 24 bits (about 2^-20
 //     relative), above the "highest" bound, at the same effective peak.
 //

@@ -17,9 +17,9 @@ order-identical in u; ``‖q‖²`` is added back once at the output.
   ``BCAP_BLOCK`` contiguous rows; returns block ids (``_knn_kernel_bcap``).
 * ``knn_merge``: the exact k smallest u per query for k up to 4096,
   sorted (``_knn_kernel_merge`` + ``_bitonic_merge_sorted``).
-* ``knn_few``: the exact k smallest u (or 16-row block minima) of 1 to a
-  few live queries in one pass over the index (no TPU counterpart): fold,
-  capped and bcap take it for CUDA tensors where ``few_path`` says so.
+* ``knn_few``: the exact k smallest u of 1 to a few live queries in one
+  pass over the index (no TPU counterpart): fold's path for CUDA tensors
+  where ``few_path`` says so.
 
 Two precision tiers.  fold and fold_lazy compute u in FP32 on the SIMT
 cores (``_u``).  capped, bcap and merge compute it as the TPU kernels do at
@@ -41,9 +41,10 @@ launches the radix-select passes of
 takes one of three paths by shape (``fold_path``): a few queries the
 few-query kernel, small batches (the route's repairs) those radix-select
 passes on fold's own FP32 product, larger ones the streaming kernel.
-capped and bcap launch the few-query kernel (``csrc/knn_few.cu``) under
-the same rule (``few_path``), whose u is FP32 in fold's order (so fold's
-bits) and whose selection is exact.  Each
+The few-query kernel (``csrc/knn_few.cu``) keeps fold's contract: u in
+FP32 in fold's order (so fold's bits) and an exact selection; the route
+(``ops.bruteforce.knn_prepadded``) sends bcap and capped calls at its
+shapes to fold.  Each
 wrapper launches its kernels for CUDA tensors and runs its plain PyTorch
 version for CPU tensors.  Nothing else selects between them: a CUDA tensor
 launches the kernel or raises.
@@ -171,9 +172,28 @@ def _u_tc(points, queries, point_norms, s: int, e: int):
 
 
 def tc_proof_err(dim: int, qn, xn_max):
-    """Pointwise |computed u − true u| bound of the tensor-core tier,
-    ``(4 + 12·⌈d/16⌉)·2⁻²³·(‖q‖² + max ‖x‖²)``; derived in
-    ``ops.bruteforce._proof_err``."""
+    """Pointwise |computed u − true u| bound of the tensor-core tier
+    (capped, bcap, the block minima of bcap2 and the subchunk minima of
+    two_phase: the split-bf16 product, ``_u_tc``, ``csrc/knn_tc.cuh``),
+    ``(4 + 12·⌈d/16⌉)·2⁻²³·(‖q‖² + max ‖x‖²)``, the bound the route's proof
+    uses.  With S = Σ|q_i x_i| ≤ ‖q‖‖x‖ ≤ (‖q‖² + ‖x‖²)/2 and s = 6·⌈d/16⌉
+    mma steps:
+      * the split: hi + mid + lo == x exactly, |mid| ≤ 2⁻⁸|x|, |lo| ≤
+        2⁻¹⁶|x|, so the dropped ml, lm and ll terms sum to at most
+        (2·2⁻²⁴ + 2⁻³²)·S ≤ 2⁻²³·S;
+      * the accumulation: each of the s mma steps adds 16 exact products
+        of bf16 pieces to the f32 accumulator.  Hopper's mma accumulation
+        is not specified as IEEE round-to-nearest (earlier tensor cores
+        were measured aligning the addends and truncating), so each step
+        is taken at 2⁻²² (two units of 2⁻²³) of the magnitudes it adds,
+        which never exceed S: at most s·2⁻²²·S;
+      * u = ‖x‖² − 2·dot doubles those and rounds once more: 2⁻²⁴·(‖x‖²
+        + 2S) ≤ 2⁻²³·(‖q‖² + ‖x‖²).
+    Together 2·(2⁻²³ + s·2⁻²²)·S + 2⁻²³·(‖q‖² + ‖x‖²) ≤ (2 + 2s)·2⁻²³·
+    (‖q‖² + ‖x‖²) = (2 + 12·⌈d/16⌉)·2⁻²³·(...); the 4 in place of 2 is
+    margin.  ``tc_probe`` holds the card's product to this bound, f64
+    against f32 on the reference's probe distribution, before the first
+    tensor-core launch."""
     return (4.0 + 12.0 * math.ceil(dim / 16)) * 2.0 ** -23 * (qn + xn_max)
 
 
@@ -330,20 +350,20 @@ def knn_bcap_reference(points, queries, point_norms, *, k: int, tile: int,
     _check(points, queries, point_norms, k, "knn_bcap")
     _check_capped(k, tile, passes, "knn_bcap")
     bd, bi, thr = _capped_select(
-        _block_minima(_u_tc, points, queries, point_norms),
+        _block_minima(points, queries, point_norms),
         -(-points.shape[0] // BCAP_BLOCK), queries.shape[0], queries.device,
         k=k, tile=tile, passes=passes, splits=splits)
     return _capped_out(queries, bd, bi, thr)
 
 
-def _block_minima(u_of, points, queries, point_norms):
-    """scores(s, e): the minima of ``u_of``'s u over the blocks [s, e) of
-    ``BCAP_BLOCK`` rows, the last block's missing rows +inf; ``amin``
-    propagates NaN, so a NaN query's minima stay NaN."""
+def _block_minima(points, queries, point_norms):
+    """scores(s, e): the minima of the tensor-core tier's u over the blocks
+    [s, e) of ``BCAP_BLOCK`` rows, the last block's missing rows +inf;
+    ``amin`` propagates NaN, so a NaN query's minima stay NaN."""
     b = BCAP_BLOCK
 
     def scores(s, e):
-        u = u_of(points, queries, point_norms, s * b, e * b)
+        u = _u_tc(points, queries, point_norms, s * b, e * b)
         short = (e - s) * b - u.shape[1]      # the last block's missing rows
         if short:
             u = torch.nn.functional.pad(u, (0, short), value=float("inf"))
@@ -717,11 +737,12 @@ FEW_RULE = {
 
 
 def few_path(q: int, d: int, k: int, n: int) -> bool:
-    """Whether ``knn_fold``, ``knn_capped`` and ``knn_bcap`` take the
-    few-query kernel on the card for Q queries of width d, k and n index
-    rows (``FEW_RULE``; the kernel's ids are int32, so n < 2^31).  A rule
-    on the shape alone; nothing is timed at run time.  Outside it the
-    other kernels run as before."""
+    """Whether ``knn_fold`` takes the few-query kernel on the card for Q
+    queries of width d, k and n index rows (``FEW_RULE``; the kernel's ids
+    are int32, so n < 2^31): ``fold_path``'s "few", which the route
+    (``ops.bruteforce.knn_prepadded``) also reads to send bcap and capped
+    calls at these shapes to fold.  A rule on the shape alone; nothing is
+    timed at run time.  Outside it fold's other paths run."""
     widths = sorted(FEW_RULE)
     if not (1 <= q and 1 <= k <= FEW_K_MAX and 1 <= n < 2 ** 31
             and 1 <= d <= widths[-1]):
@@ -732,42 +753,14 @@ def few_path(q: int, d: int, k: int, n: int) -> bool:
                     for t in near)
 
 
-#: the few-query kernel's selections: rows (fold, capped) or 16-row block
-#: minima (bcap)
-_FEW_MODES = ("fold", "capped", "bcap")
-
-
-def knn_few_reference(points, queries, point_norms, *, k: int,
-                      mode: str = "fold"):
+def knn_few_reference(points, queries, point_norms, *, k: int):
     """Plain PyTorch version of the few-query kernel: the exact k smallest
-    FP32 u (``_u``) per query, of rows (``mode`` "fold" and "capped") or of
-    the minima of u over blocks of ``BCAP_BLOCK`` rows ("bcap"; the last
-    block's missing rows +inf), NaN counted as +inf, ties to the smaller id.
-    Returns (rdist (Q, k), ids (Q, k)) for "fold", and (rdist, ids, thr
-    (Q,)) otherwise, where thr is the k-th u + ‖q‖² (+inf where fewer than k
-    are finite, NaN for a NaN query): every row or block left out has rdist
-    at or above it.  rdist is u + ‖q‖² clamped at 0, (+inf, -1) in empty
-    slots; rows ascending."""
-    if mode not in _FEW_MODES:
-        raise ValueError(f"knn_few mode is one of {_FEW_MODES}, got "
-                         f"{mode!r}")
+    FP32 u (``_u``) per query, NaN counted as +inf, ties to the smaller id
+    (fold's plain version at k <= ``FEW_K_MAX``).  Returns (rdist (Q, k),
+    ids (Q, k)): rdist is u + ‖q‖² clamped at 0, (+inf, -1) in empty slots;
+    rows ascending."""
     _check(points, queries, point_norms, k, "knn_few", FEW_K_MAX)
-    n = points.shape[0]
-    if mode == "bcap":
-        scores = _block_minima(_u, points, queries, point_norms)
-        ncols = -(-n // BCAP_BLOCK)
-    else:
-        def scores(s, e):
-            return _u(points, queries, point_norms, s, e)
-        ncols = n
-    best_u, best_i = _exact_topk(scores, ncols, queries.shape[0],
-                                 queries.device, k)
-    qn = torch.sum(queries * queries, dim=1)
-    rd = torch.where(best_i < 0, torch.inf,
-                     torch.clamp_min(best_u + qn[:, None], 0.0))
-    if mode == "fold":
-        return rd, best_i
-    return rd, best_i, best_u[:, -1] + qn
+    return _running_topk(points, queries, point_norms, k)
 
 
 @functools.lru_cache(maxsize=None)
@@ -779,9 +772,9 @@ def _few_lib():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.few_k_max.argtypes = []
     lib.few_k_max.restype = ctypes.c_int
-    lib.few_plan.argtypes = [i, ll, i, i, i, p, p, p]
+    lib.few_plan.argtypes = [ll, i, i, i, p, p, p]
     lib.few_plan.restype = ctypes.c_int
-    lib.few_launch.argtypes = [i] + [vp] * 8 + [ll, i, i, i, i, vp]
+    lib.few_launch.argtypes = [vp] * 7 + [ll, i, i, i, i, vp]
     lib.few_launch.restype = ctypes.c_int
     if lib.few_k_max() != FEW_K_MAX:
         raise RuntimeError(f"csrc/knn_few.cu's K_MAX {lib.few_k_max()} "
@@ -790,53 +783,43 @@ def _few_lib():
 
 
 @functools.lru_cache(maxsize=256)
-def _few_plan(device_index: int, blocks: int, n: int, q: int, d: int,
+def _few_plan(device_index: int, n: int, q: int, d: int,
               k: int) -> dict[str, int]:
     vals = [ctypes.c_int(0) for _ in range(3)]
-    err = _few_lib().few_plan(blocks, n, q, d, k,
-                              *(ctypes.byref(v) for v in vals))
+    err = _few_lib().few_plan(n, q, d, k, *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError(f"knn_few planning failed at n={n}, q={q}, d={d}, "
                            f"k={k}: cudaError {err}")
     return dict(zip(("tile_rows", "splits", "smem"), (v.value for v in vals)))
 
 
-def few_plan(mode: str, n: int, q: int, d: int, k: int) -> dict[str, int]:
+def few_plan(n: int, q: int, d: int, k: int) -> dict[str, int]:
     """The few-query kernel's launch plan on the current card: rows a
     tile, row ranges (splits) and the scan block's shared memory bytes."""
-    return _few_plan(torch.cuda.current_device(), int(mode == "bcap"), n, q,
-                     d, k)
+    return _few_plan(torch.cuda.current_device(), n, q, d, k)
 
 
-def knn_few(points, queries, point_norms, *, k: int, mode: str = "fold"):
+def knn_few(points, queries, point_norms, *, k: int):
     """The exact k smallest u of 1 to a few live queries in one pass over
     the index (``csrc/knn_few.cu``; no TPU kernel: it serves the shapes
     where the wide-tile kernels had one live query in 128 or 64).
 
-    Inputs as ``knn_fold``, ``1 <= k <= FEW_K_MAX``; ``mode`` "fold",
-    "capped" or "bcap" names the contract it fills (``knn_few_reference``):
-    u is FP32, each pair summed in fold's order, so "fold" gives the
-    streaming fold kernel's rdist bits; "capped" and "bcap" add thr, the
-    exact k-th (the proof's bound on the FP32 tier,
-    ``(4 + d/2)·2⁻²³·(‖q‖² + max ‖x‖²)``, lies under the tensor-core
-    tier's at every d).  Queries run in groups of up to 16, one pass over
-    the index each.  CUDA tensors launch the scan and its merge (counted
-    in ``knn_few.launches`` and, by queries, in the profiling counter
-    ``knn.few_queries``); CPU tensors run ``knn_few_reference``.  Rows of
-    the output in no promised order; at a tie on the k-th value any of
-    the tied ids may be kept."""
-    if mode not in _FEW_MODES:
-        raise ValueError(f"knn_few mode is one of {_FEW_MODES}, got "
-                         f"{mode!r}")
+    Inputs as ``knn_fold``, ``1 <= k <= FEW_K_MAX``; fold's contract
+    (``knn_few_reference``): u is FP32, each pair summed in fold's order,
+    so the rdist are the streaming fold kernel's bits.  Queries run in
+    groups of up to 16, one pass over the index each.  CUDA tensors launch
+    the scan and its merge (counted in ``knn_few.launches`` and, by
+    queries, in the profiling counter ``knn.few_queries``); CPU tensors run
+    ``knn_few_reference``.  Returns (rdist (Q, k), ids (Q, k)), rows in no
+    promised order; at a tie on the k-th value any of the tied ids may be
+    kept."""
     _check(points, queries, point_norms, k, "knn_few", FEW_K_MAX)
     if points.device.type == "cpu":
-        return knn_few_reference(points, queries, point_norms, k=k,
-                                 mode=mode)
-    out = _few(points, queries, point_norms, k, mode)
-    return out[:2] if mode == "fold" else out
+        return knn_few_reference(points, queries, point_norms, k=k)
+    return _few(points, queries, point_norms, k)
 
 
-def _few(points, queries, point_norms, k: int, mode: str):
+def _few(points, queries, point_norms, k: int):
     n, d = points.shape
     nq = queries.shape[0]
     if n >= 2 ** 31 or nq >= 2 ** 31:
@@ -847,26 +830,22 @@ def _few(points, queries, point_norms, k: int, mode: str):
     dev = queries.device
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    out_t = torch.empty((0 if mode == "fold" else nq,), dtype=torch.float32,
-                        device=dev)
     if nq == 0:
-        return out_d, out_i, out_t
-    blocks = int(mode == "bcap")
+        return out_d, out_i
     with torch.cuda.device(dev):
-        splits = _few_plan(_device_index(dev), blocks, n, nq, d, k)["splits"]
+        splits = _few_plan(_device_index(dev), n, nq, d, k)["splits"]
         part_u = torch.empty((splits, nq, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
         err = _few_lib().few_launch(
-            blocks, points.data_ptr(), queries.data_ptr(),
-            point_norms.data_ptr(), part_u.data_ptr(), part_i.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            out_t.data_ptr() if mode != "fold" else None, n, nq, d, k,
-            splits, torch.cuda.current_stream().cuda_stream)
+            points.data_ptr(), queries.data_ptr(), point_norms.data_ptr(),
+            part_u.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), n, nq, d, k, splits,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_few kernel launch failed: cudaError {err}")
     knn_few.launches += 1
     count("knn.few_queries", nq)
-    return out_d, out_i, out_t
+    return out_d, out_i
 
 
 def knn_fold(points, queries, point_norms, *, k: int,
@@ -905,7 +884,7 @@ def knn_fold(points, queries, point_norms, *, k: int,
                          points.shape[0])
     passes = []
     if path == "few":
-        out_d, out_i, _ = _few(points, queries, point_norms, k, "fold")
+        out_d, out_i = _few(points, queries, point_norms, k)
     elif path == "select":
         out_d, out_i, passes = _fold_select(points, queries, point_norms, k)
     else:
@@ -956,7 +935,7 @@ def knn_fold_lazy(points, queries, point_norms, *, k: int):
 
 
 def knn_capped(points, queries, point_norms, *, k: int, tile: int,
-               passes: int, path: str | None = None):
+               passes: int):
     """Capped-pass streaming top-k (``_knn_kernel_capped``,
     knn_kernel.py:429): each tile of ``tile`` rows folds at most
     ``passes`` of its candidates into the working set, so true top-k
@@ -968,46 +947,23 @@ def knn_capped(points, queries, point_norms, *, k: int, tile: int,
     ``0 <= passes <= 15``; on the card ``tile`` is a multiple of 64 rows.
     Returns ``(rdist (Q, k), ids (Q, k), thr (Q,))``, unsorted, thr in the
     rdist domain (NaN for a NaN query).  Seed slots of +inf-norm rows may
-    hold (+inf, id).  CUDA tensors launch ``csrc/knn_fold.cu`` (path
-    "tile"), or, where ``few_path`` says so, the few-query kernel (path
-    "few", ``knn_few(mode="capped")``): there the set is the exact top k,
-    thr its k-th, and u the FP32 tier's, whose bound lies under
-    ``tc_proof_err``; ``path`` forces one, for measurement.  Calls on the
-    "tile" path count in ``knn_capped.launches`` (the few path in
-    ``knn_few.launches``), the last call's path is
-    ``knn_capped.last_path``; CPU tensors run ``knn_capped_reference``.
+    hold (+inf, id).  CUDA tensors launch ``csrc/knn_fold.cu`` at every
+    query count (counted in ``knn_capped.launches``); CPU tensors run
+    ``knn_capped_reference``.
     """
     _check(points, queries, point_norms, k, "knn_capped")
     _check_capped(k, tile, passes, "knn_capped")
-    path = _capped_path("capped", path, points, queries, k)
     if points.device.type == "cpu":
         return knn_capped_reference(points, queries, point_norms, k=k,
                                     tile=tile, passes=passes)
     tc_probe(points.device)
-    if path == "few":
-        out = _few(points, queries, point_norms, k, "capped")
-    else:
-        out = _launch("capped", points, queries, point_norms, k, tile,
-                      passes)
-        knn_capped.launches += 1
-    knn_capped.last_path = path
+    out = _launch("capped", points, queries, point_norms, k, tile, passes)
+    knn_capped.launches += 1
     return out
 
 
-def _capped_path(scheme: str, path, points, queries, k: int) -> str:
-    """capped's or bcap's path on the card: ``path`` if given ("few" or
-    "tile"), else "few" where ``few_path`` says so."""
-    if path not in (None, "few", "tile"):
-        raise ValueError(f"knn_{scheme} path is 'few' or 'tile', got "
-                         f"{path!r}")
-    if path is not None:
-        return path
-    n, d = points.shape
-    return "few" if few_path(queries.shape[0], d, k, n) else "tile"
-
-
 def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
-             passes: int, path: str | None = None):
+             passes: int):
     """Block-capped streaming top-k (``_knn_kernel_bcap``,
     knn_kernel.py:546): the capped scheme over the minima of u over blocks
     of ``BCAP_BLOCK`` = 16 contiguous rows (block id b = rows [16b,
@@ -1022,30 +978,19 @@ def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
     ``knn_fold``; ``k <= tile``, ``0 <= passes <= 15``; on the card
     ``tile`` is a multiple of 4 blocks (``TILE_ROWS`` rows; ValueError
     otherwise).  Returns ``(block-min rdist (Q, k), block ids (Q, k), thr
-    (Q,))`` as ``knn_capped``.  CUDA tensors launch ``csrc/knn_fold.cu``
-    (path "tile"), or, where ``few_path`` says so, the few-query kernel
-    (path "few", ``knn_few(mode="bcap")``): the exact k smallest block
-    minima of the FP32 tier's u, thr the k-th.  The block minima equal
-    ``bcap_minima``'s bit for bit on the "tile" path only.  ``path``
-    forces one, for measurement; calls on the "tile" path count in
-    ``knn_bcap.launches`` (the few path in ``knn_few.launches``), the last
-    call's path is ``knn_bcap.last_path``; CPU tensors run
+    (Q,))`` as ``knn_capped``.  CUDA tensors launch ``csrc/knn_fold.cu`` at
+    every query count (counted in ``knn_bcap.launches``); CPU tensors run
     ``knn_bcap_reference``.
     """
     _check(points, queries, point_norms, k, "knn_bcap")
     _check_capped(k, tile, passes, "knn_bcap")
-    path = _capped_path("bcap", path, points, queries, k)
     if points.device.type == "cpu":
         return knn_bcap_reference(points, queries, point_norms, k=k,
                                   tile=tile, passes=passes)
     _tile_tiles("bcap", tile)
     tc_probe(points.device)
-    if path == "few":
-        out = _few(points, queries, point_norms, k, "bcap")
-    else:
-        out = _launch("bcap", points, queries, point_norms, k, tile, passes)
-        knn_bcap.launches += 1
-    knn_bcap.last_path = path
+    out = _launch("bcap", points, queries, point_norms, k, tile, passes)
+    knn_bcap.launches += 1
     return out
 
 
@@ -1212,7 +1157,5 @@ knn_fold.last_path = None
 knn_fold.last_passes = []
 knn_fold_lazy.launches = 0
 knn_capped.launches = 0
-knn_capped.last_path = None
 knn_bcap.launches = 0
-knn_bcap.last_path = None
 knn_few.launches = 0

@@ -35,8 +35,11 @@ the same resident copy, the NaN rows never matching.
 
 ``last_backend`` names the route that served the latest ``query_batch``:
 ``"kernel"`` or ``"scan"``; ``last_scheme`` the kernel scheme ("bcap",
-"capped", "fold", "merge", "lp"), or None after the scan.  Unlike the JAX
-package, a kernel failure raises: nothing falls back quietly.
+"capped", "fold", "merge", "lp"; ``pick_scheme``'s, as the JAX package
+names it), or None after the scan.  On the card a bcap or capped call of
+1 to a few queries runs the fold route on the few-query kernel, where
+``knn_fold`` would take it (``ops.bruteforce.knn_prepadded``).  Unlike the
+JAX package, a kernel failure raises: nothing falls back quietly.
 """
 
 from __future__ import annotations

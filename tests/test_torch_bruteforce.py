@@ -926,15 +926,15 @@ def test_capped_route_proves_on_the_tc_bound(monkeypatch):
     pts = torch.from_numpy(rng.random((8192, 48), dtype=np.float32))
     qs = torch.from_numpy(rng.random((40, 48), dtype=np.float32))
     mu, pp, pn, _ = tbf.prepare_euclidean_index(pts)
-    tiers = []
-    real = tbf._proof_err
+    dims = []
+    real = tbf.tc_proof_err
 
-    def spy(dim, qn, xn_max, tier="fp32"):
-        tiers.append(tier)
-        return real(dim, qn, xn_max, tier)
-    monkeypatch.setattr(tbf, "_proof_err", spy)
+    def spy(dim, qn, xn_max):
+        dims.append(dim)
+        return real(dim, qn, xn_max)
+    monkeypatch.setattr(tbf, "tc_proof_err", spy)
     d, i = tbf.knn_prepadded(pp, pn, qs, 10, 8192, mu, scheme="capped")
-    assert tiers[-1] == "tc"
+    assert dims == [48]
     sd, si = tbf.knn(pts - mu, qs - mu, 10)
     assert torch.equal(torch.sort(i, 1).values, torch.sort(si, 1).values)
     np.testing.assert_allclose(d.numpy(), sd.numpy(), rtol=1e-5)
@@ -952,16 +952,15 @@ def test_proof_gated_routes_prove_on_their_tier(scheme, tier, monkeypatch):
     pts = torch.from_numpy(rng.random((8192, 48), dtype=np.float32))
     qs = torch.from_numpy(rng.random((N_Q, 48), dtype=np.float32))
     mu, pp, pn, _ = tbf.prepare_euclidean_index(pts)
-    tiers = []
-    real = tbf._proof_err
+    dims = []
+    real = tbf.tc_proof_err
 
-    def spy(dim, qn, xn_max, tier="fp32"):
-        tiers.append(tier)
-        return real(dim, qn, xn_max, tier)
-    monkeypatch.setattr(tbf, "_proof_err", spy)
+    def spy(dim, qn, xn_max):
+        dims.append(dim)
+        return real(dim, qn, xn_max)
+    monkeypatch.setattr(tbf, "tc_proof_err", spy)
     tbf.knn_prepadded(pp, pn, qs, 10, 8192, mu, scheme=scheme)
-    assert tiers == [tier]
-    assert tbf.last_proof_tier == tier
+    assert (tier, dims) == ("tc", [48])
 
 
 @pytest.mark.parametrize("d", [128, 960])
@@ -969,7 +968,7 @@ def test_two_phase_threshold_is_sound_on_the_tc_bound(d):
     """two_phase's threshold T (the k-th smallest subchunk minimum, on the
     tensor-core tier) against the f64 u: every 128-row subchunk outside
     the k selected has its least f64 u at or above T −
-    ``_proof_err(tier="tc")``, so the route's proof on that tier holds."""
+    ``tc_proof_err``, so the route's proof on that tier holds."""
     from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
 
     rng = np.random.default_rng(43 + d)
@@ -982,9 +981,9 @@ def test_two_phase_threshold_is_sound_on_the_tc_bound(d):
     minima = mk.subchunk_minima(pp, qc, pn)
     selected = torch.sort(minima, dim=1, stable=True).indices[:, :k].numpy()
     assert torch.equal(thr_u, torch.sort(minima, dim=1).values[:, k - 1])
-    err = tbf._proof_err(d, torch.sum(qc * qc, 1),
-                         torch.max(torch.where(torch.isfinite(pn), pn, 0.0)),
-                         tier="tc").numpy()
+    err = tbf.tc_proof_err(d, torch.sum(qc * qc, 1),
+                           torch.max(torch.where(torch.isfinite(pn), pn,
+                                                 0.0))).numpy()
     p64, q64 = pp.numpy().astype(np.float64), qc.numpy().astype(np.float64)
     xn64 = np.where(np.isfinite(pn.numpy()), (p64 * p64).sum(1), np.inf)
     u64 = xn64[None, :] - 2.0 * q64 @ p64.T
@@ -995,19 +994,6 @@ def test_two_phase_threshold_is_sound_on_the_tc_bound(d):
     for r in range(nq):
         outside = np.setdiff1d(np.arange(sub64.shape[1]), selected[r])
         assert sub64[r, outside].min() >= thr[r] - err[r], r
-
-
-def test_fold_route_records_no_proof_tier():
-    """The fold route proves nothing: after a proof-gated call,
-    ``last_proof_tier`` goes back to None on the next fold call."""
-    rng = np.random.default_rng(42)
-    pts = torch.from_numpy(rng.random((4096, 24), dtype=np.float32))
-    qs = torch.from_numpy(rng.random((N_Q, 24), dtype=np.float32))
-    mu, pp, pn, _ = tbf.prepare_euclidean_index(pts)
-    tbf.knn_prepadded(pp, pn, qs, 10, 4096, mu, scheme="bcap2")
-    assert tbf.last_proof_tier == "tc"
-    tbf.knn_prepadded(pp, pn, qs, 10, 4096, mu, scheme="fold")
-    assert tbf.last_proof_tier is None
 
 
 @pytest.mark.parametrize("scheme", ["bcap", "bcap2"])

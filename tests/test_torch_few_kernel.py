@@ -1,14 +1,13 @@
 """The few-query kernel's plain version and its rule (``knn_few``,
 ``few_path``; ``csrc/knn_few.cu`` runs on the card only): exact selection
-against fold's plain version and a float64 oracle, the threshold of the
-capped and bcap contracts, the FP32 tier's proof bound under the
-tensor-core one, and the route's proof over the kernel's contracts.
+against fold's plain version and a float64 oracle, fold's contract below
+k finite rows, and the route's choice of the fold route at the rule's
+shapes (``_few_takes_fold``, applied on the CPU by a patch) against the
+float64 oracle and against the proof route.
 
 Tolerance: the ids' float64 distances against the oracle's k smallest
 within the FP32 tier's bound (the plain version's matmul sums in another
 order than the oracle)."""
-
-import math
 
 import numpy as np
 import pytest
@@ -44,9 +43,11 @@ def _rd64(pp, pn, qt):
 
 
 def _fp32_err(d, qt, pn):
+    """The FP32 SIMT product's pointwise bound on |u − true u|: 4x the f32
+    rounding plus the sequential-sum term d·2⁻²⁴, times ‖q‖² + max ‖x‖²."""
     qn = torch.sum(qt.double() ** 2, dim=1)
     xn = torch.where(torch.isfinite(pn), pn, 0).max().double()
-    return tbf._proof_err(d, qn, xn)
+    return (4 * 2.0 ** -23 + d * 2.0 ** -24) * (qn + xn)
 
 
 @pytest.mark.parametrize("k", [1, 10, 18, 100])
@@ -81,75 +82,22 @@ def test_fold_mode_is_exact(q, d, k):
     assert int((ids[ok] >= 0).sum(dim=1).min()) == min(k, finite_rows)
 
 
-@pytest.mark.parametrize("k", [3, 18])
-@pytest.mark.parametrize("d", [7, 128])
-@pytest.mark.parametrize("q", [1, 4, 16])
-@pytest.mark.parametrize("mode", ["capped", "bcap"])
-def test_threshold_bounds_every_left_out(mode, q, d, k):
-    """capped and bcap modes: thr is the k-th kept rdist, and every row
-    (bcap: every 16-row block's minimum) left out has rdist at or above it
-    in the same arithmetic; thr is NaN for a NaN query."""
-    pp, pn, qt = _index(7 * q + d + k, 1000, q, d)
-    rd, ids, thr = kk.knn_few(pp, qt, pn, k=k, mode=mode)
-    qn = torch.sum(qt * qt, dim=1)
-    u = kk._u(pp, qt, pn, 0, pp.shape[0])
-    u = torch.where(torch.isnan(u), torch.inf, u)
-    if mode == "bcap":
-        u = torch.amin(u.reshape(q, -1, kk.BCAP_BLOCK), dim=2)
-    full = u + qn[:, None]
-    nanq = torch.isnan(qt).any(dim=1)
-    assert bool(torch.isnan(thr[nanq]).all())
-    for r in torch.nonzero(~nanq).flatten().tolist():
-        kept = ids[r][ids[r] >= 0].long()
-        assert kept.numel() == k
-        assert torch.equal(torch.sort(rd[r]).values,
-                           torch.sort(torch.clamp_min(full[r, kept], 0)).values)
-        assert float(thr[r]) == float(full[r, kept].max())
-        out = torch.ones(full.shape[1], dtype=torch.bool)
-        out[kept] = False
-        assert bool((full[r, out] >= thr[r]).all())
-
-
 def test_threshold_is_inf_below_k_finite_rows():
-    """Fewer than k finite rows (or blocks): the set keeps them all, the
-    other slots are (+inf, -1), and thr is +inf."""
+    """Fewer than k finite rows: fold's contract keeps them all, in the
+    first slots of the plain version's ascending rows, and the other slots
+    are (+inf, -1); there is no threshold."""
     pp, pn, qt = _index(3, 30, 2, 8, nan_query=False)
-    for mode, k in (("capped", 40), ("bcap", 3)):
-        rd, ids, thr = kk.knn_few(pp, qt, pn, k=k, mode=mode)
-        assert bool(torch.isinf(thr).all())
-        assert bool((ids == -1).any(dim=1).all())
+    finite = int(torch.isfinite(pn).sum())
+    for k in (finite + 1, 40):
+        out = kk.knn_few(pp, qt, pn, k=k)
+        assert len(out) == 2
+        rd, ids = out
         assert torch.equal(ids < 0, torch.isinf(rd))
-
-
-def test_bcap_mode_keeps_the_smallest_block_minima():
-    """bcap mode's ids are the blocks of the k smallest float64 block
-    minima (within the FP32 bound), its rdist their minima."""
-    pp, pn, qt = _index(11, 3000, 3, 128, nan_query=False)
-    k = 18
-    rd, ids, _ = kk.knn_few(pp, qt, pn, k=k, mode="bcap")
-    b = kk.BCAP_BLOCK
-    rd64 = _rd64(pp, pn, qt)
-    rows = pp.shape[0] // b * b
-    bmin = torch.amin(rd64[:, :rows].reshape(3, -1, b), dim=2)
-    want = torch.sort(bmin, dim=1).values[:, :k]
-    got = torch.sort(torch.gather(bmin, 1, ids.long()), dim=1).values
-    err = _fp32_err(128, qt, pn)[:, None]
-    assert bool(((got - want).abs() <= err).all())
-    assert bool(((torch.sort(rd, 1).values.double() - got).abs() <= err).all())
-
-
-def test_fp32_bound_under_tensor_core_bound_at_every_width():
-    """The soundness argument of the capped and bcap routes over the
-    few-query kernel: its u is on the FP32 tier, whose bound (4 + d/2)
-    2^-23 (|q|^2 + max |x|^2) lies at or under the tensor-core tier's
-    (4 + 12 ceil(d/16)) 2^-23 (...), which the route's proof uses, at
-    every d from 1 to 4096."""
-    qn = torch.tensor([1.0, 1e6])
-    for d in range(1, 4097):
-        fp32 = tbf._proof_err(d, qn, 3.0)
-        tc = tbf._proof_err(d, qn, 3.0, tier="tc")
-        assert bool((fp32 <= tc).all()), d
-        assert math.isclose(float(fp32[0]), (4 + d / 2) * 2.0 ** -23 * 4.0)
+        assert bool((ids[:, :finite] >= 0).all())
+        assert bool((ids[:, finite:] == -1).all())
+        kept = torch.sort(ids[:, :finite], dim=1).values
+        want = torch.nonzero(torch.isfinite(pn)).flatten().to(torch.int32)
+        assert torch.equal(kept, want.expand_as(kept))
 
 
 def test_few_path_is_a_rule_on_the_shape():
@@ -193,51 +141,105 @@ def test_few_path_is_a_rule_on_the_shape():
 
 
 def test_paths_and_modes_are_checked_on_the_cpu():
-    """The wrappers refuse an unknown path or mode and k past the kernel's
-    limit before they run; on CPU tensors they run their plain versions
-    whatever the rule says."""
+    """``knn_fold`` refuses an unknown path and ``knn_few`` k past the
+    kernel's limit before they run; on CPU tensors fold, capped and bcap
+    run their plain versions whatever the rule says (capped and bcap at
+    every query count, as their tile kernels do on the card), and none
+    counts a few-query launch."""
     pp, pn, qt = _index(5, 500, 2, 8)
     with pytest.raises(ValueError, match="path"):
         kk.knn_fold(pp, qt, pn, k=4, path="wide")
-    with pytest.raises(ValueError, match="path"):
-        kk.knn_capped(pp, qt, pn, k=4, tile=64, passes=2, path="stream")
-    with pytest.raises(ValueError, match="path"):
-        kk.knn_bcap(pp, qt, pn, k=4, tile=8, passes=2, path="select")
-    with pytest.raises(ValueError, match="mode"):
-        kk.knn_few(pp, qt, pn, k=4, mode="merge")
     with pytest.raises(ValueError):
         kk.knn_few(pp, qt, pn, k=kk.FEW_K_MAX + 1)
+    assert kk.few_path(2, 8, 4, pp.shape[0])
     before = kk.knn_few.launches
-    rd, ids, thr = kk.knn_capped(pp, qt, pn, k=4, tile=64, passes=2,
-                                 path="few")
-    crd, cids, cthr = kk.knn_capped_reference(pp, qt, pn, k=4, tile=64,
-                                              passes=2)
-    assert torch.equal(rd, crd) and torch.equal(ids, cids)
+    for path in (None, "few", "select", "stream"):
+        rd, ids = kk.knn_fold(pp, qt, pn, k=4, path=path)
+        frd, fids = kk.knn_fold_reference(pp, qt, pn, k=4)
+        assert torch.equal(rd, frd) and torch.equal(ids, fids)
+    for run, ref, tile in ((kk.knn_capped, kk.knn_capped_reference, 64),
+                           (kk.knn_bcap, kk.knn_bcap_reference, 8)):
+        got = run(pp, qt, pn, k=4, tile=tile, passes=2)
+        want = ref(pp, qt, pn, k=4, tile=tile, passes=2)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     assert kk.knn_few.launches == before
 
 
-@pytest.mark.parametrize("scheme", ["capped", "bcap"])
-@pytest.mark.parametrize("d", [8, 128])
-def test_route_proof_over_the_few_contracts(scheme, d, monkeypatch):
-    """The route's proof and repair unchanged, with the kernel's capped
-    and bcap contracts (its plain version) in place of the tile kernels:
-    exact answers against the float64 oracle, and no query repaired (the
-    k-th neighbour lies far under the exact k_scan-th minus the bound)."""
-    def capped(p, q, xn, *, k, tile, passes):
-        return kk.knn_few_reference(p, q, xn, k=k, mode="capped")
+def _rule_on_cpu(scheme, queries, k_scan, n_padded):
+    """``_few_takes_fold`` with its card test left out: the rule alone."""
+    q, d = queries.shape
+    return (scheme in ("bcap", "capped") and k_scan <= kk.FOLD_K_MAX
+            and kk.fold_path(q, k_scan, d, n_padded) == "few")
 
-    def bcap(p, q, xn, *, k, tile, passes):
-        return kk.knn_few_reference(p, q, xn, k=k, mode="bcap")
 
-    monkeypatch.setattr(tbf, "knn_capped", capped)
-    monkeypatch.setattr(tbf, "knn_bcap", bcap)
-    rng = np.random.default_rng(d)
-    pts = torch.from_numpy(rng.random((5000, d)).astype(np.float32) * 50)
-    qs = torch.from_numpy(rng.random((6, d)).astype(np.float32) * 50)
+def _route_inputs(seed, n, q, d):
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.random((n, d)).astype(np.float32) * 50)
+    qs = torch.from_numpy(rng.random((q, d)).astype(np.float32) * 50)
     mu, pp, pn, _ = tbf.prepare_euclidean_index(pts)
+    return pts, qs, mu, pp, pn
+
+
+@pytest.mark.parametrize("q", [1, 6, 16])
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("scheme", ["bcap", "capped"])
+def test_few_shapes_take_the_fold_route(scheme, d, q, monkeypatch):
+    """Where ``knn_fold`` would run the few-query kernel, a bcap or capped
+    call (forced here, as ``BruteForce`` forces its pick) takes the fold
+    route: neither tile kernel is called, ``knn_fold`` runs once at the
+    scheme's ``k_scan`` on all the queries, nothing is proved or repaired
+    (``route.repaired`` is never counted), and the answers are the float64
+    oracle's."""
+    n, k = 5000, 10
+    pts, qs, mu, pp, pn = _route_inputs(d * 100 + q, n, q, d)
+    k_scan = tbf.scan_width(scheme, k, n)
+    assert kk.fold_path(q, k_scan, d, pp.shape[0]) == "few"
+
+    def tile_kernel(*a, **kw):
+        raise AssertionError("a tile kernel ran at a few-query shape")
+
+    folds = []
+    fold = tbf.knn_fold
+
+    def counted_fold(p, qq, xn, *, k):
+        folds.append((qq.shape[0], k))
+        return fold(p, qq, xn, k=k)
+
+    monkeypatch.setattr(tbf, "_few_takes_fold", _rule_on_cpu)
+    monkeypatch.setattr(tbf, "knn_capped", tile_kernel)
+    monkeypatch.setattr(tbf, "knn_bcap", tile_kernel)
+    monkeypatch.setattr(tbf, "knn_fold", counted_fold)
     profiling.reset_counters()
-    dist, ids = tbf.knn_prepadded(pp, pn, qs, 10, 5000, mu, scheme=scheme)
-    assert profiling.counters().get("route.repaired", 0) == 0
+    dist, ids = tbf.knn_prepadded(pp, pn, qs, k, n, mu, scheme=scheme)
+    assert folds == [(q, k_scan)]
+    assert "route.repaired" not in profiling.counters()
+    assert profiling.counters()["route.queries"] == q
     want = torch.sort(torch.cdist(qs.double(), pts.double()), dim=1)
-    assert torch.allclose(dist.double(), want.values[:, :10], rtol=1e-5)
-    assert torch.equal(ids.long(), want.indices[:, :10])
+    assert torch.allclose(dist.double(), want.values[:, :k], rtol=1e-5)
+    assert torch.equal(ids.long(), want.indices[:, :k])
+
+
+@pytest.mark.parametrize("k", [3, 10])
+@pytest.mark.parametrize("q", [1, 4, 16])
+@pytest.mark.parametrize("d", [7, 128])
+@pytest.mark.parametrize("scheme", ["bcap", "capped"])
+def test_few_route_answers_equal_the_proof_route(scheme, d, q, k,
+                                                 monkeypatch):
+    """The fold route at a few-query shape gives the distances of the
+    route it replaces, the tile kernels' candidates (their plain versions)
+    with the proof and the repair, bit for bit; the ids are equal but
+    where two rows tie at the k-th distance."""
+    n = 4000
+    _, qs, mu, pp, pn = _route_inputs(1000 * d + 10 * q + k, n, q, d)
+    profiling.reset_counters()
+    old_d, old_i = tbf.knn_prepadded(pp, pn, qs, k, n, mu, scheme=scheme)
+    assert profiling.counters()["route.queries"] == q
+    monkeypatch.setattr(tbf, "_few_takes_fold", _rule_on_cpu)
+    new_d, new_i = tbf.knn_prepadded(pp, pn, qs, k, n, mu, scheme=scheme)
+    assert torch.equal(new_d, old_d)
+    below = new_d < new_d[:, -1:]
+    assert torch.equal(torch.sort(torch.where(below, new_i, -1), 1).values,
+                       torch.sort(torch.where(below, old_i, -1), 1).values)
+    for row in new_i.tolist():
+        assert min(row) >= 0 and len(set(row)) == k

@@ -408,11 +408,9 @@ def test_bcap_reference_matches_jax_highest(d):
 @pytest.mark.parametrize("splits", [1, 3])
 def test_bcap_threshold_is_sound_on_the_tc_bound(d, splits):
     """Every block outside bcap's working set scores at least thr −
-    ``_proof_err(tier="tc")`` in the exact (f64) squared distance, however
+    ``tc_proof_err`` in the exact (f64) squared distance, however
     few the passes and however the rows split into ranges: the route's
     proof for bcap and bcap2 holds on the tensor-core tier."""
-    from petal_neighbors_tpu_torch.ops.bruteforce import _proof_err
-
     k, tile, passes, nq, n = 12, 32, 1, 16, 4096
     pts, qs, pp, pn = _tc_inputs(d + splits, n, d, nq, nan=False)
     td, ti, tt = kk.knn_bcap_reference(
@@ -420,9 +418,9 @@ def test_bcap_threshold_is_sound_on_the_tc_bound(d, splits):
         k=k, tile=tile, passes=passes, splits=splits)
     qt = torch.from_numpy(qs)
     xn = torch.from_numpy(pn)
-    err = _proof_err(d, torch.sum(qt * qt, 1),
-                     torch.max(torch.where(torch.isfinite(xn), xn, 0.0)),
-                     tier="tc").numpy()
+    err = kk.tc_proof_err(d, torch.sum(qt * qt, 1),
+                          torch.max(torch.where(torch.isfinite(xn), xn,
+                                                0.0))).numpy()
     d2 = ((qs[:, None].astype(np.float64)
            - pts[None].astype(np.float64)) ** 2).sum(-1)
     b = kk.BCAP_BLOCK

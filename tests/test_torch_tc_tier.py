@@ -10,7 +10,7 @@ test_torch_knn_kernel.py, the capped route's proof in
 test_torch_bruteforce.py).
 
 Tolerances: the split is exact (bit for bit); u within ``tc_proof_err``
-(derived in ``ops.bruteforce._proof_err``); rdist against the JAX kernels
+(derived in its docstring); rdist against the JAX kernels
 rtol 2e-4 after sorting (the two sum the dot product in different orders;
 the JAX kernel tests' own tolerance), ids as sets except where the k-th
 and (k+1)-th exact distances lie within the tier's bound of each other."""
@@ -124,17 +124,15 @@ def test_core_accumulation_order_within_bound(d):
 
 
 def test_proof_err_tiers():
-    """``_proof_err`` gives each tier's bound: the FP32 one as before, the
-    tensor-core one (4 + 12 ceil(d/16)) 2^-23 (|q|^2 + max |x|^2)."""
+    """``tc_proof_err``, the bound every proof-gated route proves on, is
+    (4 + 12 ceil(d/16)) 2^-23 (|q|^2 + max |x|^2), and the route's module
+    proves on that function itself."""
     qn = torch.tensor([2.0, 3.0])
-    for d in (5, 16, 17, 128, 960):
-        fp32 = bf._proof_err(d, qn, 1.5)
-        assert torch.allclose(fp32, (4 * 2.0 ** -23 + d * 2.0 ** -24)
-                              * (qn + 1.5))
-        tc = bf._proof_err(d, qn, 1.5, tier="tc")
+    assert bf.tc_proof_err is kk.tc_proof_err
+    for d in (1, 5, 16, 17, 100, 128, 960):
+        tc = kk.tc_proof_err(d, qn, 1.5)
         assert torch.allclose(tc, (4 + 12 * math.ceil(d / 16)) * 2.0 ** -23
                               * (qn + 1.5))
-        assert torch.equal(tc, kk.tc_proof_err(d, qn, 1.5))
 
 
 def test_integrity_check_passes_and_raises():
