@@ -9,11 +9,20 @@ Phases, each printed as one JSON line on stdout:
               petal_neighbors_tpu_torch/ops/cuda/csrc with nvcc; then
               build_ptxas, each kernel's registers, spills and stack frame
               from ``-Xptxas -v`` (knn_fold.cu, knn_select.cu,
-              knn_minima.cu, mst_scan.cu), and the kernels of the
-              tensor-core core whose wgmma ptxas serialized
+              knn_minima.cu, mst_scan.cu, split_planes.cu), and the kernels
+              of the tensor-core core whose wgmma ptxas serialized
               (``wgmma_notes``).
    tc_probe — the tensor-core tier's integrity probe (knn_kernel.tc_probe):
               its largest |u - u_f64| over the tier's bound, at most 1.
+   planes — the tensor-core core's piece planes (tc_planes.split_planes,
+              csrc/split_planes.cu) at the SIFT, GIST and GloVe index shapes
+              and one 10,240-query batch: the split's time beside its byte
+              bound and its plain version's, the planes' bytes beside the
+              float32 rows', and the first and last tiles against the plain
+              version byte for byte; then, at the GIST shape, what a call
+              of the functional knn() (no index: it pads and splits its
+              rows in the call) costs beside an index's query_batch:
+              host time and device memory above its inputs.
    mst_kernel_small — the Borůvka scan kernel (csrc/mst_scan.cu)
               against its plain version, bw and bj bit for bit: n ragged
               against the 256-row stages (1 to 4,097), d = 1 to 8 (the
@@ -362,6 +371,7 @@ SORT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/row_sort.cu"
 LP_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/lp_knn.cu"
 MINIMA_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_minima.cu"
 FEW_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_few.cu"
+SPLIT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/split_planes.cu"
 #: the opt-in schemes' requests on the SIFT index, in order
 OPT_IN = (("bcap2", 10), ("bcap2", 100), ("two_phase", 10),
           ("fold_lazy", 10))
@@ -645,7 +655,10 @@ def library_topk(points, queries, norms, k: int, block: int = 1):
 
 
 def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
-         passes: int, splits: int = 1):
+         passes: int, splits: int = 1, planes=None):
+    """One call of a scheme's kernel (or, with ``plain``, its plain
+    version); the tensor-core kernels read ``planes``, the points' piece
+    planes as an index holds them (split per call when None)."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
     if scheme in FOLD_SCHEMES:
@@ -660,13 +673,16 @@ def _run(scheme: str, plain: bool, pp, qt, pn, k: int, tile: int,
                ("fold_lazy", False): kk.knn_fold_lazy,
                ("merge", True): kk.knn_merge_reference,
                ("merge", False): kk.knn_merge}[scheme, plain]
-        return run(pp, qt, pn, k=k) + (None,)
+        kw = {"point_planes": planes} if (scheme, plain) == ("merge",
+                                                             False) else {}
+        return run(pp, qt, pn, k=k, **kw) + (None,)
     if plain:
         ref = (kk.knn_capped_reference if scheme == "capped"
                else kk.knn_bcap_reference)
         return ref(pp, qt, pn, k=k, tile=tile, passes=passes, splits=splits)
     run = kk.knn_capped if scheme == "capped" else kk.knn_bcap
-    return run(pp, qt, pn, k=k, tile=tile, passes=passes)
+    return run(pp, qt, pn, k=k, tile=tile, passes=passes,
+               point_planes=planes)
 
 
 def compare_kernel(scheme: str, pp, qt, pn, k: int, tile: int = 1,
@@ -1092,6 +1108,91 @@ def phase_tc_probe() -> float:
          bound="(4 + 12 ceil(d/16)) 2^-23 (|q|^2 + max |x|^2)",
          tile=kk.tc_tile(), ok=True)
     return ratio
+
+
+#: the planes' build at the benchmark's index shapes (SIFT, GIST, GloVe)
+#: and one call's query batch: (name, rows, d)
+PLANE_SHAPES = (("sift", 1_000_000, 128), ("gist", 1_000_000, 960),
+                ("glove", 1_183_514, 100), ("queries", 10_240, 128))
+
+
+def phase_planes() -> dict:
+    """The tensor-core core's piece planes (``tc_planes.split_planes``,
+    ``csrc/split_planes.cu``) at the index shapes of the benchmark's
+    configurations and at one batch of queries: the split's device time
+    beside its plain version's on the card, the planes' bytes beside the
+    float32 rows', its byte bound (float32 read and planes written once at
+    3.35 TB/s), and its first and last tiles against the plain version
+    byte for byte.  At the GIST shape, ``functional_knn_cost``.  Returns
+    the rows by shape."""
+    from petal_neighbors_tpu_torch.ops.cuda import tc_planes as tp
+
+    out = {}
+    for name, rows, d in PLANE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(rows + d)
+        x = torch.rand((rows, d), generator=g, device="cuda") * 255.0 - 127.5
+        planes = tp.split_planes(x)
+        ms = cuda_ms(lambda: tp.split_planes(x), reps=5)
+        plain = cuda_ms(lambda: tp.split_planes_reference(x), reps=1,
+                        warm=0)
+        for rs in (slice(0, 256), slice((rows - 1) // 128 * 128, rows)):
+            want = tp.split_planes_reference(x[rs].cpu()).view(torch.int16)
+            t0 = rs.start // 128
+            got = planes[t0:t0 + want.shape[0]].cpu()
+            if not torch.equal(got.view(torch.int16), want):
+                raise AssertionError(f"split_planes {name}: rows {rs} differ "
+                                     "from the plain version")
+        f32 = rows * d * 4
+        nbytes = planes.numel() * 2
+        out[name] = dict(rows=rows, d=d, ms=ms, plain_ms=plain,
+                         planes_bytes=nbytes, f32_bytes=f32,
+                         ratio=nbytes / f32,
+                         bound_ms=(f32 + nbytes) / PEAK_BYTES_S * 1e3)
+        emit("planes", shape=name, **out[name], plain_equal=True)
+        del planes
+        if name == "gist":
+            functional_knn_cost(x)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def functional_knn_cost(x) -> None:
+    """What one call of the functional ``knn()`` costs over the rows ``x``
+    (GIST's shape) with GIST_Q queries at k = GIST_K, beside a
+    ``BruteForce`` index of the same rows: host time of a call after a
+    warm one, the device memory it takes above its inputs at its peak
+    (``max_memory_allocated``), and the rows ``split_planes`` splits in
+    it.  The functional call centres, pads and splits its rows each time;
+    the index did that at build."""
+    import petal_neighbors_tpu_torch as pt
+    from petal_neighbors_tpu_torch.ops import bruteforce as bf
+    from petal_neighbors_tpu_torch.utils import profiling
+
+    q = x[:GIST_Q] + 0.5
+    row = {}
+    for name, call in (("functional", lambda: bf.knn(x, q, GIST_K)),
+                       ("index", None)):
+        if call is None:
+            index = pt.BruteForce(x)
+            call = lambda: index.query_batch(q, GIST_K)
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        split0 = profiling.counters().get("knn.planes_split", 0)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        row[name] = {"s": time.perf_counter() - t0,
+                     "peak_above_inputs_bytes":
+                         torch.cuda.max_memory_allocated() - base,
+                     "rows_split": profiling.counters().get(
+                         "knn.planes_split", 0) - split0}
+    row["index"]["held_bytes"] = (index._pts.numel() * 4
+                                  + index._planes.numel() * 2)
+    del index
+    emit("planes", shape="gist", call="knn", queries=GIST_Q, k=GIST_K, **row)
 
 
 def merge_edge_inputs(kind: str, rng):
@@ -1544,10 +1645,12 @@ def phase_few_query(pt, index, pdev, qdev) -> tuple[list, float]:
     return rows, max(errs.values())
 
 
-def phase_kernel(pp, pn, queries_c):
+def phase_kernel(pp, pn, planes, queries_c):
     """Each kernel against its plain version at every listed shape, then at
-    the main paths' shapes; returns the main-shape rows by (scheme, k) (the
-    minima kernels by (name, None)) and each kernel's largest error."""
+    the main paths' shapes (the tensor-core kernels timed on the index's
+    piece planes, ``planes``, as the route runs them); returns the
+    main-shape rows by (scheme, k) (the minima kernels by (name, None)) and
+    each kernel's largest error."""
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
     from petal_neighbors_tpu_torch.ops.cuda import minima_kernel as mk
@@ -1585,7 +1688,7 @@ def phase_kernel(pp, pn, queries_c):
         err, tied, plan = compare_kernel(scheme, pp, qt, pn, k, tile, passes)
         errs[scheme] = max(errs[scheme], err)
         ms = cuda_ms(lambda: _run(scheme, False, pp, qt, pn, k, tile,
-                                  passes), reps=3)
+                                  passes, planes=planes), reps=3)
         plain = cuda_ms(lambda: _run(scheme, True, pp, qt, pn, k, tile,
                                      passes, plan[0]), reps=1, warm=0)
         lib = cuda_ms(lambda: library_topk(
@@ -1596,7 +1699,7 @@ def phase_kernel(pp, pn, queries_c):
             # k=16
             extra["radix_passes"] = list(kk.knn_merge.last_passes)
             extra["ms_at_k16"] = cuda_ms(lambda: _run(
-                scheme, False, pp, qt, pn, 16, 1, 0), reps=2)
+                scheme, False, pp, qt, pn, 16, 1, 0, planes=planes), reps=2)
         if scheme == "bcap":
             extra["ids_equal_to_minima"] = bcap_is_minima(pp, qt, pn, k,
                                                           tile, passes)
@@ -1623,7 +1726,8 @@ def phase_kernel(pp, pn, queries_c):
             ("block", "bcap_minima", mk.bcap_minima, mk.BCAP_BLOCK, "tc")):
         err, plain = compare_minima(kind, pp, queries_c, pn)
         errs[name] = max(errs[name], err)
-        ms = cuda_ms(lambda: fn(pp, queries_c, pn), reps=3)
+        ms = cuda_ms(lambda: fn(pp, queries_c, pn, point_planes=planes),
+                     reps=3)
         lib = cuda_ms(lambda: library_minima(pp, queries_c, pn, width),
                       reps=2)
         bound, by = minima_bound_ms(pp.shape[0], N_Q, DIM, width, tier)
@@ -2057,7 +2161,7 @@ def phase_main_generic(wrappers, fold_rows):
                                              index._norms, k, tile, passes)
             ms = cuda_ms(lambda: kk.knn_capped(
                 index._pts, qk, index._norms, k=k, tile=tile,
-                passes=passes), reps=3)
+                passes=passes, point_planes=index._planes), reps=3)
             plain = cuda_ms(lambda: kk.knn_capped_reference(
                 index._pts, qk, index._norms, k=k, tile=tile, passes=passes,
                 splits=plan[0]), reps=1, warm=0)
@@ -2079,7 +2183,8 @@ def phase_main_generic(wrappers, fold_rows):
                                         GIST_D, kb, btile),
                     ms=cuda_ms(lambda: kk.knn_bcap(
                         index._pts, qk, index._norms, k=kb, tile=btile,
-                        passes=bpasses), reps=3),
+                        passes=bpasses, point_planes=index._planes),
+                        reps=3),
                     **tier_bounds("bcap", index._pts.shape[0], GIST_Q,
                                   GIST_D, kb))
             if repaired:
@@ -2511,14 +2616,14 @@ def hold_vp_kernels(tree, qdev, k: int, repaired: int) -> dict:
                               tree.dim, k, repaired)
 
 
-def hold_route_kernels(mu, pp, pn, qdev, n: int, d: int, k: int,
+def hold_route_kernels(mu, pp, pn, planes, qdev, n: int, d: int, k: int,
                        repaired: int) -> dict:
     """The kernel route's capped and fold kernels against their plain
     versions at the shapes the route gives them (capped: the batch
     ``qdev``; fold: its repair, at least one query), timed beside the
-    plain version, a library call and the bound.  ``mu``, ``pp``, ``pn``
-    are the route's centre, padded points and norms over ``n`` real rows.
-    Launches here are not the path's."""
+    plain version, a library call and the bound.  ``mu``, ``pp``, ``pn``,
+    ``planes`` are the route's centre, padded points, norms and piece
+    planes over ``n`` real rows.  Launches here are not the path's."""
     from petal_neighbors_tpu_torch.ops.cuda import knn_kernel as kk
 
     qc = qdev - mu
@@ -2530,7 +2635,7 @@ def hold_route_kernels(mu, pp, pn, qdev, n: int, d: int, k: int,
                                          passes, tier_band=True)
         if scheme == "capped":
             run = lambda: kk.knn_capped(pp, qs, pn, k=k_scan, tile=tile,
-                                        passes=passes)
+                                        passes=passes, point_planes=planes)
             plain = lambda: kk.knn_capped_reference(
                 pp, qs, pn, k=k_scan, tile=tile, passes=passes,
                 splits=plan[0])
@@ -3127,6 +3232,7 @@ def phase_hdbscan(pt, wrappers, fold_rows) -> dict:
     from petal_neighbors_tpu_torch import cluster
     from petal_neighbors_tpu_torch.ops import bruteforce as bf
     from petal_neighbors_tpu_torch.ops.cuda import mst_kernel as mk
+    from petal_neighbors_tpu_torch.ops.cuda.tc_planes import split_planes
     from petal_neighbors_tpu_torch.trees import boruvka as tb
 
     t_phase = time.perf_counter()
@@ -3267,8 +3373,9 @@ def phase_hdbscan(pt, wrappers, fold_rows) -> dict:
          reduced_ms=reduced["ms"], reduced_bound_share=reduced["bound_share"],
          levers=mst_levers(pdev, core_rd, labels_seen, qn))
     mu, pp, pn, _ = bf.prepare_euclidean_index(pdev)
-    held = hold_route_kernels(mu, pp, pn, pdev[:MST_HOLD_Q], MST_N, MST_D,
-                              MST_K, max([0] + rec["repairs"]))
+    held = hold_route_kernels(mu, pp, pn, split_planes(pp),
+                              pdev[:MST_HOLD_Q], MST_N, MST_D, MST_K,
+                              max([0] + rec["repairs"]))
     del mu, pp, pn
 
     # ---- 10,000 points against the dense f64 Prim ----
@@ -4060,10 +4167,12 @@ def main() -> int:
                            logs.items() if name in ("knn_fold",
                                                     "knn_select",
                                                     "knn_minima",
-                                                    "mst_scan")},
+                                                    "mst_scan",
+                                                    "split_planes")},
          wgmma_notes={name: wgmma_notes(log) for name, log in logs.items()
                       if name in ("knn_fold", "knn_select", "knn_minima")})
     tc_ratio = phase_tc_probe()
+    plane_rows = phase_planes()
     mst_cases = phase_mst_kernel_small()
 
     rng = np.random.default_rng(SEED)
@@ -4077,7 +4186,8 @@ def main() -> int:
     qdev = torch.from_numpy(queries).cuda()
 
     # ---- kernel vs plain (launches here are not the main paths') -------
-    rows, errs = phase_kernel(index._pts, index._norms, qdev - index._center)
+    rows, errs = phase_kernel(index._pts, index._norms, index._planes,
+                              qdev - index._center)
     fold_rows_sift = fold_table(index._pts, index._norms,
                                 qdev - index._center, "SIFT")
     few_rows, few_err = phase_few_query(pt, index,
@@ -4088,6 +4198,7 @@ def main() -> int:
     # ---- the main paths ------------------------------------------------
     from petal_neighbors_tpu_torch.ops.cuda import rank_sort_kernel as rk
     from petal_neighbors_tpu_torch.ops.cuda import sort_kernel as sk
+    from petal_neighbors_tpu_torch.ops.cuda import tc_planes as tp
 
     wrappers = {"fold": kk.knn_fold, "capped": kk.knn_capped,
                 "bcap": kk.knn_bcap, "merge": kk.knn_merge,
@@ -4096,7 +4207,8 @@ def main() -> int:
                 "fold_lazy": kk.knn_fold_lazy,
                 "subchunk_minima": mk.subchunk_minima,
                 "bcap_minima": mk.bcap_minima,
-                "mst_scan": msk.scan_minout, "few": kk.knn_few}
+                "mst_scan": msk.scan_minout, "few": kk.knn_few,
+                "split_planes": tp.split_planes}
     # the route's fold calls, with their query counts: under bcap and
     # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
@@ -4123,7 +4235,8 @@ def main() -> int:
     pdev = torch.from_numpy(points).cuda()
     launches, fold_by_path, flat_qps = {}, {}, {}
     for phase, ks, qs, reps, need in (
-            ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap", "few")),
+            ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap", "few",
+                                       "split_planes")),
             ("main_large_k", LARGE_K, qdev[:N_Q_LARGE], 2,
              ("capped", "merge", "bitonic_sort", "rank_sort"))):
         for w in wrappers.values():
@@ -4388,6 +4501,20 @@ def main() -> int:
             "dual_join_kernel": joins["_join_via_kernel"][
                 "launches"].get("few", 0)},
         "adapter_launches": {name: got.get("few", 0)
+                             for name, got in adapters.items()}})
+    # the planes' split (no TPU counterpart: the MXU splits its operands
+    # itself): the main path's launches (each bcap or capped call's
+    # queries), timed at SIFT's index shape
+    split = plane_rows["sift"]
+    kernels.append({
+        "name": "split_planes", "route": "cuda", "source": SPLIT_SOURCE,
+        "replaces": None, "launches": launches["split_planes"],
+        "max_abs_err": 0.0, "ms": split["ms"], "plain_ms": split["plain_ms"],
+        "bound_ms": split["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "shape": {"rows": split["rows"], "d": split["d"]},
+        "queries": plane_rows["queries"],
+        "adapter_launches": {name: got.get("split_planes", 0)
                              for name, got in adapters.items()}})
     for kind, row in sorts.items():
         kernels.append({

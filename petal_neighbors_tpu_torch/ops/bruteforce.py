@@ -56,6 +56,7 @@ from .cuda.lp_kernel import lp_knn, pad_for_lp
 from .cuda.minima_kernel import SUBCHUNK, bcap_minima, subchunk_minima
 from .cuda.rank_sort_kernel import rank_sort_pairs
 from .cuda.sort_kernel import bitonic_sort_pairs
+from .cuda.tc_planes import index_planes
 from .topk import (merge_topk, monotone_distances, nan_to_inf, rescore_exact,
                    smallest_k)
 
@@ -402,7 +403,8 @@ def _bcap_rescore_large(pts_padded, xn_padded, queries, block_ids,
             overflow)
 
 
-def _two_phase_small_k(pts_padded, xn_padded, queries, k_eff: int):
+def _two_phase_small_k(pts_padded, xn_padded, queries, k_eff: int,
+                       planes=None):
     """Two-phase candidates (ops/bruteforce.py:284-372): the subchunk
     minima kernel, then each query's k_eff smallest subchunk minima (a
     stable sort: ties to the lower column, as the reference's argmin loop),
@@ -412,9 +414,11 @@ def _two_phase_small_k(pts_padded, xn_padded, queries, k_eff: int):
     ascending, ids, T (Q,) u-domain); T is +inf where there are no more
     than k_eff subchunks (every row is a candidate), NaN for a NaN query.
     The port keeps its 64-row pad: rows past the padded index are missing
-    candidates."""
+    candidates.  ``planes``: the index's piece planes, as
+    ``knn_prepadded`` takes them."""
     with span("petal.route.candidates"):
-        minima = subchunk_minima(pts_padded, queries, xn_padded)
+        minima = subchunk_minima(pts_padded, queries, xn_padded,
+                                 point_planes=planes)
         vals, sid = torch.sort(minima, dim=1, stable=True)
         nc = minima.shape[1]
         if k_eff <= nc:
@@ -430,7 +434,7 @@ def _two_phase_small_k(pts_padded, xn_padded, queries, k_eff: int):
 
 
 def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
-                  k_eff: int, k_scan: int, n_real: int):
+                  k_eff: int, k_scan: int, n_real: int, planes=None):
     """The compacted repair of the proof-gated schemes
     (ops/bruteforce.py:732-779): the queries the proof could not cover
     run the fold kernel (merge above ``k_scan = 1024``), which is exact
@@ -444,8 +448,11 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
         if unc.numel() == 0:
             return best_rd, best_i
         qu = queries[unc]
-        run = knn_fold if k_scan <= FOLD_K_MAX else knn_merge
-        _, idx = run(pts_padded, qu, xn_padded, k=k_scan)
+        if k_scan <= FOLD_K_MAX:
+            _, idx = knn_fold(pts_padded, qu, xn_padded, k=k_scan)
+        else:
+            _, idx = knn_merge(pts_padded, qu, xn_padded, k=k_scan,
+                               point_planes=planes)
         fr, fi = _rescore(pts_padded, qu, torch.where(idx < n_real, idx, -1),
                           k_eff)
         best_rd = best_rd.index_copy(0, unc, fr)
@@ -454,14 +461,18 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
 
 
 def _fold_route(pts_padded, xn_padded, queries, scheme: str, k_eff: int,
-                k_scan: int, n_real: int):
-    """The exact k_scan candidates of the fold, fold_lazy or merge kernel,
-    rescored in the direct form (ops/bruteforce.py:700-725).  Returns
-    (rd, ids) ascending, (Q, k_eff)."""
-    run = {"fold": knn_fold, "fold_lazy": knn_fold_lazy,
-           "merge": knn_merge}[scheme]
+                k_scan: int, n_real: int, planes=None):
+    """The exact k_scan candidates of the fold, fold_lazy or merge kernel
+    (merge on the index's ``planes``), rescored in the direct form
+    (ops/bruteforce.py:700-725).  Returns (rd, ids) ascending, (Q,
+    k_eff)."""
     with span("petal.route.candidates"):
-        _, idx = run(pts_padded, queries, xn_padded, k=k_scan)
+        if scheme == "merge":
+            _, idx = knn_merge(pts_padded, queries, xn_padded, k=k_scan,
+                               point_planes=planes)
+        else:
+            run = {"fold": knn_fold, "fold_lazy": knn_fold_lazy}[scheme]
+            _, idx = run(pts_padded, queries, xn_padded, k=k_scan)
     with span("petal.route.rescore"):
         # drop any padded-row ids (none can appear: their norms are +inf)
         return _rerank(pts_padded, queries,
@@ -470,7 +481,8 @@ def _fold_route(pts_padded, xn_padded, queries, scheme: str, k_eff: int,
 
 def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
                   center=None, *, scheme: str | None = None,
-                  normalize_q: bool = False, out_rdist: bool = False):
+                  normalize_q: bool = False, out_rdist: bool = False,
+                  planes=None):
     """Exact k-NN through the kernels over an index padded by
     ``pad_for_pallas`` (``knn_pallas_prepadded`` at FP32).
 
@@ -511,6 +523,11 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
       route (fold up to k_scan 1024, merge above), as the reference does;
       ``last_two_phase_fallback`` records whether the last call did.
 
+    ``planes`` are the index's piece planes (``split_planes(pts_padded)``,
+    made once at build), which the tensor-core kernels (bcap, capped,
+    merge and the minima) read; an index that holds none has them split at
+    each kernel call.
+
     The call counts its queries in ``route.queries`` (the normalised ones
     also in ``route.normalized``) and records its stages in
     ``petal.route.*`` spans (``utils.profiling``).
@@ -547,15 +564,16 @@ def knn_prepadded(pts_padded, xn_padded, queries, k_eff: int, n_real: int,
                 err = tc_proof_err(queries.shape[1], qn, xn_max)
         if not proof_gated:
             best_rd, best_i = _fold_route(pts_padded, xn_padded, queries,
-                                          scheme, k_eff, k_scan, n_real)
+                                          scheme, k_eff, k_scan, n_real,
+                                          planes)
         elif scheme == "two_phase":
             best_rd, best_i = _two_phase_route(pts_padded, xn_padded,
                                                queries, qn, err, k_eff,
-                                               n_real)
+                                               n_real, planes)
         else:
             best_rd, best_i = _proved_route(pts_padded, xn_padded, queries,
                                             qn, err, scheme, k_eff, k_scan,
-                                            n_real)
+                                            n_real, planes)
         with span("petal.route.out"):
             # the sqrt needs the ascending clamp; the squared domain does not
             return (best_rd if out_rdist
@@ -577,7 +595,7 @@ def _few_takes_fold(scheme: str, queries, k_scan: int, n_padded: int) -> bool:
 
 
 def _two_phase_route(pts_padded, xn_padded, queries, qn, err, k_eff: int,
-                     n_real: int):
+                     n_real: int, planes=None):
     """two_phase's candidates, rescore and whole-batch proof
     (ops/bruteforce.py:955-981): one uncovered query sends the whole batch
     to the fold route; with the k nearest points in k different subchunks
@@ -586,7 +604,7 @@ def _two_phase_route(pts_padded, xn_padded, queries, qn, err, k_eff: int,
     (Q, k_eff)."""
     global last_two_phase_fallback
     best_rd, best_i, thr_u = _two_phase_small_k(pts_padded, xn_padded,
-                                                queries, k_eff)
+                                                queries, k_eff, planes)
     with span("petal.route.proof"):
         kth, thr = best_rd[:, -1], thr_u + qn
         covered = (kth <= thr - err) | (~torch.isfinite(kth)
@@ -597,15 +615,16 @@ def _two_phase_route(pts_padded, xn_padded, queries, qn, err, k_eff: int,
                else "merge")
         best_rd, best_i = _fold_route(pts_padded, xn_padded, queries, run,
                                       k_eff, scan_width(run, k_eff, n_real),
-                                      n_real)
+                                      n_real, planes)
     return best_rd, best_i
 
 
 def _proved_route(pts_padded, xn_padded, queries, qn, err, scheme: str,
-                  k_eff: int, k_scan: int, n_real: int):
-    """bcap, bcap2 and capped: the candidates, their rescore, the per-query
-    proof against ``thr - err`` and the compacted repair of the uncovered
-    queries (``_prove_repair``).  Returns (rd, ids) ascending, (Q, k_eff)."""
+                  k_eff: int, k_scan: int, n_real: int, planes=None):
+    """bcap, bcap2 and capped: the candidates (on the index's ``planes``),
+    their rescore, the per-query proof against ``thr - err`` and the
+    compacted repair of the uncovered queries (``_prove_repair``).
+    Returns (rd, ids) ascending, (Q, k_eff)."""
     overflow = None
     if scheme in ("bcap", "bcap2"):
         n_blocks = -(-pts_padded.shape[0] // BCAP_BLOCK)
@@ -617,13 +636,14 @@ def _proved_route(pts_padded, xn_padded, queries, qn, err, scheme: str,
                                        n_real, scheme)
                 _, idx, thr = knn_bcap(pts_padded, queries, xn_padded,
                                        k=k_cand, tile=BCAP_TILE,
-                                       passes=passes)
+                                       passes=passes, point_planes=planes)
             else:
                 # ops/bruteforce.py:853-905: the k_cand smallest block
                 # minima; an unselected block's minimum is at least the
                 # k_cand-th
                 k_cand = min(max(k_eff + RESCORE_SLACK, 12), n_blocks)
-                minima = bcap_minima(pts_padded, queries, xn_padded)
+                minima = bcap_minima(pts_padded, queries, xn_padded,
+                                     point_planes=planes)
                 vals, idx = torch.topk(minima, k_cand, dim=1, largest=False)
                 thr = vals[:, -1] + qn
         covers_all = k_cand * BCAP_BLOCK >= n_real
@@ -640,7 +660,8 @@ def _proved_route(pts_padded, xn_padded, queries, qn, err, scheme: str,
         passes = capped_passes(k_scan, tile, n_real, scheme)
         with span("petal.route.candidates"):
             rd, idx, thr = knn_capped(pts_padded, queries, xn_padded,
-                                      k=k_scan, tile=tile, passes=passes)
+                                      k=k_scan, tile=tile, passes=passes,
+                                      point_planes=planes)
         covers_all = k_scan >= n_real
         with span("petal.route.rescore"):
             # a seed slot may hold a NaN or padding row at +inf: the direct
@@ -662,7 +683,7 @@ def _proved_route(pts_padded, xn_padded, queries, qn, err, scheme: str,
         # (:841-849)
         covered = covered | (~torch.isfinite(kth) & ~torch.isfinite(thr))
     return _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded,
-                         queries, k_eff, k_scan, n_real)
+                         queries, k_eff, k_scan, n_real, planes)
 
 
 def _pick_chunk(n: int, q: int, dim: int, chunk: int | None,
@@ -724,9 +745,12 @@ def knn(points, queries, k: int, metric: Metric | None = None,
     if (backend != "xla" and invalid is None
             and _kernel_eligible(points, queries, k_eff, metric,
                                  backend == "pallas")):
+        # its own padded rows and, on the card, their piece planes, split
+        # once for every kernel of the call
         pp, pn = pad_for_pallas(points, point_norms)
         return knn_prepadded(pp, pn, queries, k_eff, n,
-                             scheme=pick_scheme(k_eff, n, bcap_planes=False))
+                             scheme=pick_scheme(k_eff, n, bcap_planes=False),
+                             planes=index_planes(pp))
     direct = dim <= DIRECT_DIM_MAX or not isinstance(metric,
                                                      (Euclidean, Cosine))
     c = _pick_chunk(n, queries.shape[0], dim, chunk, direct)

@@ -15,7 +15,8 @@
 // fold scores on the FP32 SIMT tile product scan_tiles (knn_tiles.cuh),
 // fold_lazy on its wider sibling wide::scan (lazy_kernel below; the same
 // FP32 sums, bit for bit); capped and bcap on the split-bf16 tensor-core
-// product (knn_tc.cuh), the TPU kernels' "highest" arithmetic: capped reads its u
+// product (knn_tc.cuh) on piece planes split once (split_planes.cu), the
+// TPU kernels' "highest" arithmetic: capped reads its u
 // tile (tc::scan), bcap only the 16-row block minima reduced in the
 // accumulator registers (tc::scan_minima), bit for bit knn_minima.cu's.  The Euclidean merge
 // (_knn_kernel_merge) lives in knn_select.cu, on the tensor-core product.
@@ -45,7 +46,9 @@
 // and bcap, six bf16 products on the tensor cores, 6 * 2*Q*N*d FLOP at 989
 // TFLOP/s.  The point set is streamed once per query tile through shared
 // memory: N*d*4 bytes per 64 queries (128 for fold_lazy), far under the
-// arithmetic time.
+// arithmetic time; capped and bcap stream the points' bf16 piece planes
+// (split_planes.cu, made once per index: 6 bytes an element) per 128
+// queries, and take the queries' planes, split once per call.
 //
 // Design:
 //   * one block = TQ = 64 queries, 256 threads = 8 warps (capped and bcap:
@@ -381,7 +384,8 @@ __host__ __device__ __forceinline__ int product_floats(int mode, int d) {
 template <int MODE, bool VEC>
 __global__ void __launch_bounds__(block_threads(MODE))
 knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
-           const float* __restrict__ norms, float* __restrict__ out_d,
+           const float* __restrict__ norms, const char* __restrict__ xplanes,
+           const char* __restrict__ qplanes, float* __restrict__ out_d,
            int* __restrict__ out_i, float* __restrict__ out_t,
            float* __restrict__ part_d, int* __restrict__ part_i,
            float* __restrict__ part_m, int* __restrict__ counters,
@@ -628,8 +632,8 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
   if constexpr (MODE == MODE_CAPPED) {
     // the tensor-core product: 128-row tiles, each two 64-row tiles of
     // selection read from its u tile
-    tc::scan<VEC>(points, queries, norms, n, q, d, q0, t_begin * TN,
-                  t_end * TN, smem,
+    tc::scan(xplanes, qplanes, norms, n, d, q0, t_begin * TN, t_end * TN,
+             smem,
                   [&](long long row0, int rows, const float* us) {
       for (int h = 0; h * TN < rows; ++h) {
         const float* ub = us + (rbase * tc::US + h * TN + xg);
@@ -640,8 +644,8 @@ knn_kernel(const float* __restrict__ points, const float* __restrict__ queries,
     });
   } else if constexpr (MODE == MODE_BCAP) {
     // the same 128-row tiles, read as block minima
-    tc::scan_minima<VEC>(points, queries, norms, n, q, d, q0, t_begin * TN,
-                         t_end * TN, tc::hoists(d), smem,
+    tc::scan_minima(xplanes, qplanes, norms, n, d, q0, t_begin * TN,
+                    t_end * TN, tc::hoists(d), smem,
                          [&](long long row0, int rows, const float* bm) {
       for (int h = 0; h * TN < rows; ++h) {
         bcap_body(row0 / TN + h, bm + rbase * tc::BS + h * (TN / BLOCK));
@@ -963,18 +967,20 @@ cudaError_t occupancy(int mode, int* per_sm, size_t smem) {
 template <int MODE>
 void launch(bool vec, dim3 grid, size_t smem, cudaStream_t stream,
             const float* points, const float* queries, const float* norms,
-            float* out_d, int* out_i, float* out_t, float* part_d,
-            int* part_i, float* part_m, int* counters, long long n, int q,
-            int d, int k, int tile_tiles, int passes, int splits,
-            int ws_in_smem) {
+            const char* xplanes, const char* qplanes, float* out_d,
+            int* out_i, float* out_t, float* part_d, int* part_i,
+            float* part_m, int* counters, long long n, int q, int d, int k,
+            int tile_tiles, int passes, int splits, int ws_in_smem) {
   if (vec)
     knn_kernel<MODE, true><<<grid, block_threads(MODE), smem, stream>>>(
-        points, queries, norms, out_d, out_i, out_t, part_d, part_i, part_m,
-        counters, n, q, d, k, tile_tiles, passes, splits, ws_in_smem);
+        points, queries, norms, xplanes, qplanes, out_d, out_i, out_t,
+        part_d, part_i, part_m, counters, n, q, d, k, tile_tiles, passes,
+        splits, ws_in_smem);
   else
     knn_kernel<MODE, false><<<grid, block_threads(MODE), smem, stream>>>(
-        points, queries, norms, out_d, out_i, out_t, part_d, part_i, part_m,
-        counters, n, q, d, k, tile_tiles, passes, splits, ws_in_smem);
+        points, queries, norms, xplanes, qplanes, out_d, out_i, out_t,
+        part_d, part_i, part_m, counters, n, q, d, k, tile_tiles, passes,
+        splits, ws_in_smem);
 }
 
 }  // namespace
@@ -1041,7 +1047,9 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
 }
 
 // mode: 0 fold, 1 capped, 2 bcap, 4 fold_lazy.  points (n, d), queries
-// (q, d), norms (n,) float32, row-major; outputs out_d (q, k) float32,
+// (q, d), norms (n,) float32, row-major; for capped and bcap also xplanes
+// and qplanes, the points' and the queries' piece planes (split_planes.cu;
+// null for the folds); outputs out_d (q, k) float32,
 // out_i (q, k) int32 and, for capped and bcap, out_t (q,) float32.
 // Scratch part_d (splits, q, k) float32 and part_i (splits, q, k) int32
 // (unused when splits == 1 and ws_in_smem), part_m (splits, q) float32
@@ -1054,7 +1062,8 @@ int knn_plan(int mode, long long n, int q, int d, int k, int tile_tiles,
 // returned them for the same mode, n, q, d, k and tile_tiles.  Returns the
 // launch's cudaError_t (0 on success).
 int knn_launch(int mode, const float* points, const float* queries,
-               const float* norms, float* out_d, int* out_i, float* out_t,
+               const float* norms, const char* xplanes, const char* qplanes,
+               float* out_d, int* out_i, float* out_t,
                float* part_d, int* part_i, float* part_m, int* counters,
                long long n, int q, int d, int k, int tile_tiles, int passes,
                int splits, int ws_in_smem, void* stream) {
@@ -1064,7 +1073,8 @@ int knn_launch(int mode, const float* points, const float* queries,
   if (mode < MODE_FOLD || mode == 3 || mode > MODE_FOLD_LAZY ||
       k < 1 || k > MAX_K || k > cap || tile_tiles < 1 ||
       (folds(mode) && tile_tiles != 1) ||
-      passes < 0 || passes > MAX_PASSES || splits < 1 || splits > MAX_SPLITS)
+      passes < 0 || passes > MAX_PASSES || splits < 1 || splits > MAX_SPLITS ||
+      (on_tc(mode) && (xplanes == nullptr || qplanes == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
   cudaError_t err = prepare(mode, d, k, ws_in_smem, &smem);
@@ -1077,14 +1087,16 @@ int knn_launch(int mode, const float* points, const float* queries,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case MODE_FOLD:
-      launch<MODE_FOLD>(vec, grid, smem, s, points, queries, norms, out_d,
-                        out_i, out_t, part_d, part_i, part_m, counters, n, q,
-                        d, k, tile_tiles, passes, splits, ws_in_smem);
+      launch<MODE_FOLD>(vec, grid, smem, s, points, queries, norms, xplanes,
+                        qplanes, out_d, out_i, out_t, part_d, part_i, part_m,
+                        counters, n, q, d, k, tile_tiles, passes, splits,
+                        ws_in_smem);
       break;
     case MODE_CAPPED:
-      launch<MODE_CAPPED>(vec, grid, smem, s, points, queries, norms, out_d,
-                          out_i, out_t, part_d, part_i, part_m, counters, n,
-                          q, d, k, tile_tiles, passes, splits, ws_in_smem);
+      launch<MODE_CAPPED>(vec, grid, smem, s, points, queries, norms,
+                          xplanes, qplanes, out_d, out_i, out_t, part_d,
+                          part_i, part_m, counters, n, q, d, k, tile_tiles,
+                          passes, splits, ws_in_smem);
       break;
     case MODE_FOLD_LAZY:
       if (vec)
@@ -1097,9 +1109,10 @@ int knn_launch(int mode, const float* points, const float* queries,
             n, q, d, k, splits, ws_in_smem);
       break;
     default:
-      launch<MODE_BCAP>(vec, grid, smem, s, points, queries, norms, out_d,
-                        out_i, out_t, part_d, part_i, part_m, counters, n, q,
-                        d, k, tile_tiles, passes, splits, ws_in_smem);
+      launch<MODE_BCAP>(vec, grid, smem, s, points, queries, norms, xplanes,
+                        qplanes, out_d, out_i, out_t, part_d, part_i, part_m,
+                        counters, n, q, d, k, tile_tiles, passes, splits,
+                        ws_in_smem);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,8 @@
 // (min.NaN), as jnp.min does: its minima are NaN.  The TPU kernel for bcap2
 // reads block-interleaved, -2-prescaled planes so that a block minimum is a
 // lane-wise minimum; here the block minima come out of the mma registers
-// (knn_tc.cuh), so the kernel reads the padded points as they are.
+// (knn_tc.cuh), so the kernel reads the padded points' piece planes
+// (split_planes.cu) as they are.
 //
 // What bounds them on this card: the product, six bf16 products of
 // 2*Q*N*d FLOP on the tensor cores at 989 TFLOP/s.  Writing the minima is
@@ -64,10 +65,10 @@ using tc::min_nan;
 // 128-row tiles, for queries [bx*tc::TQ, + tc::TQ) and writes their minima
 // of the columns that range covers: MODE_BLOCK 8 a tile, MODE_SUBCHUNK 1.
 // out (q, ncols) row-major.
-template <int MODE, bool VEC>
+template <int MODE>
 __global__ void __launch_bounds__(tc::THREADS, 1)
-minima_kernel(const float* __restrict__ points,
-              const float* __restrict__ queries,
+minima_kernel(const char* __restrict__ xplanes,
+              const char* __restrict__ qplanes,
               const float* __restrict__ norms, float* __restrict__ out,
               long long n, int q, int d, long long ncols, int splits) {
   extern __shared__ float4 smem4[];
@@ -77,9 +78,9 @@ minima_kernel(const float* __restrict__ points,
   const long long per = (ntiles + splits - 1) / splits;
   const long long t_begin = min(ntiles, per * blockIdx.y);
   const long long t_end = min(ntiles, t_begin + per);
-  tc::scan_minima<VEC>(points, queries, norms, n, q, d, q0,
-                       t_begin * tc::TN, t_end * tc::TN, tc::hoists(d), smem,
-                       [&](long long row0, int, const float* bm) {
+  tc::scan_minima(xplanes, qplanes, norms, n, d, q0, t_begin * tc::TN,
+                  t_end * tc::TN, tc::hoists(d), smem,
+                  [&](long long row0, int, const float* bm) {
     if constexpr (MODE == MODE_SUBCHUNK) {
       // rows past n inside the tile are +inf already (scan_minima)
       const int r = threadIdx.x;
@@ -109,11 +110,7 @@ long long minima_cols(int mode, long long n) {
 // that allows it.
 template <int MODE>
 cudaError_t set_smem(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      minima_kernel<MODE, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(minima_kernel<MODE, false>,
+  return cudaFuncSetAttribute(minima_kernel<MODE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
@@ -125,16 +122,11 @@ cudaError_t prepare(int mode, int d, size_t* smem) {
 }
 
 template <int MODE>
-void launch(bool vec, dim3 grid, size_t smem, cudaStream_t s,
-            const float* points, const float* queries, const float* norms,
-            float* out, long long n, int q, int d, long long ncols,
-            int splits) {
-  if (vec)
-    minima_kernel<MODE, true><<<grid, tc::THREADS, smem, s>>>(
-        points, queries, norms, out, n, q, d, ncols, splits);
-  else
-    minima_kernel<MODE, false><<<grid, tc::THREADS, smem, s>>>(
-        points, queries, norms, out, n, q, d, ncols, splits);
+void launch(dim3 grid, size_t smem, cudaStream_t s, const char* xplanes,
+            const char* qplanes, const float* norms, float* out, long long n,
+            int q, int d, long long ncols, int splits) {
+  minima_kernel<MODE><<<grid, tc::THREADS, smem, s>>>(
+      xplanes, qplanes, norms, out, n, q, d, ncols, splits);
 }
 
 }  // namespace
@@ -167,41 +159,38 @@ int minima_plan(int mode, long long n, int q, int d, int* splits) {
   int per_sm = 0;
   err = mode == MODE_SUBCHUNK
             ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  &per_sm, minima_kernel<MODE_SUBCHUNK, true>, tc::THREADS,
-                  smem)
+                  &per_sm, minima_kernel<MODE_SUBCHUNK>, tc::THREADS, smem)
             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                  &per_sm, minima_kernel<MODE_BLOCK, true>, tc::THREADS,
-                  smem);
+                  &per_sm, minima_kernel<MODE_BLOCK>, tc::THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   *splits = choose_splits(per_sm, sms, n, q, tc::TN / TN, tc::TQ);
   return 0;
 }
 
-// mode: 0 subchunk, 1 block.  points (n, d), queries (q, d), norms (n,)
-// float32, row-major; out (q, ceil(n / 128)) or (q, ceil(n / 16)) float32.
-// q >= 1, n >= 1, n < 2^31; splits as minima_plan returned it for the same
-// mode, n, q and d.  Returns the launch's cudaError_t (0 on success).
-int minima_launch(int mode, const float* points, const float* queries,
+// mode: 0 subchunk, 1 block.  xplanes, qplanes: the piece planes
+// (split_planes.cu) of the points (n, d) and the queries (q, d); norms (n,)
+// float32; out (q, ceil(n / 128)) or (q, ceil(n / 16)) float32.  q >= 1,
+// n >= 1, n < 2^31; splits as minima_plan returned it for the same mode,
+// n, q and d.  Returns the launch's cudaError_t (0 on success).
+int minima_launch(int mode, const char* xplanes, const char* qplanes,
                   const float* norms, float* out, long long n, int q, int d,
                   int splits, void* stream) {
   if ((mode != MODE_SUBCHUNK && mode != MODE_BLOCK) || q < 1 || n < 1 ||
-      d < 1 || splits < 1 || splits > MAX_SPLITS)
+      d < 1 || splits < 1 || splits > MAX_SPLITS || xplanes == nullptr ||
+      qplanes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
   cudaError_t err = prepare(mode, d, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(points) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(queries) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ncols = minima_cols(mode, n);
   const dim3 grid((q + tc::TQ - 1) / tc::TQ, splits);
   if (mode == MODE_SUBCHUNK)
-    launch<MODE_SUBCHUNK>(vec, grid, smem, s, points, queries, norms, out, n,
-                          q, d, ncols, splits);
+    launch<MODE_SUBCHUNK>(grid, smem, s, xplanes, qplanes, norms, out, n, q,
+                          d, ncols, splits);
   else
-    launch<MODE_BLOCK>(vec, grid, smem, s, points, queries, norms, out, n, q,
-                       d, ncols, splits);
+    launch<MODE_BLOCK>(grid, smem, s, xplanes, qplanes, norms, out, n, q, d,
+                       ncols, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -123,10 +123,10 @@ __device__ __forceinline__ void tile_range(long long n, int splits,
 // PASS_COLLECT: per query (lo, hi, shift, done): the words <= hi appended
 //   to list (q, width) while pos < width, counted in cnt (q,); the words
 //   in [lo, hi] counted in hist (q, BINS) at bin (w - lo) >> shift.
-template <int PASS, bool VEC>
+template <int PASS>
 __global__ void __launch_bounds__(tc::THREADS, 1)
-select_pass_kernel(const float* __restrict__ points,
-                   const float* __restrict__ queries,
+select_pass_kernel(const char* __restrict__ xplanes,
+                   const char* __restrict__ qplanes,
                    const float* __restrict__ norms, long long n, int q,
                    int d, int splits, word_t* __restrict__ minima,
                    int groups, int glog, const word_t* __restrict__ lo,
@@ -168,8 +168,8 @@ select_pass_kernel(const float* __restrict__ points,
   long long r_begin, r_end;
   tile_range(n, splits, r_begin, r_end);
 
-  tc::scan<VEC>(points, queries, norms, n, q, d, q0, r_begin, r_end, smem,
-                [&](long long row0, int rows, const float* us) {
+  tc::scan(xplanes, qplanes, norms, n, d, q0, r_begin, r_end, smem,
+           [&](long long row0, int rows, const float* us) {
     if (PASS == PASS_MINIMA) {
       // warp w: query rows w, w + 16, ...; lane l: columns l + 32 j.  The
       // group minimum in f32 (NaN and +inf excluded), then its first
@@ -527,17 +527,16 @@ fold_out_kernel(const float* __restrict__ queries, int q, int d, int k,
 }
 
 // The product alone: out (q, n) <- u, for the integrity probe.
-template <bool VEC>
 __global__ void __launch_bounds__(tc::THREADS)
-tc_u_kernel(const float* __restrict__ points, const float* __restrict__ queries,
+tc_u_kernel(const char* __restrict__ xplanes, const char* __restrict__ qplanes,
             const float* __restrict__ norms, float* __restrict__ out,
             long long n, int q, int d) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int q0 = blockIdx.x * tc::TQ;
   const long long r_end = (n + tc::TN - 1) / tc::TN * tc::TN;
-  tc::scan<VEC>(points, queries, norms, n, q, d, q0, 0, r_end, smem,
-                [&](long long row0, int rows, const float* us) {
+  tc::scan(xplanes, qplanes, norms, n, d, q0, 0, r_end, smem,
+           [&](long long row0, int rows, const float* us) {
     for (int e = threadIdx.x; e < tc::TQ * tc::TN; e += tc::THREADS) {
       const int r = e / tc::TN, c = e % tc::TN;
       if (q0 + r < q && c < rows && row0 + c < n)
@@ -560,29 +559,23 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 template <int PASS>
-cudaError_t pass_launch(const float* points, const float* queries,
+cudaError_t pass_launch(const char* xplanes, const char* qplanes,
                         const float* norms, long long n, int q, int d,
                         int splits, word_t* minima, int groups, int glog,
                         const word_t* lo, const word_t* hi, const int* shift,
                         const int* done, int* hist, int* cnt, word_t* list,
                         int width, void* stream) {
-  if (q < 1 || n < 1 || splits < 1 || splits > MAX_SPLITS)
+  if (q < 1 || n < 1 || splits < 1 || splits > MAX_SPLITS ||
+      xplanes == nullptr || qplanes == nullptr)
     return cudaErrorInvalidValue;
   const size_t smem = tc::smem_bytes(d);
-  const bool vec = vec_ok(points, queries, d);
-  cudaError_t err = vec ? allow_smem(select_pass_kernel<PASS, true>, smem)
-                        : allow_smem(select_pass_kernel<PASS, false>, smem);
+  cudaError_t err = allow_smem(select_pass_kernel<PASS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((q + tc::TQ - 1) / tc::TQ, splits);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    select_pass_kernel<PASS, true><<<grid, tc::THREADS, smem, s>>>(
-        points, queries, norms, n, q, d, splits, minima, groups, glog, lo, hi,
-        shift, done, hist, cnt, list, width);
-  else
-    select_pass_kernel<PASS, false><<<grid, tc::THREADS, smem, s>>>(
-        points, queries, norms, n, q, d, splits, minima, groups, glog, lo, hi,
-        shift, done, hist, cnt, list, width);
+  select_pass_kernel<PASS><<<grid, tc::THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      xplanes, qplanes, norms, n, q, d, splits, minima, groups, glog, lo, hi,
+      shift, done, hist, cnt, list, width);
   return cudaGetLastError();
 }
 
@@ -630,26 +623,27 @@ int knn_select_plan(long long n, int q, int d, int* splits) {
   cudaError_t err = card_limits(&sms, &optin);
   const size_t smem = tc::smem_bytes(d);
   if (err == cudaSuccess)
-    err = allow_smem(select_pass_kernel<PASS_COLLECT, true>, smem);
+    err = allow_smem(select_pass_kernel<PASS_COLLECT>, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, select_pass_kernel<PASS_COLLECT, true>, tc::THREADS, smem);
+        &per_sm, select_pass_kernel<PASS_COLLECT>, tc::THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // choose_splits counts 64-row tiles; a range here is whole 128-row tiles
   *splits = choose_splits(per_sm, sms, n, q, tc::TN / TN, tc::TQ);
   return 0;
 }
 
-// Pass 1.  points (n, d), queries (q, d), norms (n,) float32, row-major;
-// minima (q, groups) uint64, groups = ceil(n / 2^glog), 4 <= glog <= 7.
-int knn_select_minima_launch(const float* points, const float* queries,
+// Pass 1.  xplanes, qplanes: the piece planes (split_planes.cu) of the
+// points (n, d) and the queries (q, d); norms (n,) float32; minima (q,
+// groups) uint64, groups = ceil(n / 2^glog), 4 <= glog <= 7.
+int knn_select_minima_launch(const char* xplanes, const char* qplanes,
                              const float* norms, word_t* minima, long long n,
                              int q, int d, int groups, int glog, int splits,
                              void* stream) {
   if (glog < 4 || glog > 7 || groups != (n + (1LL << glog) - 1) >> glog)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(pass_launch<PASS_MINIMA>(
-      points, queries, norms, n, q, d, splits, minima, groups, glog, nullptr,
+      xplanes, qplanes, norms, n, q, d, splits, minima, groups, glog, nullptr,
       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, stream));
 }
 
@@ -665,7 +659,7 @@ int knn_select_bound_launch(const word_t* minima, int q, int groups, int k,
 
 // Pass 3.  hist (q, BINS) int32 zeroed, cnt zeroed (by the bound or the
 // pick), list (q, width) uint64, width <= MAX_LIST.
-int knn_select_collect_launch(const float* points, const float* queries,
+int knn_select_collect_launch(const char* xplanes, const char* qplanes,
                               const float* norms, const word_t* lo,
                               const word_t* hi, const int* shift,
                               const int* done, int* hist, int* cnt,
@@ -674,7 +668,7 @@ int knn_select_collect_launch(const float* points, const float* queries,
   if (width < 1 || width > MAX_LIST)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(pass_launch<PASS_COLLECT>(
-      points, queries, norms, n, q, d, splits, nullptr, 0, 0, lo, hi, shift,
+      xplanes, qplanes, norms, n, q, d, splits, nullptr, 0, 0, lo, hi, shift,
       done, hist, cnt, list, width, stream));
 }
 
@@ -744,24 +738,19 @@ int knn_select_fold_out_launch(const float* queries, float* out_d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core product alone: out (q, n) float32 <- u (the probe).
-int knn_tc_u_launch(const float* points, const float* queries,
+// The tensor-core product alone: out (q, n) float32 <- u (the probe), from
+// the piece planes of the points (n, d) and the queries (q, d).
+int knn_tc_u_launch(const char* xplanes, const char* qplanes,
                     const float* norms, float* out, long long n, int q, int d,
                     void* stream) {
-  if (q < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (q < 1 || n < 1 || xplanes == nullptr || qplanes == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = tc::smem_bytes(d);
-  const bool vec = vec_ok(points, queries, d);
-  cudaError_t err = vec ? allow_smem(tc_u_kernel<true>, smem)
-                        : allow_smem(tc_u_kernel<false>, smem);
+  cudaError_t err = allow_smem(tc_u_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((q + tc::TQ - 1) / tc::TQ);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    tc_u_kernel<true><<<grid, tc::THREADS, smem, s>>>(points, queries, norms,
-                                                      out, n, q, d);
-  else
-    tc_u_kernel<false><<<grid, tc::THREADS, smem, s>>>(points, queries, norms,
-                                                       out, n, q, d);
+  tc_u_kernel<<<grid, tc::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      xplanes, qplanes, norms, out, n, q, d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,9 @@
 //     rounded to nearest: hi = bf16(x), mid = bf16(x - hi),
 //     lo = bf16(x - hi - mid).  For a normal f32 (exponent >= -110)
 //     hi + mid + lo == x exactly: x - hi and x - hi - mid are exact in f32
-//     and the last remainder has at most 8 significant bits;
+//     and the last remainder has at most 8 significant bits.  The split is
+//     split_planes.cu's, made before the core runs: an index splits its
+//     rows once at build, a call its queries once;
 //   * q.x is the sum of the six products hh, hm, mh, hl, lh and mm, each of
 //     pieces whose product is exact in f32, accumulated in f32 16 features
 //     at a time (one wgmma.m64n64k16 a product, k-step and warpgroup); the
@@ -38,36 +40,46 @@
 // TFLOP/s on an H100 (four warpgroups of m64n64k16).  Around it, shared
 // memory is the scarce resource: a k-step of a tile reads 96 KB of piece
 // planes (four warpgroups, six 2 KB query and six 2 KB point operands
-// each), 125 bytes a clock at the tensor-core rate against the SM's 128,
-// and every split, mbarrier and u-tile access competes with those reads.
+// each), 125 bytes a clock at the tensor-core rate against the SM's 128.
+// Where the query planes stream (d > 96 in scan, > 128 in scan_minima) a
+// chunk also brings 48 KB from L2, 131 FLOP a byte: at GIST's d = 960 the
+// copies' L2 traffic, not the tensor cores, sets the pace.
 //
 // The pipeline.  Block = 512 threads, four warpgroups.  Features go DC = 32
-// at a time (a "chunk"); every thread takes part in every stage:
-//   1. staging: each thread loads its 8 point features (and 8 query
-//      features where the query planes are not resident) of chunk s + 1
-//      from global memory into registers while chunk s is split and
-//      issued: the loads are in flight a whole chunk and take no shared
-//      memory;
-//   2. split: each thread turns its 8 features of one row of chunk s into
-//      the three bf16 piece planes of one of BUFS = 3 plane buffers,
-//      written in wgmma's canonical K-major 64-byte-swizzled layout (8-row
-//      groups of 512 bytes, 16-byte chunk j of row r at j ^ ((r >> 1) &
-//      3)), so that the tensor cores read them straight from shared
-//      memory; the query planes are split once per block where they fit
-//      (scan: d <= 96, scan_minima: d <= 128) and with each chunk
-//      otherwise;
-//   3. product: each warpgroup issues its 64 x 64 quarter of the tile
-//      (wgmma.mma_async.m64n64k16, both operands by descriptor, 32 f32
-//      accumulators a thread) and goes on at once; the hand-offs are
-//      mbarriers, "full" (all 16 warps split the buffer) and "empty" (all
-//      16 warps' wgmma on it completed), no block-wide barrier a chunk.
-//      Up to two chunks wait on the tensor cores behind the one they run
-//      while the threads split the next;
-//   4. epilogue: at the next tile's first chunk the warpgroups write u (or
-//      the block minima) from their accumulators and issue that chunk,
-//      and the caller's selection runs once the next tile's first three
-//      chunks (all it has, if fewer) are on the tensor cores.  The tensor
-//      cores wait only while the accumulators are written out.
+// at a time (a "chunk"); the operands arrive as finished piece planes
+// (split_planes.cu: 128-row tile by chunk, 24,576 bytes each, the hi, mid
+// and lo planes in wgmma's canonical K-major 64-byte-swizzled layout:
+// 8-row groups of 512 bytes, 16-byte segment j of row r at j ^ ((r >> 1) &
+// 3)), so no thread loads, splits or stores an operand element:
+//   1. copies: lane 0 of warp 0 brings each chunk into one of BUFS = 3
+//      plane buffers by cp.async.bulk, completing on the buffer's "full"
+//      mbarrier by transaction bytes: the point planes as six 4 KB pieces
+//      (each plane's two 64-row halves: a range may start at an odd
+//      multiple of 64 rows) and, where the query planes are not resident,
+//      the query chunk (24 KB); it does so once the buffer's "empty"
+//      mbarrier says that every warp's wgmma on the chunk before is done.
+//      The whole of warp 0 waits on "empty", so that the wait loop's branch
+//      stays uniform in the warp (a divergent one, one thread waiting,
+//      made ptxas serialize every wgmma of the kernel, C7520).  The query
+//      planes of every chunk come in once per block where they fit (scan:
+//      d <= 96, scan_minima: d <= 128);
+//   2. product: each warpgroup waits on "full", then issues its 64 x 64
+//      quarter of the tile (wgmma.mma_async.m64n64k16, both operands by
+//      descriptor, 32 f32 accumulators a thread) as one committed group of
+//      straight-line wgmma (six a k-step, one or two k-steps a chunk: a
+//      template argument, since a loop over a run-time count made ptxas
+//      close a group at each pass and so drain the tensor cores at every
+//      wait), and goes on at once;
+//   3. hand-off: after issuing chunk s a warp waits until chunk s - 1's
+//      product is done (all but the newest group) and arrives on its
+//      buffer's "empty"; the copies therefore run two chunks ahead of the
+//      product, with chunk s on the tensor cores;
+//   4. epilogue: at the next tile's first chunk the warpgroups drain their
+//      product, free the tile's buffers (so the next chunks' copies start
+//      during the write), write u (or the block minima) from their
+//      accumulators and issue that chunk; the caller's selection runs once
+//      the next tile's third chunk (its last, if fewer) is issued.  The
+//      tensor cores wait only while the accumulators are written out.
 // Shared memory: the query planes (3 x 24 KB streamed, or 24 KB a chunk
 // resident), 3 point plane buffers (72 KB), the u tile 128 x 132 f32 (66
 // KB) or the 128 x 8 minima, 1 KB for alignment: scan 216,064 bytes above
@@ -79,39 +91,45 @@
 // in every warp that read them, over 64-query tiles; on the card its split
 // and its staging, not the mma, took most of a product pass.  The next one
 // split once per block into padded planes and read fragments with
-// ldmatrix for mma.sync.m16n8k16 (Ampere's synchronous instruction) on 16
-// warps, each chunk loaded, split, barriered and multiplied in series, and
-// the tile's epilogue and selection run with no mma in flight: 31% of its
-// tier (PERF.md §5).  A wgmma variant of it, tried then, swapped the
-// instruction inside that same barrier-per-chunk loop and ran slower.
-// This one keeps the arithmetic and changes the pipeline around it:
-// asynchronous wgmma from swizzled planes that the split writes directly,
-// mbarrier hand-offs, three buffers, and the selection run while the next
-// tile's product is on the tensor cores.  Measured on an H100 (the block
-// minima at 10,240 queries over 1M x 128, PERF.md §6), staging the point
-// rows in shared memory cost more than it saved: a ring of TMA boxes
-// (cp.async.bulk.tensor, two 16 KB stages) took 43.3 ms and one
-// cp.async.bulk a row 61.3 ms, against 37.6 ms with the rows loaded into
-// registers a chunk ahead, since a staged chunk adds 32 KB of shared-memory
-// traffic to the 192 KB its product reads.  Each warpgroup takes 64 x 64
-// (32 accumulators) rather than 64 x 128: with 64 accumulators live beside
-// the selection's state, capped and bcap spilled 470-720 bytes a thread.
-// The loop counts its chunk's tile and offset rather than dividing the
-// chunk index (a 64-bit division is some 70 instructions), and brings each
-// thread's point features two chunks ahead into L2 (prefetch.global.L2):
-// GIST's capped 40.2 -> 30.3 ms, SIFT's bcap within 1%.
+// ldmatrix for mma.sync.m16n8k16 on 16 warps, each chunk loaded, split,
+// barriered and multiplied in series: 31% of its tier.  The one before
+// this (asynchronous wgmma, every thread loading its rows a chunk ahead and
+// splitting them into the buffers, 36-42% of its tier) left the point
+// planes of an index to be made once as a lever not taken (6 bytes an
+// element against 4, to save half a split; its own measurement then: a
+// ring of TMA boxes of f32 rows 43.3 ms and one cp.async.bulk a row 61.3,
+// against 37.6 with the rows through registers, since staged f32 rows add
+// the split's shared-memory reads).  Pre-split planes add no shared-memory
+// traffic (the copy engine writes what the split wrote, only wgmma reads
+// it).  The gain over that core is two changes' in turn (kernel times,
+// H100 80GB HBM3, 700 W, PERF.md §6).  The group fix (step 2's one
+// straight group a chunk) alone, in the register-split core: bcap at
+// SIFT's k_scan 18 43.1 -> 41.6 ms, capped at GIST 30.3 -> 28.6 (the two
+// sides in separate calls).  The planes over the fix, in one call: bcap
+// 41.6 -> 40.2, capped at SIFT's k_scan 18 61.5 -> 54.0 and k_scan 108
+// 67.4 -> 60.0, at GIST 28.6 -> 25.4, at the GloVe shape 67.8 -> 59.5,
+// the block and subchunk minima 36.9 -> 34.8 and 37.5 -> 34.6, merge 31.0
+// -> 28.6; the d <= 16 callers 1.83 -> 1.85 (VP config 2, d = 2) and
+// 26.4 -> 26.8 (the MST core pass, d = 8).  So the lever not taken then
+// pays now: the planes save both operands' split, not half of one, for
+// 1.5x the index's float32 bytes on the card.  Tried and not kept: the
+// planes without the group fix (8-26% slower than the register split: the
+// copy's latency sat where the split's registers had been a chunk ahead),
+// four buffers for scan_minima, the wait for all but two groups, an L2
+// prefetch of the point planes a ring ahead (all no faster or slower), and
+// one 24 KB copy a chunk where the range is tile-aligned (block minima
+// 34.7 -> 29.5 ms, bcap 39.9 -> 43.0).  Each warpgroup takes
+// 64 x 64 (32 accumulators) rather than 64 x 128: with 64 accumulators
+// live beside the selection's state, capped and bcap spilled 470-720
+// bytes a thread.  The loop counts its chunk's tile and offset rather
+// than dividing the chunk index (a 64-bit division is some 70
+// instructions).
 //
-// Measured (H100 80GB HBM3, 700 W, PERF.md §6): against the six-product
-// tier, the block minima at 10,240 queries over 1M x 128 take 38.2 ms
-// (15.90 ms bound, 42%), bcap at k_scan 18 44.1 ms (36%), capped over GIST
-// (1,000 queries, 1M x 960) 30.4 ms (11.65 ms bound, 38%); the mma.sync
-// loop before this one took 49.4, 52.7 and 39.9 ms (32%, 30%, 29%).  What
-// is left: the threads' share of a chunk (split, hand-offs, the drain of
-// the one accumulator set at each tile's end) still outlasts its product,
-// so the tensor cores run about 40% of the time; and ptxas serializes the
-// wgmma of knn_select.cu's pass kernels (its note C7518, a dependence in a
-// divergent path of the merge's selection), which run at 96% of their
-// mma.sync times.
+// What is left: the drain of the one accumulator set at each tile's end
+// (the tensor cores idle while u is written out) and the selection at
+// d = 100 and k_scan 108, which outlasts the two chunks queued beside it;
+// and ptxas serializes the wgmma of knn_select.cu's pass kernels (its note
+// C7518, a dependence in a divergent path of the merge's selection).
 //
 // Bit-identical u: every (query, row) pair is accumulated in the same order
 // (k-steps ascending, the six products in the order above, one accumulator
@@ -127,7 +145,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "knn_tiles.cuh"
@@ -147,14 +164,14 @@ constexpr int BS = TN / BLOCK;  // block minima per query per tile
 constexpr int HOIST_D = 128;  // widest d whose query planes scan_minima keeps
 constexpr int WG_M = 64;      // query rows of one warpgroup's wgmma
 constexpr int WG_N = 64;      // point rows of one wgmma
-constexpr int BUFS = 3;       // plane buffers of a streamed operand
+constexpr int BUFS = 3;       // plane buffers of the copies' ring
 constexpr int ROW_B = DC * 2;             // bytes of a plane row: 64
 constexpr int GROUP_B = 8 * ROW_B;        // an 8-row swizzle group: 512
 constexpr int PLANE_B = TN * ROW_B;       // one piece plane: 8,192
+constexpr int HALF_B = PLANE_B / 2;       // its 64 rows of one wgmma: 4,096
 constexpr int CHUNK_B = PIECES * PLANE_B; // one operand's chunk: 24,576
 constexpr int ALIGN_B = 1024;             // swizzle groups start aligned
 static_assert(TQ == TN, "query and point planes share a shape");
-static_assert(THREADS * 8 == TN * DC, "a thread splits 8 features of a row");
 static_assert(THREADS == 4 * 128 && TQ == 2 * WG_M && TN == 2 * WG_N,
               "four warpgroups, each a 64 x 64 quarter of the tile");
 
@@ -195,26 +212,6 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
-__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two f32 values -> their (hi, mid, lo) bf16 pieces, packed in pairs (the
-// first value in the low half: the lower feature at the lower address).
-__device__ __forceinline__ void split2(float x, float y, uint32_t& h,
-                                       uint32_t& m, uint32_t& l) {
-  const __nv_bfloat162 hb = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(hb);
-  const float rx = __fsub_rn(x, hf.x), ry = __fsub_rn(y, hf.y);
-  const __nv_bfloat162 mb = __floats2bfloat162_rn(rx, ry);
-  const float2 mf = __bfloat1622float2(mb);
-  const __nv_bfloat162 lb =
-      __floats2bfloat162_rn(__fsub_rn(rx, mf.x), __fsub_rn(ry, mf.y));
-  h = bf2_bits(hb);
-  m = bf2_bits(mb);
-  l = bf2_bits(lb);
-}
-
 // ---- PTX: shared addresses, mbarriers, bulk copies, wgmma ---------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -250,19 +247,45 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
-// Where `pred` holds: bring the 32 bytes at p into L2 (a predicate, not a
-// branch).
-__device__ __forceinline__ void prefetch_l2_if(const float* p, bool pred) {
+// As mbar_wait where `pred` holds, the other threads going on at once;
+// `pred` the same in every lane of a warp, or the wait loop's branch
+// diverges and ptxas serializes the warp's wgmma.
+__device__ __forceinline__ void mbar_wait_if(uint64_t* bar, unsigned parity,
+                                             bool pred) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p prefetch.global.L2 [%0];\n}\n" ::"l"(p),
-      "r"(static_cast<int>(pred)));
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.b32 q, %2, 0;\nsetp.eq.b32 p, %2, 0;\n"
+      "WAIT:\n"
+      "@q mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "r"(static_cast<int>(pred))
+      : "memory");
 }
 
-// Generic-proxy shared-memory writes before it are seen by the async
-// proxy (wgmma's operand reads) after a later barrier.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+// Where `pred` holds: arrive on `bar` and add `bytes` to the transaction
+// count its phase waits for.
+__device__ __forceinline__ void mbar_expect_if(uint64_t* bar, unsigned bytes,
+                                               bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// Where `pred` holds: copy `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global memory at src to shared memory at dst by the copy
+// engine, completing them on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_copy_if(void* dst, const void* src,
+                                             unsigned bytes, uint64_t* bar,
+                                             bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n}\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "r"(static_cast<int>(pred))
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -315,19 +338,16 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// The product of one chunk (nk k-steps of 16 features) from its piece
-// planes (qp: this warpgroup's 64 query rows, xp: its 64 point rows; piece
-// p at + p * PLANE_B) into the warpgroup's accumulators, issued and
-// committed as one group.  k-steps ascending, each the six products
-// hh, hm, mh, hl, lh, mm in that order.
-__device__ __forceinline__ void issue(float (&acc)[32], const char* qp,
-                                      const char* xp, int nk) {
-  const uint64_t dq = desc(qp), dx = desc(xp);
+// NK k-steps of 16 features from the piece planes at descriptors dq, dx
+// (piece p at + p * P), ascending, each the six products hh, hm, mh, hl,
+// lh, mm in that order; unrolled, so that the chunk's wgmma are one
+// straight run.
+template <int NK>
+__device__ __forceinline__ void ksteps(float (&acc)[32], uint64_t dq,
+                                       uint64_t dx) {
   constexpr uint64_t P = PLANE_B >> 4;   // next piece, in descriptor units
-  __syncwarp();
-  touch(acc);
-  wgmma_fence();
-  for (int kk = 0; kk < nk; ++kk) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
     const uint64_t k = 2 * kk;           // 32 bytes a k-step
     wgmma(acc, dq + k, dx + k);                  // hh
     wgmma(acc, dq + k, dx + P + k);              // hm
@@ -336,65 +356,43 @@ __device__ __forceinline__ void issue(float (&acc)[32], const char* qp,
     wgmma(acc, dq + 2 * P + k, dx + k);          // lh
     wgmma(acc, dq + P + k, dx + P + k);          // mm
   }
-  wgmma_commit();
+}
+
+// The product of one chunk (nk = 1 or 2 k-steps) from its piece planes
+// (qp: this warpgroup's 64 query rows, xp: its 64 point rows; piece p at
+// + p * PLANE_B) into the warpgroup's accumulators, issued and committed
+// as one group.  Each path is straight and commits its own group: a loop
+// over a run-time k-step count made ptxas close a group at every pass
+// (and a commit after the paths join, one more), so that the wait for
+// all but the two newest groups drained the tensor cores to half a chunk
+// at every step.
+__device__ __forceinline__ void issue(float (&acc)[32], const char* qp,
+                                      const char* xp, int nk) {
+  const uint64_t dq = desc(qp), dx = desc(xp);
+  __syncwarp();
+  touch(acc);
+  wgmma_fence();
+  if (nk == 2) {
+    ksteps<2>(acc, dq, dx);
+    wgmma_commit();
+  } else {
+    ksteps<1>(acc, dq, dx);
+    wgmma_commit();
+  }
   touch(acc);
 }
 
-// Thread tid's share of a chunk: 8 features (seg * 8 ..) of row tid / 4.
-// Loads them from global memory (zeros past `total` rows and past d).
-template <bool VEC>
-__device__ __forceinline__ void load8(float (&v)[8], const float* src,
-                                      long long total, long long row, int d,
-                                      int c0) {
-  const int k0 = c0 + (threadIdx.x & 3) * 8;
-  const float* p = src + row * d + k0;
-  if constexpr (VEC) {
-    // d % 4 == 0: each half is all in or all out (selects, not branches)
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 lo = row < total && k0 + 4 <= d
-                          ? __ldg(reinterpret_cast<const float4*>(p)) : z;
-    const float4 hi = row < total && k0 + 8 <= d
-                          ? __ldg(reinterpret_cast<const float4*>(p) + 1) : z;
-    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = (row < total && k0 + i < d) ? __ldg(p + i) : 0.f;
-  }
-}
-
-// Byte offset of (row, 16-byte chunk seg) in a piece plane: the canonical
-// K-major layout in the 64-byte swizzle.
-__device__ __forceinline__ int plane_off(int row, int seg) {
-  return (row >> 3) * GROUP_B + (row & 7) * ROW_B +
-         ((seg ^ ((row >> 1) & 3)) << 4);
-}
-
-// Split the thread's 8 features into the three piece planes at `plane`
-// (one 16-byte store a piece, at byte offset `off`).
-__device__ __forceinline__ void split_store(const float (&v)[8], char* plane,
-                                            int off) {
-  uint4 h, m, l;
-  split2(v[0], v[1], h.x, m.x, l.x);
-  split2(v[2], v[3], h.y, m.y, l.y);
-  split2(v[4], v[5], h.z, m.z, l.z);
-  split2(v[6], v[7], h.w, m.w, l.w);
-  *reinterpret_cast<uint4*>(plane + off) = h;
-  *reinterpret_cast<uint4*>(plane + PLANE_B + off) = m;
-  *reinterpret_cast<uint4*>(plane + 2 * PLANE_B + off) = l;
-}
-
 // A tile's epilogue write (rows row0 ..): each warpgroup waits for its
-// product, then writes its 64 x 64 quarter of u into the u tile (MINIMA
-// false) or its 64 queries' minima over its 4 blocks (MINIMA true), and
-// zeroes its accumulators.  Between two __syncthreads: the first ends the
-// previous tile's on_tile everywhere, the second publishes the tile.
-template <bool MINIMA>
+// product, calls drained() (every wgmma of the block done: the plane
+// buffers are free), then writes its 64 x 64 quarter of u into the u tile
+// (MINIMA false) or its 64 queries' minima over its 4 blocks (MINIMA true),
+// and zeroes its accumulators.  Between two __syncthreads: the first ends
+// the previous tile's on_tile everywhere, the second publishes the tile.
+template <bool MINIMA, class Drained>
 __device__ __forceinline__ void write_tile(float (&acc)[32], float* out,
                                            const float* __restrict__ norms,
                                            long long n, long long row0,
-                                           int wg) {
+                                           int wg, Drained&& drained) {
   // acc[4 j + 2 h + e]: query row 64 (wg & 1) + 16 (warp & 3) + g + 8 h,
   // point row 64 (wg >> 1) + 8 j + 2 t4 + e of the tile
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -411,6 +409,7 @@ __device__ __forceinline__ void write_tile(float (&acc)[32], float* out,
   __syncthreads();
   wgmma_wait<0>();
   touch(acc);
+  drained();
   if constexpr (MINIMA) {
     // v[h][b]: the lane's least u of its query row h over block b (of 4)
     float v[2][4];
@@ -471,78 +470,104 @@ __device__ __forceinline__ void write_tile(float (&acc)[32], float* out,
 // and row row0 + c at out[r * US + c]) or the block minima (MINIMA true:
 // out[r * BS + b] the least u over rows row0 + 16 b .. + 15).  Columns or
 // blocks at or past `rows` belong to no one.  Rows past n give +inf u (NaN
-// for a NaN query).  hoist: the query planes of every chunk stay resident.
-// VEC: d % 4 == 0 and 16-byte aligned rows (16-byte loads).
-template <bool VEC, bool MINIMA, class OnTile>
-__device__ __forceinline__ void run(const float* __restrict__ points,
-                                    const float* __restrict__ queries,
+// for a NaN query).  xplanes, qplanes: the points' and the queries' piece
+// planes (split_planes.cu: 128-row tile by DC-feature chunk, CHUNK_B bytes
+// each, zero past the rows and past d); q0 is a multiple of TQ.  hoist:
+// the query planes of every chunk stay resident.
+template <bool MINIMA, class OnTile>
+__device__ __forceinline__ void run(const char* __restrict__ xplanes,
+                                    const char* __restrict__ qplanes,
                                     const float* __restrict__ norms,
-                                    long long n, int q, int d, int q0,
+                                    long long n, int d, int q0,
                                     long long r_begin, long long r_end,
                                     bool hoist, float* smem,
                                     OnTile&& on_tile) {
-  __shared__ uint64_t full_bar[BUFS], empty_bar[BUFS];
+  __shared__ uint64_t full_bar[BUFS], empty_bar[BUFS], query_bar;
   const int nch = chunks(d);
   char* base = reinterpret_cast<char*>(smem);
   base += (ALIGN_B - (smem_u32(base) & (ALIGN_B - 1))) & (ALIGN_B - 1);
-  char* qplanes = base;   // [chunks or BUFS][PIECES][TN rows]
-  char* xplanes = qplanes + (hoist ? nch : BUFS) * CHUNK_B;   // [BUFS][...]
-  float* out = reinterpret_cast<float*>(xplanes + BUFS * CHUNK_B);
+  char* qbuf = base;   // [chunks or BUFS][PIECES][TN rows]
+  char* xbuf = qbuf + (hoist ? nch : BUFS) * CHUNK_B;   // [BUFS][...]
+  float* out = reinterpret_cast<float*>(xbuf + BUFS * CHUNK_B);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   // the warpgroup, read from lane 0 so that the compiler sees it uniform
   const int wg = __shfl_sync(FULL, tid >> 7, 0);
+  // warp 0 waits for the buffers to empty (the whole warp, so that the
+  // wait loop's branch stays uniform in it), and its lane 0 issues the
+  // copies (a predicate)
+  const bool producer = __shfl_sync(FULL, tid >> 5, 0) == 0;
+  const bool elect = tid == 0;
   // its operands: 64 query rows (wg & 1) and 64 point rows (wg >> 1)
   const int qoff = (wg & 1) * (WG_M / 8) * GROUP_B;
   const int xoff = (wg >> 1) * (WG_N / 8) * GROUP_B;
-  const int row = tid >> 2;   // this thread's share of a chunk: 8 features
-  const int poff = plane_off(row, tid & 3);
   const long long ntiles = r_end > r_begin ? (r_end - r_begin + TN - 1) / TN
                                            : 0;
   const long long nst = ntiles * nch;
+  const long long xtiles = (n + TN - 1) / TN;   // the points' plane tiles
+  const char* qsrc = qplanes + static_cast<long long>(q0 / TQ) * nch * CHUNK_B;
 
   if (tid == 0) {
     for (int i = 0; i < BUFS; ++i) {
-      mbar_init(&full_bar[i], THREADS / 32);   // every warp split
+      mbar_init(&full_bar[i], 1);              // the copies' arrival
       mbar_init(&empty_bar[i], THREADS / 32);  // every warp's wgmma read
     }
+    mbar_init(&query_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  float xv[8], qv[8];
-  if (hoist) {
-    for (int c = 0; c < nch; ++c) {
-      load8<VEC>(qv, queries, q, q0 + row, d, c * DC);
-      split_store(qv, qplanes + c * CHUNK_B, poff);
-    }
-    fence_proxy_async();
-  }
   __syncthreads();
+  if (hoist) {
+    mbar_expect_if(&query_bar, nch * CHUNK_B, elect);
+    for (int c = 0; c < nch; ++c)
+      bulk_copy_if(qbuf + c * CHUNK_B, qsrc + c * CHUNK_B, CHUNK_B,
+                   &query_bar, elect);
+  }
 
-  // A chunk's place: tile t of the range, chunk c of the tile (kept by
-  // counting, not by dividing the chunk index: a 64-bit division is some
-  // 70 instructions).
-  long long t = 0;
-  int c = 0;
-  // the thread's 8 point features of chunk (tt, cc), and its 8 query
-  // features where the query planes are not hoisted, into registers a
-  // chunk ahead of their split, and its point features of the chunk after
-  // into L2
-  auto prefetch = [&](long long tt, int cc) {
-    const bool wrap = cc + 1 == nch;
-    const long long pr = r_begin + (wrap ? tt + 1 : tt) * TN + row;
-    const int pk = (wrap ? 0 : cc + 1) * DC + (tid & 3) * 8;
-    prefetch_l2_if(points + pr * d + pk, pr < n && pk < d);
-    load8<VEC>(xv, points, n, r_begin + tt * TN + row, d, cc * DC);
-    if (!hoist) load8<VEC>(qv, queries, q, q0 + row, d, cc * DC);
+  // The copies: chunk cp (tile ct, chunk cc of the tile) into buffer cb
+  // (phase parity cpb), once the wgmma of the chunk BUFS before it have
+  // all read that buffer.  A 128-row tile of the range is two 64-row
+  // halves, each a HALF_B piece of every plane of the tile that holds it
+  // (a range may start at an odd multiple of 64 rows; a half past the
+  // points' last tile reads that tile again, rows past n whose u is
+  // +inf); the streamed query chunk is one contiguous CHUNK_B.
+  long long cp = 0, ct = 0;
+  int cc = 0, cb = 0;
+  unsigned cpb = 0;
+  auto produce = [&](long long upto) {
+    for (; cp < upto; ++cp) {
+      mbar_wait_if(&empty_bar[cb], cpb ^ 1, producer && cp >= BUFS);
+      mbar_expect_if(&full_bar[cb], (hoist ? 1 : 2) * CHUNK_B, elect);
+      char* xp = xbuf + cb * CHUNK_B;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long r = r_begin + ct * TN + h * WG_N;
+        const long long tile = min(r / TN, xtiles - 1);
+        const char* src = xplanes + (tile * nch + cc) * CHUNK_B +
+                          ((r / WG_N) & 1) * HALF_B;
+#pragma unroll
+        for (int p = 0; p < PIECES; ++p)
+          bulk_copy_if(xp + p * PLANE_B + h * HALF_B, src + p * PLANE_B,
+                       HALF_B, &full_bar[cb], elect);
+      }
+      bulk_copy_if(qbuf + cb * CHUNK_B, qsrc + cc * CHUNK_B, CHUNK_B,
+                   &full_bar[cb], elect && !hoist);
+      if (++cc == nch) {
+        cc = 0;
+        ++ct;
+      }
+      if (++cb == BUFS) {
+        cb = 0;
+        cpb ^= 1;
+      }
+    }
   };
-  if (nst > 0) prefetch(0, 0);
 
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
   // buffers are freed in chunk order: rel is the next chunk to free, relb
-  // its buffer
+  // its buffer; each release lets the copies run BUFS chunks past it
   long long rel = 0;
   int relb = 0;
   auto release = [&](long long upto) {
@@ -551,47 +576,39 @@ __device__ __forceinline__ void run(const float* __restrict__ points,
       mbar_arrive_if(&empty_bar[relb], lane == 0);
       relb = relb + 1 == BUFS ? 0 : relb + 1;
     }
+    produce(min(rel + BUFS, nst));
   };
-  // A tile's on_tile waits until the next tile's chunk `late` is issued:
-  // up to BUFS chunks on the tensor cores while it runs.  s == nst is a
-  // last pass with nothing to split or issue.
+  produce(min(static_cast<long long>(BUFS), nst));
+  if (hoist) mbar_wait(&query_bar, 0);
+
+  // A chunk's place: tile t of the range, chunk c of the tile (kept by
+  // counting, not by dividing the chunk index: a 64-bit division is some
+  // 70 instructions).
+  long long t = 0;
+  int c = 0;
+  // A tile's on_tile waits until the next tile's chunk `late` is issued,
+  // so that the tensor cores have it and the chunk before it while the
+  // selection runs.  s == nst is a last pass with nothing to issue.
   const int late = nch < BUFS ? nch - 1 : BUFS - 1;
   int b = 0;          // s % BUFS
   unsigned pb = 0;    // (s / BUFS) & 1
   for (long long s = 0; s <= nst; ++s) {
     const bool tail = s == nst;
-    char* xp = xplanes + b * CHUNK_B;
-    char* qp = qplanes + (hoist ? c : b) * CHUNK_B;
 
-    // 1. split chunk s into buffer b, once the wgmma that read it is done,
-    // and load the next chunk's features
-    if (!tail) {
-      if (s >= BUFS) mbar_wait(&empty_bar[b], pb ^ 1);
-      split_store(xv, xp, poff);
-      if (!hoist) split_store(qv, qp, poff);
-      fence_proxy_async();
-      __syncwarp();
-      mbar_arrive_if(&full_bar[b], lane == 0);
-      if (s + 1 < nst) {
-        if (c + 1 < nch)
-          prefetch(t, c + 1);
-        else
-          prefetch(t + 1, 0);
-      }
-    }
-
-    // 2. at a tile's first chunk the previous tile's accumulators go out
-    // (freeing the buffers of its last chunks); then chunk s is issued
-    if (c == 0 && t > 0) {
-      write_tile<MINIMA>(acc, out, norms, n, r_begin + (t - 1) * TN, wg);
-      release(s);
-    }
+    // 1. at a tile's first chunk the previous tile's accumulators go out,
+    // the buffers of its last chunks freed (and refilled) as soon as the
+    // product has drained; then chunk s is issued once its copies have
+    // landed
+    if (c == 0 && t > 0)
+      write_tile<MINIMA>(acc, out, norms, n, r_begin + (t - 1) * TN, wg,
+                         [&] { release(s); });
     if (!tail) {
       mbar_wait(&full_bar[b], pb);
-      issue(acc, qp + qoff, xp + xoff, (min(DC, d - c * DC) + 15) >> 4);
+      issue(acc, qbuf + (hoist ? c : b) * CHUNK_B + qoff,
+            xbuf + b * CHUNK_B + xoff, (min(DC, d - c * DC) + 15) >> 4);
     }
 
-    // 3. the previous tile's selection, with this tile's product running
+    // 2. the previous tile's selection, with this tile's product running
     if (t > 0 && (c == late || tail)) {
       const long long row0 = r_begin + (t - 1) * TN;
       const long long left = r_end - row0;
@@ -600,11 +617,12 @@ __device__ __forceinline__ void run(const float* __restrict__ points,
     }
     if (tail) break;
 
-    // 4. free the buffers of the chunks done: all but the BUFS - 1 newest
+    // 3. free the buffer of the chunk before this one once its product is
+    // done, and copy into it
     __syncwarp();
-    wgmma_wait<BUFS - 1>();
+    wgmma_wait<1>();
     touch(acc);
-    release(s - BUFS + 2);
+    release(s);
 
     if (++c == nch) {
       c = 0;
@@ -624,17 +642,17 @@ __device__ __forceinline__ void run(const float* __restrict__ points,
 // on every thread of the block, between two __syncthreads: us (stride US)
 // holds u of query q0 + r and row row0 + c at us[r * US + c] for c < rows
 // (rows <= TN; columns past `rows` belong to no one and are not to be
-// read).  Rows past n give +inf u (NaN for a NaN query).  smem:
-// smem_floats(d) floats.
-template <bool VEC, class OnTile>
-__device__ __forceinline__ void scan(const float* __restrict__ points,
-                                     const float* __restrict__ queries,
+// read).  Rows past n give +inf u (NaN for a NaN query).  xplanes and
+// qplanes as run takes them.  smem: smem_floats(d) floats.
+template <class OnTile>
+__device__ __forceinline__ void scan(const char* __restrict__ xplanes,
+                                     const char* __restrict__ qplanes,
                                      const float* __restrict__ norms,
-                                     long long n, int q, int d, int q0,
+                                     long long n, int d, int q0,
                                      long long r_begin, long long r_end,
                                      float* smem, OnTile&& on_tile) {
-  run<VEC, false>(points, queries, norms, n, q, d, q0, r_begin, r_end,
-                  scan_hoists(d), smem, on_tile);
+  run<false>(xplanes, qplanes, norms, n, d, q0, r_begin, r_end,
+             scan_hoists(d), smem, on_tile);
 }
 
 // As scan, but after each tile
@@ -645,16 +663,16 @@ __device__ __forceinline__ void scan(const float* __restrict__ points,
 // belong to no one.  The same core, pipeline and u as scan; hoist (only
 // where hoists(d)) keeps every chunk's query planes.  smem:
 // minima_smem_floats(d, hoist) floats.
-template <bool VEC, class OnTile>
-__device__ __forceinline__ void scan_minima(const float* __restrict__ points,
-                                            const float* __restrict__ queries,
+template <class OnTile>
+__device__ __forceinline__ void scan_minima(const char* __restrict__ xplanes,
+                                            const char* __restrict__ qplanes,
                                             const float* __restrict__ norms,
-                                            long long n, int q, int d, int q0,
+                                            long long n, int d, int q0,
                                             long long r_begin,
                                             long long r_end, bool hoist,
                                             float* smem, OnTile&& on_tile) {
-  run<VEC, true>(points, queries, norms, n, q, d, q0, r_begin, r_end, hoist,
-                 smem, on_tile);
+  run<true>(xplanes, qplanes, norms, n, d, q0, r_begin, r_end, hoist, smem,
+            on_tile);
 }
 
 // Shared memory of one block of scan, and of scan_minima, at width d.

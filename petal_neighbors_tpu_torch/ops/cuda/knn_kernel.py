@@ -27,8 +27,10 @@ cores (``_u``).  capped, bcap and merge compute it as the TPU kernels do at
 split into three bf16 pieces (``split_bf16x3``) and the six products hh,
 hm, mh, hl, lh and mm are summed in f32 (``_u_tc``), on the card by the
 tensor cores (``csrc/knn_tc.cuh``: asynchronous ``wgmma`` on swizzled piece
-planes; bcap reduces each 16-row block to its minimum in the accumulator
-registers).  ``tc_proof_err`` is that tier's
+planes, split once by ``tc_planes.split_planes`` and brought in by bulk
+copies: the points' planes as an index holds them, ``point_planes``, and
+the queries' split per call; bcap reduces each 16-row block to its minimum
+in the accumulator registers).  ``tc_proof_err`` is that tier's
 pointwise error bound, and ``tc_probe`` holds the card's product to it once
 per process and device before the first tensor-core launch, raising
 ``RuntimeError`` on a breach.
@@ -64,6 +66,7 @@ import numpy as np
 import torch
 
 from ...utils.profiling import count
+from .tc_planes import check_planes, index_planes, split_planes
 
 __all__ = ["knn_fold", "knn_fold_reference", "knn_fold_lazy",
            "knn_fold_lazy_reference", "knn_capped",
@@ -136,6 +139,17 @@ def _check_capped(k: int, tile: int, passes: int, name: str) -> None:
     if not 0 <= passes <= PASSES_MAX:
         raise ValueError(f"{name} takes 0 <= passes <= {PASSES_MAX}, got "
                          f"{passes}")
+
+
+def _points_planes(points, point_planes, name: str):
+    """The points' piece planes for a tensor-core wrapper: ``point_planes``
+    checked against the points (``check_planes``), or, where None, split
+    here as an index would hold them (``index_planes``: None for a CPU call,
+    whose plain version needs none)."""
+    if point_planes is not None:
+        check_planes(point_planes, points, name)
+        return point_planes
+    return index_planes(points)
 
 
 def _u(points, queries, point_norms, s: int, e: int):
@@ -385,7 +399,7 @@ def _lib():
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, p, p]
     lib.knn_plan.restype = ctypes.c_int
-    lib.knn_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+    lib.knn_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
         ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.knn_launch.restype = ctypes.c_int
     return lib
@@ -618,8 +632,9 @@ def _tc_u(points, queries, point_norms):
     n, d = points.shape
     nq = queries.shape[0]
     out = torch.empty((nq, n), dtype=torch.float32, device=points.device)
+    point_planes, query_planes = split_planes(points), split_planes(queries)
     err = _select_lib().knn_tc_u_launch(
-        points.contiguous().data_ptr(), queries.contiguous().data_ptr(),
+        point_planes.data_ptr(), query_planes.data_ptr(),
         point_norms.contiguous().data_ptr(), out.data_ptr(), n, nq, d,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -628,7 +643,10 @@ def _tc_u(points, queries, point_norms):
 
 
 def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
-            passes: int = 0):
+            passes: int = 0, point_planes=None):
+    """One launch of ``csrc/knn_fold.cu``'s kernel of ``scheme``; capped
+    and bcap read ``point_planes`` (the points' ``split_planes``) and the
+    queries' planes, split here."""
     n, d = points.shape
     nq = queries.shape[0]
     if n >= 2 ** 31 or nq >= 2 ** 31:
@@ -655,9 +673,14 @@ def _launch(scheme: str, points, queries, point_norms, k: int, tile: int = 1,
         part_i = torch.empty(part, dtype=torch.int32, device=dev)
         part_m = torch.empty(miss, dtype=torch.float32, device=dev)
         counters = torch.zeros(count, dtype=torch.int32, device=dev)
+        on_tc = scheme not in _FOLDS
+        query_planes = split_planes(queries) if on_tc else None
         err = _lib().knn_launch(
             _MODES[scheme], points.data_ptr(), queries.data_ptr(),
-            point_norms.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            point_norms.data_ptr(),
+            point_planes.data_ptr() if on_tc else None,
+            query_planes.data_ptr() if on_tc else None,
+            out_d.data_ptr(), out_i.data_ptr(),
             out_t.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
             part_m.data_ptr(), counters.data_ptr(), n, nq, d, k, tt, passes,
             s, int(ws_smem), torch.cuda.current_stream().cuda_stream)
@@ -935,7 +958,7 @@ def knn_fold_lazy(points, queries, point_norms, *, k: int):
 
 
 def knn_capped(points, queries, point_norms, *, k: int, tile: int,
-               passes: int):
+               passes: int, point_planes=None):
     """Capped-pass streaming top-k (``_knn_kernel_capped``,
     knn_kernel.py:429): each tile of ``tile`` rows folds at most
     ``passes`` of its candidates into the working set, so true top-k
@@ -948,22 +971,26 @@ def knn_capped(points, queries, point_norms, *, k: int, tile: int,
     Returns ``(rdist (Q, k), ids (Q, k), thr (Q,))``, unsorted, thr in the
     rdist domain (NaN for a NaN query).  Seed slots of +inf-norm rows may
     hold (+inf, id).  CUDA tensors launch ``csrc/knn_fold.cu`` at every
-    query count (counted in ``knn_capped.launches``); CPU tensors run
-    ``knn_capped_reference``.
+    query count (counted in ``knn_capped.launches``) on the points' piece
+    planes, ``point_planes`` (``split_planes(points)``, as an index holds
+    them; split here when None), and the queries', split here; CPU tensors
+    run ``knn_capped_reference``.
     """
     _check(points, queries, point_norms, k, "knn_capped")
     _check_capped(k, tile, passes, "knn_capped")
+    point_planes = _points_planes(points, point_planes, "knn_capped")
     if points.device.type == "cpu":
         return knn_capped_reference(points, queries, point_norms, k=k,
                                     tile=tile, passes=passes)
     tc_probe(points.device)
-    out = _launch("capped", points, queries, point_norms, k, tile, passes)
+    out = _launch("capped", points, queries, point_norms, k, tile, passes,
+                  point_planes)
     knn_capped.launches += 1
     return out
 
 
 def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
-             passes: int):
+             passes: int, point_planes=None):
     """Block-capped streaming top-k (``_knn_kernel_bcap``,
     knn_kernel.py:546): the capped scheme over the minima of u over blocks
     of ``BCAP_BLOCK`` = 16 contiguous rows (block id b = rows [16b,
@@ -973,23 +1000,27 @@ def knn_bcap(points, queries, point_norms, *, k: int, tile: int,
     streams block-interleaved planes so that its block minima are
     lane-wise minima; here the product reduces each 16-row block in the
     mma registers (``csrc/knn_tc.cuh``'s ``scan_minima``, bit for bit
-    ``bcap_minima``'s), so the kernel reads the padded points as they are;
+    ``bcap_minima``'s), so the kernel reads the padded points' planes as
+    they are;
     ``tc_probe`` runs before the first launch on a device.  Inputs as
     ``knn_fold``; ``k <= tile``, ``0 <= passes <= 15``; on the card
     ``tile`` is a multiple of 4 blocks (``TILE_ROWS`` rows; ValueError
     otherwise).  Returns ``(block-min rdist (Q, k), block ids (Q, k), thr
     (Q,))`` as ``knn_capped``.  CUDA tensors launch ``csrc/knn_fold.cu`` at
-    every query count (counted in ``knn_bcap.launches``); CPU tensors run
+    every query count (counted in ``knn_bcap.launches``) on the piece
+    planes, ``point_planes`` as ``knn_capped`` takes them; CPU tensors run
     ``knn_bcap_reference``.
     """
     _check(points, queries, point_norms, k, "knn_bcap")
     _check_capped(k, tile, passes, "knn_bcap")
+    point_planes = _points_planes(points, point_planes, "knn_bcap")
     if points.device.type == "cpu":
         return knn_bcap_reference(points, queries, point_norms, k=k,
                                   tile=tile, passes=passes)
     _tile_tiles("bcap", tile)
     tc_probe(points.device)
-    out = _launch("bcap", points, queries, point_norms, k, tile, passes)
+    out = _launch("bcap", points, queries, point_norms, k, tile, passes,
+                  point_planes)
     knn_bcap.launches += 1
     return out
 
@@ -1020,10 +1051,12 @@ _MERGE_SCRATCH_BYTES = 512 << 20
 
 
 def _merge_chunk(points, queries, point_norms, k: int, splits: int,
-                 glog: int, width: int, tier: str = "tc"):
+                 glog: int, width: int, tier: str = "tc",
+                 point_planes=None):
     """The radix-select passes (``csrc/knn_select.cu``) on the product of
-    ``tier`` ("tc": merge's; "fp32": fold's) and the word sort on one
-    chunk of queries.  Returns (u (Q, k), ids (Q, k), collect passes)."""
+    ``tier`` ("tc": merge's, on ``point_planes`` and the chunk's query
+    planes, split here; "fp32": fold's) and the word sort on one chunk of
+    queries.  Returns (u (Q, k), ids (Q, k), collect passes)."""
     lib = _select_lib()
     name = "knn_merge" if tier == "tc" else "knn_fold"
     minima_launch, collect_launch = (
@@ -1044,7 +1077,12 @@ def _merge_chunk(points, queries, point_norms, k: int, splits: int,
                        device=dev)
     words = torch.empty((nq, width), dtype=torch.int64, device=dev)
     flags = torch.zeros((2,), dtype=torch.int32, device=dev)
-    ptr = (points.data_ptr(), queries.data_ptr(), point_norms.data_ptr())
+    if tier == "tc":
+        query_planes = split_planes(queries)
+        ptr = (point_planes.data_ptr(), query_planes.data_ptr(),
+               point_norms.data_ptr())
+    else:
+        ptr = (points.data_ptr(), queries.data_ptr(), point_norms.data_ptr())
 
     def check(err, what):
         if err != 0:
@@ -1085,10 +1123,12 @@ def _merge_chunk(points, queries, point_norms, k: int, splits: int,
     return out_u, out_i, passes
 
 
-def _select(points, queries, point_norms, k: int, tier: str):
+def _select(points, queries, point_norms, k: int, tier: str,
+            point_planes=None):
     """The radix select of ``csrc/knn_select.cu`` on the product of
     ``tier`` over chunks of queries (each chunk's scratch within
-    ``_MERGE_SCRATCH_BYTES``), each chunk with its own launch plan.
+    ``_MERGE_SCRATCH_BYTES``), each chunk with its own launch plan; the
+    tensor-core tier reads ``point_planes`` and each chunk's query planes.
     Returns (u (Q, k) ascending, ids (Q, k), collect passes per chunk)."""
     name = "knn_merge" if tier == "tc" else "knn_fold"
     n, d = points.shape
@@ -1113,7 +1153,7 @@ def _select(points, queries, point_norms, k: int, tier: str):
             splits, _ = _plan(_device_index(dev), mode, n, qc.shape[0], d, k,
                               1)
             u, i, p = _merge_chunk(points, qc, point_norms, k, splits, glog,
-                                   width, tier)
+                                   width, tier, point_planes)
             us.append(u)
             ids.append(i)
             passes.append(p)
@@ -1121,7 +1161,7 @@ def _select(points, queries, point_norms, k: int, tier: str):
             torch.cat(ids) if len(ids) > 1 else ids[0], passes)
 
 
-def knn_merge(points, queries, point_norms, *, k: int):
+def knn_merge(points, queries, point_norms, *, k: int, point_planes=None):
     """Exact streaming top-k of u for ``1 <= k <= 4096``, sorted
     (``_knn_kernel_merge``, knn_kernel.py:336, as ``knn_pallas(scheme=
     "merge")`` serves it), on the tensor-core tier's u (``_u_tc``).
@@ -1133,15 +1173,18 @@ def knn_merge(points, queries, point_norms, *, k: int):
     select (group minima, bound, collect and pick passes) and
     ``csrc/row_sort.cu``'s word sort, after ``tc_probe`` (counted once per
     call in ``knn_merge.launches``; ``knn_merge.last_passes`` holds the
-    collect passes of each chunk of queries of the last call); CPU tensors
-    run ``knn_merge_reference``.
+    collect passes of each chunk of queries of the last call), on the
+    piece planes, ``point_planes`` as ``knn_capped`` takes them; CPU
+    tensors run ``knn_merge_reference``.
     """
     _check(points, queries, point_norms, k, "knn_merge", MERGE_K_MAX)
+    point_planes = _points_planes(points, point_planes, "knn_merge")
     if points.device.type == "cpu":
         return knn_merge_reference(points, queries, point_norms, k=k)
     if queries.shape[0]:
         tc_probe(queries.device)
-    u, i, passes = _select(points, queries, point_norms, k, "tc")
+    u, i, passes = _select(points, queries, point_norms, k, "tc",
+                           point_planes)
     qn = torch.sum(queries * queries, dim=1, keepdim=True)
     rd = torch.where(i < 0, torch.inf, torch.clamp_min(u + qn, 0.0))
     knn_merge.launches += 1

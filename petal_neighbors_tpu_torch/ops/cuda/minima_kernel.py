@@ -13,8 +13,8 @@ each block of ``rows`` contiguous point rows,
   phase of bcap2, the same product and block minima as the bcap kernel's,
   bit for bit.  The TPU kernel reads block-interleaved planes so that a
   block minimum is a lane-wise minimum; here the product reduces each
-  block in the mma registers, so the kernel reads the padded points as
-  they are.
+  block in the mma registers, so the kernel reads the padded points' piece
+  planes (``split_planes``) as they are.
 
 Both compute u on the tensor-core tier (``_u_tc``, the TPU kernels'
 ``precision="highest"``), on one product loop: a subchunk is one 128-row
@@ -40,7 +40,9 @@ import functools
 
 import torch
 
-from .knn_kernel import BCAP_BLOCK, _u_tc, check_arrays, tc_probe
+from .knn_kernel import (BCAP_BLOCK, _points_planes, _u_tc, check_arrays,
+                         tc_probe)
+from .tc_planes import split_planes
 
 __all__ = ["subchunk_minima", "subchunk_minima_reference", "bcap_minima",
            "bcap_minima_reference", "minima_plan", "SUBCHUNK"]
@@ -124,7 +126,10 @@ def minima_plan(kind: str, n: int, q: int, d: int) -> int:
     return _plan(torch.cuda.current_device(), _MODES[kind], n, q, d)
 
 
-def _launch(kind: str, points, queries, point_norms, rows: int):
+def _launch(kind: str, points, queries, point_norms, rows: int,
+            point_planes=None):
+    """One launch of ``csrc/knn_minima.cu`` on the points' piece planes
+    (split here when None) and the queries', split here."""
     n, d = points.shape
     nq = queries.shape[0]
     if n >= 2 ** 31 or nq >= 2 ** 31:
@@ -139,8 +144,11 @@ def _launch(kind: str, points, queries, point_norms, rows: int):
     with torch.cuda.device(dev):
         s = _plan(dev.index if dev.index is not None
                   else torch.cuda.current_device(), _MODES[kind], n, nq, d)
+        if point_planes is None:
+            point_planes = split_planes(points)
+        query_planes = split_planes(queries)
         err = _lib().minima_launch(
-            _MODES[kind], points.data_ptr(), queries.data_ptr(),
+            _MODES[kind], point_planes.data_ptr(), query_planes.data_ptr(),
             point_norms.data_ptr(), out.data_ptr(), n, nq, d, s,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -149,27 +157,31 @@ def _launch(kind: str, points, queries, point_norms, rows: int):
     return out
 
 
-def subchunk_minima(points, queries, point_norms):
+def subchunk_minima(points, queries, point_norms, *, point_planes=None):
     """Per-subchunk u-domain minima (``_minima_kernel``, knn_kernel.py:804):
     ``(Q, ceil(N / 128))`` float32, column c the minimum of u over rows
     [128c, 128c + 128), on the tensor-core tier (``_u_tc``; ``tc_probe``
     runs before the first launch on a device).
 
     ``points`` (N, d), ``point_norms`` (N,) as made by ``pad_for_pallas``;
-    ``queries`` (Q, d); all float32 on one device.  CUDA tensors launch
-    ``csrc/knn_minima.cu`` (counted in ``subchunk_minima.launches``); CPU
-    tensors run ``subchunk_minima_reference``.
+    ``queries`` (Q, d); all float32 on one device; ``point_planes`` the
+    points' piece planes (``split_planes(points)``, as an index holds them;
+    split here when None).  CUDA tensors launch ``csrc/knn_minima.cu``
+    (counted in ``subchunk_minima.launches``); CPU tensors run
+    ``subchunk_minima_reference``.
     """
     check_arrays(points, queries, point_norms, "subchunk_minima")
+    point_planes = _points_planes(points, point_planes, "subchunk_minima")
     if points.device.type == "cpu":
         return subchunk_minima_reference(points, queries, point_norms)
     tc_probe(points.device)
-    out = _launch("subchunk", points, queries, point_norms, SUBCHUNK)
+    out = _launch("subchunk", points, queries, point_norms, SUBCHUNK,
+                  point_planes)
     subchunk_minima.launches += 1
     return out
 
 
-def bcap_minima(points, queries, point_norms):
+def bcap_minima(points, queries, point_norms, *, point_planes=None):
     """Per-block u-domain minima (``_bcap_minima_kernel``,
     knn_kernel.py:706): ``(Q, ceil(N / 16))`` float32, column b the minimum
     of u over rows [16b, 16b + 16), the bcap kernel's block ids, on the
@@ -181,10 +193,12 @@ def bcap_minima(points, queries, point_norms):
     tensors run ``bcap_minima_reference``.
     """
     check_arrays(points, queries, point_norms, "bcap_minima")
+    point_planes = _points_planes(points, point_planes, "bcap_minima")
     if points.device.type == "cpu":
         return bcap_minima_reference(points, queries, point_norms)
     tc_probe(points.device)
-    out = _launch("block", points, queries, point_norms, BCAP_BLOCK)
+    out = _launch("block", points, queries, point_norms, BCAP_BLOCK,
+                  point_planes)
     bcap_minima.launches += 1
     return out
 

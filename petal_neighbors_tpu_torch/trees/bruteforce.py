@@ -24,6 +24,12 @@ Four layouts, chosen at build (the JAX package's, trees/bruteforce.py:
   queries with ``1 <= k <= PALLAS_K_MAX = 4088`` run the bcap, capped, fold
   or merge kernel and a direct-form rescore, proved and repaired where
   the scheme needs it (``ops.bruteforce.knn_prepadded``).
+
+On the card both of the last two also hold the padded rows' piece planes
+(``ops.cuda.tc_planes.index_planes``, made once at build or at
+``_from_prepared``, never saved: 1.5 times the padded rows' bytes at d a
+multiple of 32), which the tensor-core kernels (bcap, capped, merge) read;
+only each call's queries are split again.  On the CPU they hold none.
 * **scan** — everything else (f64, SqEuclidean, Haversine, low
   dimensions, small corpora): the streamed scan ``ops.bruteforce.knn``.
   A kernel layout answers k beyond its kernels with the scan over its own
@@ -50,6 +56,7 @@ import torch
 from ..distance import DIRECT_DIM_MAX, Cosine, Euclidean, Metric, get_metric
 from ..ops import bruteforce as bf
 from ..ops.cuda.lp_kernel import LP_K_MAX, lp_spec_for
+from ..ops.cuda.tc_planes import index_planes
 from ..utils.profiling import span
 from ..utils.validation import (check_points, check_points_host, check_query,
                                 check_query_batch, resolve_device)
@@ -78,6 +85,7 @@ class BruteForce:
         self._center = None
         self.point_norms = None
         self._pts = self._norms = self._invalid = self._mask = None
+        self._planes = None
         self._lp_spec = None
         self._cosine = self._bcap = False
         probe = check_points_host(points)
@@ -98,10 +106,12 @@ class BruteForce:
             self._cosine = True
             self._pts, self._norms, self._invalid = bf.prepare_cosine_index(
                 check_points(probe, self.device))
+            self._planes = index_planes(self._pts)
         elif type(self.metric) is Euclidean and f32:
             (self._center, self._pts, self._norms,
              self._invalid) = bf.prepare_euclidean_index(
                  check_points(probe, self.device))
+            self._planes = index_planes(self._pts)
             self._bcap = bf.with_bcap_planes(n, d)
         else:
             self.points = check_points(probe, self.device)
@@ -172,6 +182,8 @@ class BruteForce:
                                          ("bad", self._invalid))))
         if self._lp_spec is None and self._pts.shape[0] % bf.PAD_ROWS:
             self._pts, self._norms = bf.pad_for_pallas(self._pts, self._norms)
+        self._planes = (index_planes(self._pts) if self._lp_spec is None
+                        else None)
         self._bcap = (type(self.metric) is Euclidean
                       and bf.with_bcap_planes(n, d))
         self._qpoints = None
@@ -252,7 +264,8 @@ class BruteForce:
                 d, i = bf.knn_prepadded(self._pts, self._norms, qs, k_eff, n,
                                         self._center, scheme=scheme,
                                         normalize_q=self._cosine,
-                                        out_rdist=self._cosine)
+                                        out_rdist=self._cosine,
+                                        planes=self._planes)
                 if self._cosine:
                     # ‖q̂−x̂‖²/2 == 1 − q̂·x̂; /2 is exact and keeps the order
                     d = d * 0.5

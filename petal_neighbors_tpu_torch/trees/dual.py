@@ -37,6 +37,7 @@ import torch
 
 from ..distance import Euclidean, Metric
 from ..ops import bruteforce as bf
+from ..ops.cuda.tc_planes import index_planes
 from ..ops.topk import merge_topk, monotone_distances, nan_to_inf
 from ..utils.tree_math import TreeShape
 from .ball_query import (_bound_slack, _guarded_centroid_dist, _leaf_tables,
@@ -234,11 +235,12 @@ def _join_via_kernel(queries, points, k: int, qblock: int = 131072):
     planes.  No column padding: the port's kernels take any d."""
     n = points.shape[0]
     mu, ppad, pnorm, _ = bf.prepare_euclidean_index(points)
+    planes = index_planes(ppad)
     scheme = bf.pick_scheme(k, n, bcap_planes=False)
     ds, is_ = [], []
     for s in range(0, queries.shape[0], qblock):
         d, i = bf.knn_prepadded(ppad, pnorm, queries[s:s + qblock], k, n,
-                                mu, scheme=scheme)
+                                mu, scheme=scheme, planes=planes)
         ds.append(d)
         is_.append(i)
     return torch.cat(ds), torch.cat(is_).to(torch.int32)

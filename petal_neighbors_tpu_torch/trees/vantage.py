@@ -48,6 +48,7 @@ from .. import native
 from ..distance import DIRECT_DIM_MAX, Euclidean, Metric, get_metric
 from ..ops import bruteforce as bf
 from ..ops.bruteforce import append_ids
+from ..ops.cuda.tc_planes import index_planes
 from ..ops.topk import merge_topk, nan_to_inf, smallest_k
 from ..utils.validation import (check_points, check_query, check_query_batch,
                                 resolve_device)
@@ -674,15 +675,16 @@ class VantagePointTree:
         ``BruteForce`` holds them.  ``False`` when the corpus has a NaN
         row: the kernels never return a NaN point, where the scans return
         it at +inf when k exceeds the finite rows, so NaN corpora stay on
-        the scans (vantage.py:695-717).  The port's kernels split on the
-        fly, so the JAX route's split planes have no counterpart here."""
+        the scans (vantage.py:695-717).  Beside them the padded points'
+        piece planes (``index_planes``: on the card only), which the
+        tensor-core kernels read, made here once."""
         if self._kern is None:
             if bool(torch.isnan(self.points).any()):
                 self._kern = False
             else:
                 mu = bf.center_of(self.points)
                 pp, pn = bf.pad_for_pallas(self.points - mu)
-                self._kern = (mu, pp, pn)
+                self._kern = (mu, pp, pn, index_planes(pp))
         return self._kern
 
     def _kernel_route_ok(self, q: int, k_eff: int) -> bool:
@@ -811,8 +813,9 @@ class VantagePointTree:
         """Batched k-NN through the flat index's kernels, exact by the
         direct-form rescore and the proof (``knn_prepadded``).  The VP
         tree holds no bcap planes, so its route never takes bcap."""
-        mu, pp, pn = self._kernel_tables()
-        return bf.knn_prepadded(pp, pn, qs, k_eff, self.n, mu, scheme=scheme)
+        mu, pp, pn, planes = self._kernel_tables()
+        return bf.knn_prepadded(pp, pn, qs, k_eff, self.n, mu, scheme=scheme,
+                                planes=planes)
 
     def _knn(self, qs, k_eff: int, with_stats: bool = False):
         return _vp_knn_flat(self.points, qs, *self._flat_tables(), k=k_eff,
