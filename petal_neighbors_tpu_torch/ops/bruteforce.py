@@ -451,8 +451,9 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
         if k_scan <= FOLD_K_MAX:
             _, idx = knn_fold(pts_padded, qu, xn_padded, k=k_scan)
         else:
-            _, idx = knn_merge(pts_padded, qu, xn_padded, k=k_scan,
-                               point_planes=planes)
+            with span("petal.route.merge"):
+                _, idx = knn_merge(pts_padded, qu, xn_padded, k=k_scan,
+                                   point_planes=planes)
         fr, fi = _rescore(pts_padded, qu, torch.where(idx < n_real, idx, -1),
                           k_eff)
         best_rd = best_rd.index_copy(0, unc, fr)
@@ -468,8 +469,9 @@ def _fold_route(pts_padded, xn_padded, queries, scheme: str, k_eff: int,
     k_eff)."""
     with span("petal.route.candidates"):
         if scheme == "merge":
-            _, idx = knn_merge(pts_padded, queries, xn_padded, k=k_scan,
-                               point_planes=planes)
+            with span("petal.route.merge"):
+                _, idx = knn_merge(pts_padded, queries, xn_padded, k=k_scan,
+                                   point_planes=planes)
         else:
             run = {"fold": knn_fold, "fold_lazy": knn_fold_lazy}[scheme]
             _, idx = run(pts_padded, queries, xn_padded, k=k_scan)

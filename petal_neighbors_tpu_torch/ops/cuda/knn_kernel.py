@@ -1175,10 +1175,12 @@ def knn_merge(points, queries, point_norms, *, k: int, point_planes=None):
     call in ``knn_merge.launches``; ``knn_merge.last_passes`` holds the
     collect passes of each chunk of queries of the last call), on the
     piece planes, ``point_planes`` as ``knn_capped`` takes them; CPU
-    tensors run ``knn_merge_reference``.
+    tensors run ``knn_merge_reference``.  Either way the call's queries
+    count in the profiling counter ``knn.merge_queries``.
     """
     _check(points, queries, point_norms, k, "knn_merge", MERGE_K_MAX)
     point_planes = _points_planes(points, point_planes, "knn_merge")
+    count("knn.merge_queries", queries.shape[0])
     if points.device.type == "cpu":
         return knn_merge_reference(points, queries, point_norms, k=k)
     if queries.shape[0]:

@@ -25,15 +25,19 @@ profiler recording it is a shared no-op context.  The spans:
   ``petal.route.candidates`` (the candidate kernel), ``petal.route.rescore``
   (the direct-form rescore and re-rank), ``petal.route.proof`` (the k-th
   distance against the threshold), ``petal.route.repair`` (the body of
-  ``_prove_repair``) and ``petal.route.out`` (sqrt and clamp).
+  ``_prove_repair``) and ``petal.route.out`` (sqrt and clamp); every
+  route call of ``knn_merge`` (the merge scheme's candidates, and the
+  repair above ``k_scan = 1024``) lies in ``petal.route.merge``, inside
+  ``petal.route.candidates`` or ``petal.route.repair``.
 
 ``count`` adds to in-memory integer counters, always on: one dict update,
 never a sync with the card.  ``route.queries`` counts the queries of every
 ``knn_prepadded`` call; ``route.normalized`` those it normalised (a
 cosine index's); ``route.repaired`` the queries its proof left to the
 repair; ``knn.few_queries`` the queries of every launch of the
-few-query kernel (``ops.cuda.knn_kernel.knn_few``).  ``counters`` returns
-a copy, ``reset_counters`` clears them.
+few-query kernel (``ops.cuda.knn_kernel.knn_few``); ``knn.merge_queries``
+the queries of every ``ops.cuda.knn_kernel.knn_merge`` call.
+``counters`` returns a copy, ``reset_counters`` clears them.
 """
 
 from __future__ import annotations
