@@ -23,6 +23,15 @@ Phases, each printed as one JSON line on stdout:
               of the functional knn() (no index: it pads and splits its
               rows in the call) costs beside an index's query_batch:
               host time and device memory above its inputs.
+   rescore — the direct-form rescore (rescore_kernel.rescore_rd,
+              csrc/rescore.cu) at RESCORE_SHAPES, the benchmark's batch
+              cells' rescores and one single query: the kernel's time
+              beside its byte bound (the candidate rows read once) and its
+              plain version's on the card; its +inf exactly where the
+              plain version's are, its rdist within rescore_rounding of a
+              float64 sum of the same rounded differences' squares (the
+              first 64 queries), and its largest relative gap to the plain
+              version.
    mst_kernel_small — the Borůvka scan kernel (csrc/mst_scan.cu)
               against its plain version, bw and bj bit for bit: n ragged
               against the 256-row stages (1 to 4,097), d = 1 to 8 (the
@@ -372,6 +381,7 @@ LP_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/lp_knn.cu"
 MINIMA_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_minima.cu"
 FEW_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/knn_few.cu"
 SPLIT_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/split_planes.cu"
+RESCORE_SOURCE = "petal_neighbors_tpu_torch/ops/cuda/csrc/rescore.cu"
 #: the opt-in schemes' requests on the SIFT index, in order
 OPT_IN = (("bcap2", 10), ("bcap2", 100), ("two_phase", 10),
           ("fold_lazy", 10))
@@ -3042,6 +3052,85 @@ def same_bits(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
+#: the rescore's shapes: (cell, index rows, d, queries, ids a query, block)
+RESCORE_SHAPES = (
+    ("sift1m.batch-k10", 1_000_000, 128, 10_000, 18, 16),
+    ("gist1m.batch-k10", 1_000_000, 960, 1_000, 18, 1),
+    ("glove100.batch-k10", 1_183_514, 100, 10_000, 18, 1),
+    ("sift1m.batch-k100", 1_000_000, 128, 10_000, 108, 1),
+    ("nytimes256.batch-k1000", 290_000, 256, 10_000, 1008, 1),
+    ("sift1m.batch-k1000", 1_000_000, 128, 10_000, 1008, 1),
+    ("sift1m.single-k10", 1_000_000, 128, 1, 18, 1))
+
+
+def phase_rescore() -> dict:
+    """The direct-form rescore (``rescore_kernel.rescore_rd``,
+    ``csrc/rescore.cu``) at ``RESCORE_SHAPES``: random rows (bcap's with
+    the index's norms and a padded tail), random int32 ids; the kernel's
+    device time (held behind a sleep, so a short call is not timed at the
+    host's launch rate) beside its byte bound (rows gathered, ids, queries
+    and rdist, each once, at 3.35 TB/s) and its plain version's on the
+    card.  Raises unless its +inf lie where the plain version's do and
+    its rdist on the first 64 queries lie within ``rescore_rounding`` of
+    a float64 sum of the same rounded differences' squares.  Returns the
+    rows by cell."""
+    from petal_neighbors_tpu_torch.ops.cuda import rescore_kernel as rk
+
+    out = {}
+    for cell, n, d, q, width, block in RESCORE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(n + d + width)
+        n_pad = -(-n // 64) * 64
+        points = torch.rand((n_pad, d), generator=g, device="cuda") * 255.0
+        norms = None
+        if block > 1:
+            points[n:] = 0.0
+            norms = torch.sum(points * points, dim=1)
+            norms[n:] = torch.inf
+        queries = torch.rand((q, d), generator=g, device="cuda") * 255.0
+        ids = torch.randint(0, -(-n_pad // block), (q, width), generator=g,
+                            device="cuda", dtype=torch.int32)
+        run = lambda: rk.rescore_rd(points, queries, ids, block=block,
+                                    norms=norms)
+        plain = lambda: rk.rescore_rd_reference(points, queries, ids,
+                                                block=block, norms=norms)
+        got, want = run(), plain()
+        if not torch.equal(torch.isinf(got), torch.isinf(want)):
+            raise AssertionError(f"rescore {cell}: +inf differ from the "
+                                 "plain version's")
+        fin = torch.isfinite(want)
+        gap = float(torch.max(torch.abs(got[fin] - want[fin])
+                              / want[fin]).item())
+        head = min(q, 64)
+        off = torch.arange(block, device="cuda", dtype=torch.int64)
+        rows = (ids[:head].long()[:, :, None] * block + off).reshape(head, -1)
+        ok = fin[:head]
+        diff = queries[:head, None, :] - points[torch.where(ok, rows, 0)]
+        oracle = torch.sum(diff.double() ** 2, dim=-1)
+        vec = d % 4 == 0
+        err = float(torch.max(torch.abs(got[:head].double() - oracle)[ok]
+                              / oracle[ok]).item())
+        if err > rk.rescore_rounding(d, torch.float32, vec):
+            raise AssertionError(f"rescore {cell}: relative error {err} over "
+                                 f"{rk.rescore_rounding(d, torch.float32, vec)}")
+        del diff, oracle, want
+        pairs = q * width * block
+        bytes_ = 4 * (pairs * d + q * width + q * d + pairs)
+        ms = cuda_ms(run, reps=5, hold=True)
+        out[cell] = {
+            "q": q, "width": width, "block": block, "d": d, "n": n,
+            "plan": rk.rescore_plan(q, width * block, d, 4, vec,
+                                    torch.cuda.get_device_properties(0)
+                                    .multi_processor_count),
+            "ms": ms, "plain_ms": cuda_ms(plain, reps=2),
+            "bound_ms": bytes_ / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+            "bound_share": bytes_ / PEAK_BYTES_S * 1e3 / ms,
+            "max_rel_err_f64": err, "max_rel_gap_plain": gap}
+        emit("rescore", cell=cell, **out[cell])
+        del points, norms, queries, ids, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_mst_kernel_small() -> int:
     """The scan kernel against its plain version on the card, bit for bit
     in bw and bj, at MST_CASES.  Returns the cases held."""
@@ -3575,7 +3664,10 @@ def phase_knn_route(index, pdev, qdev, oracles, flat_qps, wrappers,
         (d, i), wall = timed(lambda: bf.knn(fp, fq, FAULT_K,
                                             backend=backend), reps=1)
         got = read_launches(wrappers)
-        if bool(got) != (backend == "auto"):
+        # both backends rescore through the rescore kernel; only "auto"
+        # scans on a kernel
+        scanned = any(c for s, c in got.items() if s != "rescore")
+        if scanned != (backend == "auto") or not got.get("rescore"):
             raise AssertionError(f"knn_route fault case {backend}: "
                                  f"launches {got}")
         a = torch.sort(i.long(), dim=1).values
@@ -4168,11 +4260,13 @@ def main() -> int:
                                                     "knn_select",
                                                     "knn_minima",
                                                     "mst_scan",
-                                                    "split_planes")},
+                                                    "split_planes",
+                                                    "rescore")},
          wgmma_notes={name: wgmma_notes(log) for name, log in logs.items()
                       if name in ("knn_fold", "knn_select", "knn_minima")})
     tc_ratio = phase_tc_probe()
     plane_rows = phase_planes()
+    rescore_rows = phase_rescore()
     mst_cases = phase_mst_kernel_small()
 
     rng = np.random.default_rng(SEED)
@@ -4198,6 +4292,7 @@ def main() -> int:
     # ---- the main paths ------------------------------------------------
     from petal_neighbors_tpu_torch.ops.cuda import rank_sort_kernel as rk
     from petal_neighbors_tpu_torch.ops.cuda import sort_kernel as sk
+    from petal_neighbors_tpu_torch.ops.cuda import rescore_kernel
     from petal_neighbors_tpu_torch.ops.cuda import tc_planes as tp
 
     wrappers = {"fold": kk.knn_fold, "capped": kk.knn_capped,
@@ -4208,7 +4303,8 @@ def main() -> int:
                 "subchunk_minima": mk.subchunk_minima,
                 "bcap_minima": mk.bcap_minima,
                 "mst_scan": msk.scan_minout, "few": kk.knn_few,
-                "split_planes": tp.split_planes}
+                "split_planes": tp.split_planes,
+                "rescore": rescore_kernel.rescore_rd}
     # the route's fold calls, with their query counts: under bcap and
     # capped they are the repairs of the queries the proof left uncovered
     fold_rows = []
@@ -4236,9 +4332,9 @@ def main() -> int:
     launches, fold_by_path, flat_qps = {}, {}, {}
     for phase, ks, qs, reps, need in (
             ("main", MAIN_K, qdev, 3, ("fold", "capped", "bcap", "few",
-                                       "split_planes")),
+                                       "split_planes", "rescore")),
             ("main_large_k", LARGE_K, qdev[:N_Q_LARGE], 2,
-             ("capped", "merge", "bitonic_sort", "rank_sort"))):
+             ("capped", "merge", "bitonic_sort", "rank_sort", "rescore"))):
         for w in wrappers.values():
             w.launches = 0
         fold_paths.update(few=0, select=0, stream=0)
@@ -4515,6 +4611,20 @@ def main() -> int:
         "shape": {"rows": split["rows"], "d": split["d"]},
         "queries": plane_rows["queries"],
         "adapter_launches": {name: got.get("split_planes", 0)
+                             for name, got in adapters.items()}})
+    # the direct-form rescore (no TPU kernel: XLA fuses the JAX package's
+    # jnp rescore), timed at each batch cell's shape; no one PyTorch call
+    # gathers and scores, so no library call
+    kernels.append({
+        "name": "rescore", "route": "cuda", "source": RESCORE_SOURCE,
+        "replaces": None, "launches": launches["rescore"],
+        "max_rel_err_f64": max(r["max_rel_err_f64"]
+                               for r in rescore_rows.values()),
+        "library_ms": None, "bound_by": "bytes",
+        "cells": {cell: {key: r[key] for key in ("ms", "plain_ms",
+                                                 "bound_ms", "plan")}
+                  for cell, r in rescore_rows.items()},
+        "adapter_launches": {name: got.get("rescore", 0)
                              for name, got in adapters.items()}})
     for kind, row in sorts.items():
         kernels.append({

@@ -55,6 +55,7 @@ from .cuda.knn_kernel import (BCAP_BLOCK, FOLD_K_MAX, MERGE_K_MAX,
 from .cuda.lp_kernel import lp_knn, pad_for_lp
 from .cuda.minima_kernel import SUBCHUNK, bcap_minima, subchunk_minima
 from .cuda.rank_sort_kernel import rank_sort_pairs
+from .cuda.rescore_kernel import rescore_rd
 from .cuda.sort_kernel import bitonic_sort_pairs
 from .cuda.tc_planes import index_planes
 from .topk import (merge_topk, monotone_distances, nan_to_inf, rescore_exact,
@@ -277,39 +278,19 @@ def scan_width(scheme: str, k_eff: int, n_real: int) -> int:
     return k_scan
 
 
-def _rescore(pts_padded, queries, idx, k_eff: int):
-    """``rescore_exact`` over query chunks whose (rows, k_in, d) gather
-    stays near 256 MB of float32."""
-    q, dim = queries.shape
-    rows = max(1, (1 << 26) // (max(idx.shape[1], 1) * dim))
-    parts = [rescore_exact(pts_padded, queries[s:s + rows],
-                           idx[s:s + rows], k_eff)
-             for s in range(0, q, rows)]
-    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
-
-
 def _rescore_large(points, queries, idx, k: int):
     """Direct-form rescore and re-rank for ``k_scan`` in the hundreds to
-    thousands (ops/bruteforce.py:520-570): the gather and the direct form
-    run over query chunks of about 64 MB, and the re-rank is a row-sort
-    kernel, ``bitonic_sort_pairs`` up to width 2048 and
-    ``rank_sort_pairs`` above.  Same contract as ``rescore_exact``:
-    (rdist, ids) ascending, (Q, k); NaN distances are +inf; ids < 0 or
-    >= n count as missing."""
-    q, dim = queries.shape
+    thousands (ops/bruteforce.py:520-570): the rdist of every candidate
+    (``rescore_rd``), and the re-rank a row-sort kernel,
+    ``bitonic_sort_pairs`` up to width 2048 and ``rank_sort_pairs`` above.
+    Same contract as ``rescore_exact``: (rdist, ids) ascending, (Q, k); NaN
+    distances are +inf; ids < 0 or >= n count as missing."""
     n = points.shape[0]
-    k_in = idx.shape[1]
-    ok = (idx >= 0) & (idx < n)
-    safe = torch.where(ok, idx, 0).long()
-    rows = max(64, (1 << 24) // max(1, k_in * dim))
-    rd = torch.empty((q, k_in), dtype=points.dtype, device=points.device)
-    for s in range(0, q, rows):
-        diff = queries[s:s + rows, None, :] - points[safe[s:s + rows]]
-        rd[s:s + rows] = torch.sum(diff * diff, dim=-1)
-    rd = torch.where(ok, nan_to_inf(rd), torch.inf)
-    row_sort = (rank_sort_pairs if k_in > BITONIC_WIDTH_MAX
+    rd = rescore_rd(points, queries, idx)
+    ids = torch.where((idx >= 0) & (idx < n), idx, -1).to(torch.int32)
+    row_sort = (rank_sort_pairs if idx.shape[1] > BITONIC_WIDTH_MAX
                 else bitonic_sort_pairs)
-    sd, si = row_sort(rd, torch.where(ok, idx, -1).to(torch.int32))
+    sd, si = row_sort(rd, ids)
     return sd[:, :k], si[:, :k]
 
 
@@ -318,33 +299,24 @@ def _rerank(pts_padded, queries, idx, k_eff: int, k_scan: int):
     719-724, :937-941): ``_rescore_large`` from ``k_scan >= 512``."""
     if k_scan >= 512:
         return _rescore_large(pts_padded, queries, idx, k_eff)
-    return _rescore(pts_padded, queries, idx, k_eff)
+    return rescore_exact(pts_padded, queries, idx, k_eff)
 
 
 def _block_rd(pts_padded, xn_padded, queries, block_ids, block: int):
     """Exact direct-form rdist of every row of the candidate blocks, an id
-    b standing for rows [b*block, b*block + block), gathered together
-    (ops/bruteforce.py:375-415, :465-478).  Ids < 0, rows past the padded
+    b standing for rows [b*block, b*block + block) (``rescore_rd``;
+    ops/bruteforce.py:375-415, :465-478).  Ids < 0, rows past the padded
     index, and NaN and padding rows (+inf norms, an exclusion the direct
-    form cannot see) give (+inf, -1); NaN distances are +inf.  The gather
-    runs over query chunks of about 256 MB of float32.  Returns (rd (Q, R)
-    float32, rows (Q, R) int32), R = kb * block, in candidate order."""
+    form cannot see) give (+inf, -1); NaN distances are +inf, and every
+    +inf carries row -1.  Returns (rd (Q, R) float32, rows (Q, R) int32),
+    R = kb * block, in candidate order."""
     q, kb = block_ids.shape
-    n_pad, dim = pts_padded.shape
-    width = kb * block
-    off = torch.arange(block, dtype=block_ids.dtype, device=block_ids.device)
-    rows = (block_ids[:, :, None] * block + off).reshape(q, width)
-    ok = (block_ids >= 0).repeat_interleave(block, dim=1) & (rows < n_pad)
-    safe = torch.where(ok, rows, 0).long()
-    ok &= torch.isfinite(xn_padded[safe])
-    rd = torch.empty((q, width), dtype=pts_padded.dtype,
-                     device=pts_padded.device)
-    step = max(1, (1 << 26) // max(1, width * dim))
-    for s in range(0, q, step):
-        diff = queries[s:s + step, None, :] - pts_padded[safe[s:s + step]]
-        rd[s:s + step] = torch.sum(diff * diff, dim=-1)
-    return (torch.where(ok, nan_to_inf(rd), torch.inf),
-            torch.where(ok, rows, -1).to(torch.int32))
+    rd = rescore_rd(pts_padded, queries, block_ids, block=block,
+                    norms=xn_padded)
+    off = torch.arange(block, dtype=torch.int32, device=block_ids.device)
+    rows = (block_ids.to(torch.int32)[:, :, None] * block
+            + off).reshape(q, kb * block)
+    return rd, torch.where(torch.isinf(rd), -1, rows)
 
 
 def _block_rescore(pts_padded, xn_padded, queries, block_ids, k_eff: int,
@@ -454,8 +426,8 @@ def _prove_repair(covered, best_rd, best_i, pts_padded, xn_padded, queries,
             with span("petal.route.merge"):
                 _, idx = knn_merge(pts_padded, qu, xn_padded, k=k_scan,
                                    point_planes=planes)
-        fr, fi = _rescore(pts_padded, qu, torch.where(idx < n_real, idx, -1),
-                          k_eff)
+        fr, fi = rescore_exact(pts_padded, qu,
+                               torch.where(idx < n_real, idx, -1), k_eff)
         best_rd = best_rd.index_copy(0, unc, fr)
         best_i = best_i.index_copy(0, unc, fi)
         return best_rd, best_i

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .cuda.rescore_kernel import rescore_rd
+
 __all__ = ["nan_to_inf", "smallest_k", "merge_topk", "monotone_distances",
            "rescore_exact"]
 
@@ -67,16 +69,12 @@ def rescore_exact(points, queries, idx, k: int):
 
     The matmul distance form loses absolute accuracy ~eps*(|q|^2+|x|^2) to
     cancellation; every matmul-candidate path funnels its top-(k+slack)
-    through this single helper to restore exact-to-rounding distances.
-    ``idx`` entries < 0 (or >= len(points)) are treated as missing.
+    through this single helper to restore exact-to-rounding distances
+    (``rescore_rd``: one gather-and-score kernel on the card).  ``idx``
+    (Q, k_in) entries < 0 (or >= len(points)) are treated as missing.
 
-    Returns (rdist, idx) ascending, shapes (..., k).
+    Returns (rdist, idx) ascending, shapes (Q, k).
     """
     n = points.shape[0]
-    ok = (idx >= 0) & (idx < n)
-    safe = torch.where(ok, idx, 0).long()
-    cand = points[safe]                                # (..., k_in, d)
-    diff = queries[..., None, :] - cand
-    rd = torch.sum(diff * diff, dim=-1)
-    rd = torch.where(ok, nan_to_inf(rd), torch.inf)
-    return smallest_k(rd, torch.where(ok, idx, -1), k)
+    rd = rescore_rd(points, queries, idx)
+    return smallest_k(rd, torch.where((idx >= 0) & (idx < n), idx, -1), k)
