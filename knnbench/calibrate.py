@@ -65,13 +65,13 @@ def main(argv=None) -> int:
             _line("sweep", run, {"rate_qps": rate,
                                  "notes": run["notes"]})
         return 0
-    reference = spec.reference(cell["config"]["metric"])
+    reference = harness.reference_of(spec.mode(mode), cell["config"])
 
     def control(points, config, device):
         return harness.ReferenceIndex(reference, points, "tf32")
 
     for kind, seeds, factory in (
-            ("program", args.seeds, harness.program_index),
+            ("program", args.seeds, None),
             ("control", args.control_seeds, control)):
         for s in filter(None, seeds.split(",")):
             t = time.perf_counter()

@@ -4,16 +4,24 @@ plain reference, and the contract's result.
 ``run_cell`` is what ``run.py`` calls once it has found the card.  The
 tests call it on the CPU at small sizes, with the index made by
 ``index_factory``, to drive every step of a run but the card's.
+
+What a cell runs and how it is checked come from its files: the mode's
+``program`` builds the system under test (the flat index where the mode
+defines none), the mode's ``REFERENCE`` names the reference file (the
+configuration's ``metric`` where it names none), and that file's own
+``compare`` checks the window (``check.compare``, the k-NN check, where it
+defines none).
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import time
 from pathlib import Path
 
 from . import check, data, spec
-from .trace import NullTracer, Records, RepairProbe, Tracer
+from .trace import NullTracer, Records, Tracer
 
 #: where a traced run writes its profile, inside the checkout
 TRACE_DIR = spec.ROOT.parent / "build" / "knnbench"
@@ -23,6 +31,35 @@ def program_index(points, config, device):
     """The system under test: the port's flat exact index."""
     from petal_neighbors_tpu_torch import BruteForce
     return BruteForce(points, config["metric"], device=device)
+
+
+def index_program(points, config, traffic, device):
+    """``program_index`` as a mode's ``program``."""
+    return program_index(points, config, device)
+
+
+def program_of(mode):
+    """The mode's ``program(points, config, traffic, device)``, which
+    builds the system its ``warm`` and ``drive`` call; the flat index
+    where it defines none."""
+    return getattr(mode, "program", index_program)
+
+
+def reference_of(mode, config, root=None):
+    """The reference file the mode names (``REFERENCE``), else the one of
+    the configuration's metric."""
+    return spec.reference(getattr(mode, "REFERENCE", config["metric"]), root)
+
+
+def comparison(reference):
+    """The check of a cell whose reference this is, called as
+    ``(window, config, pool, limits, device, make_points) -> (numbers,
+    wrong)``: the reference's own ``compare``, else the k-NN check against
+    it."""
+    own = getattr(reference, "compare", None)
+    if own is not None:
+        return own
+    return functools.partial(check.compare, reference=reference)
 
 
 class ReferenceIndex:
@@ -63,11 +100,14 @@ def _device_info(device, chips):
 
 
 def run_cell(name, seed, seconds, trace, *, device="cuda", root=None,
-             t_start=None, index_factory=program_index,
+             t_start=None, index_factory=None,
              trace_dir=TRACE_DIR, traffic_update=None):
     """Run cell ``name`` once.  Returns ``{"result": <the contract's last
-    line>, "notes": <for the run's earlier lines>}``.  ``traffic_update``
-    changes traffic keys (the calibration's closed loops and sweeps)."""
+    line>, "notes": <for the run's earlier lines>}``.  ``index_factory``
+    ``(points, config, device)``, where given, builds the system in place
+    of the cell's own program (the controls and planted faults of the
+    tests and the calibration).  ``traffic_update`` changes traffic keys
+    (the calibration's closed loops and sweeps)."""
     if t_start is None:
         t_start = time.perf_counter()
     import torch
@@ -75,12 +115,15 @@ def run_cell(name, seed, seconds, trace, *, device="cuda", root=None,
     cell = spec.cell(name, root)
     cfg, trf = cell["config"], {**cell["traffic"], **(traffic_update or {})}
     mode = spec.mode(trf["mode"], root)
-    reference = spec.reference(cfg["metric"], root)
+    compare = comparison(reference_of(mode, cfg, root))
 
-    points = data.make_points(cfg, device)
-    pool = data.make_pool(cfg, seed, mode.pool_size(cfg, trf))
-    index = index_factory(points, cfg, device)
-    mode.warm(index, pool, cfg, trf, NullTracer())
+    points = data.make_points(cfg, device, root)
+    pool = data.make_pool(cfg, seed, mode.pool_size(cfg, trf), root)
+    if index_factory is None:
+        system = program_of(mode)(points, cfg, trf, device)
+    else:
+        system = index_factory(points, cfg, device)
+    mode.warm(system, pool, cfg, trf, NullTracer())
     _sync(device)
     setup_s = time.perf_counter() - t_start
 
@@ -90,24 +133,22 @@ def run_cell(name, seed, seconds, trace, *, device="cuda", root=None,
                         int(trf["trace_warmup_steps"]),
                         int(trf["trace_steps"]),
                         torch.device(device).type == "cuda")
-        with RepairProbe() as probe, tracer.stretch():
-            window = mode.drive(index, pool, cfg, trf, seconds, tracer)
+        with tracer.stretch():
+            window = mode.drive(system, pool, cfg, trf, seconds, tracer)
     else:
-        window = mode.drive(index, pool, cfg, trf, seconds, NullTracer())
+        window = mode.drive(system, pool, cfg, trf, seconds, NullTracer())
     _sync(device)
     dev = _device_info(device, int(cell["chips"]))
     notes.update(window["notes"])
-    if trace and probe.installed:
-        notes["repair_calls"] = probe.calls
-        notes["repaired_per_1000_queries"] = (
-            1000.0 * probe.repaired() / window["attempted"])
 
-    del index, points
+    del system, points
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    numbers, wrong = check.compare(window, cfg, pool, reference,
-                                   cell["limits"], device)
+    t_check = time.perf_counter()
+    numbers, wrong = compare(window, cfg, pool, cell["limits"], device,
+                             lambda: data.make_points(cfg, device, root))
+    notes["check_s"] = time.perf_counter() - t_check
     correct = wrong == 0 and all(v <= lim for v, lim in numbers.values())
 
     result = {"correct": correct, "attempted": window["attempted"],
@@ -116,8 +157,7 @@ def run_cell(name, seed, seconds, trace, *, device="cuda", root=None,
         rec = Records.from_file(tracer.path, mode=trf["mode"], config=cfg,
                                 traffic=trf,
                                 queries_per_step=mode.queries_per_step(
-                                    cfg, trf),
-                                repair_probe=probe.installed)
+                                    cfg, trf))
         metrics = {}
         for mname, reader in spec.metric_readers(root).items():
             value = reader.read(rec)

@@ -1,10 +1,8 @@
 """route_repair_ms_per_batch.batch: the device time of the kernels
 launched under the route's repair (the program's ``petal.route.repair``
 span, the whole body of ``ops/bruteforce.py`` ``_prove_repair``), in
-milliseconds per profiled batch: the kernels that
-``repair_ms_per_batch.batch`` reads through its wrapper, from the
-program's own span.  Batch cells only; nothing to read where the program
-records no such span."""
+milliseconds per profiled batch.  Batch cells only; nothing to read where
+the program records no such span."""
 
 from knnbench import spans
 

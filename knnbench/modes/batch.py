@@ -6,7 +6,8 @@ are copied back to the host before the next batch is sent.  The pool
 holds ``pool`` distinct queries, a whole number of batches, cycled, so no
 query repeats inside a batch.  ``qps`` is every query answered in the window over the
 time from the window's start to the last batch's answers on the host;
-only whole batches count.
+only whole batches count.  The window's answers go to the check as the
+batches made them, one ``(rows, dists, ids)`` part a batch.
 
 Traffic keys: ``k``; ``batch`` (a number, or "published" for the
 configuration's published query count); ``pool``; ``warmup_steps``.
@@ -74,14 +75,13 @@ def drive(index, pool, config, traffic, seconds, tracer):
         if t - t0 >= seconds:
             break
     elapsed = t - t0
-    rows = np.concatenate([np.arange(o, o + b) for o in offs])
+    attempted = j * b
     walls_ms = np.asarray(walls) * 1e3
     return {
-        "rows": rows,
-        "dists": np.concatenate(dists),
-        "ids": np.concatenate(ids),
-        "attempted": int(rows.size),
-        "metrics": {"qps": rows.size / elapsed},
+        "answers": [(np.arange(o, o + b), d, i)
+                    for o, d, i in zip(offs, dists, ids)],
+        "attempted": attempted,
+        "metrics": {"qps": attempted / elapsed},
         "notes": {"batches": j, "batch": b, "window_s": elapsed,
                   "batch_ms_p50": float(np.percentile(walls_ms, 50)),
                   "batch_ms_p95": float(np.percentile(walls_ms, 95)),

@@ -87,9 +87,8 @@ def drive(index, pool, config, traffic, seconds, tracer):
             break
     lat_ms = np.asarray(lat) * 1e3
     return {
-        "rows": np.asarray(rows, dtype=np.int64),
-        "dists": np.stack(dists),
-        "ids": np.stack(ids),
+        "answers": [(np.asarray(rows, dtype=np.int64), np.stack(dists),
+                     np.stack(ids))],
         "attempted": j,
         "metrics": {"query_p95_ms": float(np.percentile(lat_ms, 95))},
         "notes": {"queries": j, "window_s": t - t0,

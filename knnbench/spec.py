@@ -9,10 +9,15 @@ folder, named after it:
 * ``configs/<config>.json``: the data set's sizes, metric and values;
 * ``traffic/<traffic>.json``: the traffic mix's parameters, read by the
   driver of its ``mode``;
-* ``modes/<mode>.py``: one driver loop a mode (``pool_size``, ``warm``,
-  ``drive``);
-* ``references/<metric>.py``: the plain reference of a metric
-  (``search``, ``distances``);
+* ``modes/<mode>.py``: the loop that sends a mix (``END_TO_END``,
+  ``pool_size``, ``queries_per_step``, ``warm``, ``drive``), and where the
+  cell runs more than the flat index, its own ``program`` and the name of
+  its ``REFERENCE``;
+* ``references/<name>.py``: a plain reference (``search``, ``distances``
+  for the k-NN check; or its own ``compare``), named by the configuration's
+  ``metric`` unless the mode names another;
+* ``values/<distribution>.py``: a configuration's data other than the
+  built-in ``uniform`` (``make_points``, ``make_pool``);
 * ``metrics/<name>.py``: one reader of a traced run's records a per-layer
   metric (``UNIT``, ``read(records)``, which returns None when it finds
   nothing to read).
@@ -86,8 +91,12 @@ def mode(name: str, root: Path | None = None):
     return load_module(_file(root, "modes", name, ".py"))
 
 
-def reference(metric: str, root: Path | None = None):
-    return load_module(_file(root, "references", metric, ".py"))
+def reference(name: str, root: Path | None = None):
+    return load_module(_file(root, "references", name, ".py"))
+
+
+def values(distribution: str, root: Path | None = None):
+    return load_module(_file(root, "values", distribution, ".py"))
 
 
 def names(folder: str, suffix: str, root: Path | None = None) -> list[str]:

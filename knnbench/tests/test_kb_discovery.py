@@ -81,7 +81,7 @@ def test_new_files_need_no_edit(tiny_root, tmp_path):
     assert "tiny2.batch-k5" in spec.names("workloads", ".json", tiny_root)
     assert "steps_traced.new" in spec.metric_readers(tiny_root)
     for trace in (0, 1):
-        run = harness.run_cell("tiny2.batch-k5", 5, 0.2, trace, device="cpu",
+        run = harness.run_cell("tiny2.batch-k5", 5, 1.0, trace, device="cpu",
                                root=tiny_root, trace_dir=tmp_path)
         r = run["result"]
         assert r["correct"], r["checks"]

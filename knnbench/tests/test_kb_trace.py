@@ -9,9 +9,11 @@ import pytest
 
 from kb_helpers import TINY
 from knnbench import roofline, spec
-from knnbench.trace import REPAIR_SPAN, WAIT_SPAN, Records
+from knnbench.trace import WAIT_SPAN, Records
 
 readers = spec.metric_readers()
+#: a span of the program's, around the kernels it launches
+REPAIR_SPAN = "petal.route.repair"
 
 
 def ev(cat, name, ts, dur, corr=None):
@@ -42,10 +44,9 @@ def batch_trace():
     ]
 
 
-def records(events, mode="batch", qps=10, probe=True):
+def records(events, mode="batch", qps=10):
     return Records(events, mode=mode, config=TINY,
-                   traffic={"k": 10}, queries_per_step=qps,
-                   repair_probe=probe)
+                   traffic={"k": 10}, queries_per_step=qps)
 
 
 def test_batch_records():
@@ -56,8 +57,8 @@ def test_batch_records():
     assert [e["name"] for e in rec.kernels_launched_in(REPAIR_SPAN)] == [
         "fold"]
     assert readers["device_idle_pct.batch"].read(rec) == pytest.approx(30.0)
-    assert readers["repair_ms_per_batch.batch"].read(rec) == pytest.approx(
-        0.010)
+    assert readers["route_repair_ms_per_batch.batch"].read(
+        rec) == pytest.approx(0.010)
     want = 100 * roofline.least_seconds(20, 8192, 40, 10) / 130e-6
     assert readers["knn_roofline_pct.batch"].read(rec) == pytest.approx(want)
     for m in ("device_idle_pct.single", "launches_per_query.single"):
@@ -74,13 +75,6 @@ def test_batch_records():
     assert gaps[REPAIR_SPAN] == pytest.approx(20e-6)
 
 
-def test_no_repair_span_or_probe_reads_nothing():
-    evs = [e for e in batch_trace() if e["name"] != REPAIR_SPAN]
-    assert readers["repair_ms_per_batch.batch"].read(records(evs)) is None
-    rec = records(batch_trace(), probe=False)
-    assert readers["repair_ms_per_batch.batch"].read(rec) is None
-
-
 def test_no_device_events_reads_nothing():
     """A trace without the card's activity gives no device metric, never
     an idle share of 100% or a roofline of 0."""
@@ -88,8 +82,7 @@ def test_no_device_events_reads_nothing():
                                                         "gpu_memcpy")]
     for mode in ("batch", "single"):
         rec = records(evs, mode=mode, qps=1)
-        assert all(r.read(rec) is None for name, r in readers.items()
-                   if name != "repair_ms_per_batch.batch"), mode
+        assert all(r.read(rec) is None for r in readers.values()), mode
 
 
 def test_single_records_leave_out_the_waits():

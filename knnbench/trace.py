@@ -3,9 +3,8 @@
 per-layer metrics read.
 
 The benchmark records its spans from its own files (``record_function``
-around the calls it makes, and around the route's repair, which it wraps
-by replacing ``petal_neighbors_tpu_torch.ops.bruteforce._prove_repair``
-for the traced run only).  The profiler traces CPU and CUDA activity over
+around the calls it makes); the program records its own inside them.
+The profiler traces CPU and CUDA activity over
 ``trace_steps`` steps of the window, after ``trace_warmup_steps`` steps
 whose events it drops; the stretch's Chrome trace is written inside the
 checkout and read back here.
@@ -21,8 +20,6 @@ from pathlib import Path
 #: the span the benchmark puts around the time its driver waits for a
 #: request's due time: the program is not working then
 WAIT_SPAN = "knnbench.pace_wait"
-#: the span around the wrapped repair of the route
-REPAIR_SPAN = "knnbench.repair"
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
@@ -78,45 +75,6 @@ class Tracer:
                 self._prof = None
 
 
-class RepairProbe:
-    """Wraps the route's ``_prove_repair`` in ``REPAIR_SPAN`` and counts the
-    queries that its ``covered`` argument leaves to the repair."""
-
-    ATTR = "_prove_repair"
-
-    def __init__(self):
-        self.calls = 0
-        self.installed = False
-        self._uncovered = []
-        self._mod = self._orig = None
-
-    def __enter__(self):
-        from petal_neighbors_tpu_torch.ops import bruteforce as mod
-        orig = getattr(mod, self.ATTR, None)
-        if orig is None:
-            return self
-        from torch.profiler import record_function
-
-        def wrapped(covered, *args, **kwargs):
-            self.calls += 1
-            self._uncovered.append((~covered).sum())
-            with record_function(REPAIR_SPAN):
-                return orig(covered, *args, **kwargs)
-
-        self._mod, self._orig = mod, orig
-        setattr(mod, self.ATTR, wrapped)
-        self.installed = True
-        return self
-
-    def __exit__(self, *exc):
-        if self._mod is not None:
-            setattr(self._mod, self.ATTR, self._orig)
-            self._mod = None
-
-    def repaired(self) -> int:
-        return int(sum(int(t) for t in self._uncovered))
-
-
 def _merge(intervals):
     out = []
     for a, b in sorted(intervals):
@@ -138,13 +96,12 @@ class Records:
 
     Times are microseconds on the trace's clock.  ``mode``, ``config`` and
     ``traffic`` describe the cell; ``steps`` and ``queries`` count the
-    profiled steps and the queries they sent; ``repair_probe`` says whether
-    the repair wrapper was in place."""
+    profiled steps and the queries they sent.  ``repair_probe`` is
+    accepted from callers that pass it and read by nothing."""
 
     def __init__(self, events, *, mode, config, traffic, queries_per_step,
-                 repair_probe=False):
+                 repair_probe=None):
         self.mode, self.config, self.traffic = mode, config, traffic
-        self.repair_probe = repair_probe
         xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
         steps = [e for e in xs if str(e.get("name", "")).startswith(
             STEP_PREFIX) and e.get("cat") == "user_annotation"]
